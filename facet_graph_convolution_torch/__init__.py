@@ -1,0 +1,19 @@
+"""facet_graph_convolution_torch — the PyTorch and CUDA port of
+``facet_graph_convolution_tpu`` for NVIDIA Hopper (H100).
+
+It keeps its own copies of the host code (``config``, ``geometry``,
+``graph``, ``data``) and imports nothing of the JAX package. The device path
+is PyTorch, with every kernel that the JAX package wrote in Pallas rewritten
+by hand in CUDA C++ under ``csrc/`` (see ``ops/facet_conv.py``).
+
+Layers of the inference path, entry point first:
+
+- ``cli.infer`` → ``inference.driver.infer_directory`` → ``infer_normals``;
+- ``data.dataset.InferenceMesh`` builds the coarsened patches on the host;
+- ``models.unet.unet_apply`` runs the U-Net forward per patch;
+- ``ops.conv.facet_conv`` wraps the hand-written kernel of
+  ``ops.facet_conv``;
+- ``ops.vertex_update.update_positions_edges`` moves the vertices.
+"""
+
+__version__ = "0.1.0"

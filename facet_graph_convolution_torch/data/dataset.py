@@ -1,0 +1,223 @@
+"""Mesh → tree-ordered, padded facet-graph patches (host, normals pipeline).
+
+The port's own copy of the normals-only pipeline of
+``facet_graph_convolution_tpu/data/dataset.py`` (reference
+``PreprocessedData.addMesh_TimeEfficient`` and ``InferenceMesh``,
+dataClasses.py:6-234, 509-531): per-mesh or per-BFS-patch K-list adjacency,
+normal-weighted Graclus coarsening retried while any level saturates K, and
+binary-tree node order with zero-signal fake nodes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from facet_graph_convolution_torch.geometry.mesh_math import (
+    compute_face_normals,
+    edge_map,
+    triangle_barycenters,
+)
+from facet_graph_convolution_torch.graph.adjacency import face_adjacency_klist
+from facet_graph_convolution_torch.graph.coarsen import coarsen_graph
+from facet_graph_convolution_torch.graph.convert import (
+    coo_to_klist,
+    invert_permutation,
+    klist_to_coo_normal_weighted,
+)
+from facet_graph_convolution_torch.graph.patching import grow_graph_patch_masked
+
+
+@dataclass
+class FacetPatch:
+    """One network input: a facet-graph patch in binary-tree order."""
+
+    inputs: np.ndarray                       # [N, 6] normals ++ barycenters
+    adjs: List[np.ndarray]                   # per-level K-lists [N/4^l, K]
+    num_real: int                            # faces before fake padding
+    gt_normals: Optional[np.ndarray] = None  # [N, 3]
+    patch_indices: Optional[np.ndarray] = None   # global face ids [num_real]
+    perm_inv: Optional[np.ndarray] = None    # tree order → original order
+
+    @property
+    def num_nodes(self) -> int:
+        return self.inputs.shape[0]
+
+
+def _coarsen_with_retry(
+    adj: np.ndarray,
+    positions: np.ndarray,
+    normals: np.ndarray,
+    k: int,
+    levels: int,
+    steps: int,
+    rng: np.random.Generator,
+    max_retries: int = 20,
+    reorder: Optional[str] = None,
+) -> Tuple[List[np.ndarray], np.ndarray]:
+    """Coarsen and convert back to K-lists, retrying the whole randomized
+    coarsening whenever a level saturates K (reference
+    dataClasses.py:114-131)."""
+    coo = klist_to_coo_normal_weighted(adj, positions, normals)
+    for _ in range(max_retries):
+        sparse_adjs, new_to_old = coarsen_graph(
+            coo, (levels - 1) * steps, rng=rng, reorder=reorder
+        )
+        klists = []
+        saturated = False
+        for lvl in range(levels):
+            klist, sat = coo_to_klist(sparse_adjs[steps * lvl], k)
+            klists.append(klist)
+            saturated = saturated or sat
+        if not saturated:
+            return klists, np.asarray(new_to_old)
+    raise RuntimeError("coarsening kept saturating K; increase k_faces")
+
+
+def build_patch(
+    features: np.ndarray,                    # [n, 6] normals ++ positions
+    adj: np.ndarray,                         # [n, K] one-indexed
+    gt_normals: Optional[np.ndarray],
+    levels: int,
+    steps: int,
+    rng: np.random.Generator,
+    patch_indices: Optional[np.ndarray] = None,
+    reorder: Optional[str] = None,
+) -> FacetPatch:
+    """Coarsen one patch into the tree-ordered padded record (reference
+    dataClasses.py:109-158)."""
+    k = adj.shape[1]
+    n = features.shape[0]
+    if levels > 1:
+        adjs, new_to_old = _coarsen_with_retry(
+            adj, features[:, -3:], features[:, :3], k, levels, steps, rng,
+            reorder=reorder,
+        )
+        new_n = len(new_to_old)
+        feat = np.zeros((new_n, features.shape[1]), features.dtype)
+        feat[:n] = features
+        feat = feat[new_to_old]
+        gt = None
+        if gt_normals is not None:
+            gt = np.zeros((new_n, 3), gt_normals.dtype)
+            gt[:n] = gt_normals
+            gt = gt[new_to_old]
+        return FacetPatch(
+            inputs=feat.astype(np.float32),
+            adjs=adjs,
+            num_real=n,
+            gt_normals=None if gt is None else gt.astype(np.float32),
+            patch_indices=patch_indices,
+            perm_inv=invert_permutation(new_to_old),
+        )
+    return FacetPatch(
+        inputs=features.astype(np.float32),
+        adjs=[adj],
+        num_real=n,
+        gt_normals=None if gt_normals is None else gt_normals.astype(np.float32),
+        patch_indices=patch_indices,
+        perm_inv=None,
+    )
+
+
+class MeshDataset:
+    """Meshes split into coarsened facet patches (reference
+    ``PreprocessedData``, dataClasses.py:6-478), normals pipeline only."""
+
+    def __init__(
+        self,
+        max_patch_size: int,
+        coarsening_steps: int,
+        coarsening_levels: int,
+        k_faces: int = 23,
+        min_patch_size: int = 2000,
+        max_edges: int = 20,
+        seed: Optional[int] = None,
+        reorder: Optional[str] = "rcm",
+    ):
+        self.patches: List[FacetPatch] = []
+        self.max_patch_size = max_patch_size
+        self.min_patch_size = min_patch_size
+        self.coarsening_steps = coarsening_steps
+        self.coarsening_levels = coarsening_levels
+        self.k_faces = k_faces
+        self.max_edges = max_edges
+        # reverse Cuthill-McKee coarse order (graph.coarsen.coarsen_graph);
+        # None gives the reference's identity coarse order
+        self.reorder = reorder
+        self.rng = np.random.default_rng(seed)
+        # whole-mesh data for inference reassembly
+        self.edge_map: Optional[np.ndarray] = None
+        self.v_e_map: Optional[np.ndarray] = None
+        self.vertices: Optional[np.ndarray] = None
+        self.faces: Optional[np.ndarray] = None
+        self.normals: Optional[np.ndarray] = None
+        self.num_vertices: int = 0
+        self.num_faces: int = 0
+
+    def add_mesh(
+        self,
+        vertices: np.ndarray,
+        faces: np.ndarray,
+        gt_vertices: Optional[np.ndarray] = None,
+    ) -> None:
+        """Add one mesh, split into masked BFS patches when it has more than
+        ``max_patch_size`` faces (reference dataClasses.py:34-234)."""
+        self.edge_map, self.v_e_map = edge_map(faces, max_edges=self.max_edges)
+        f_normals = compute_face_normals(vertices, faces)
+        adj = face_adjacency_klist(faces, self.k_faces)
+        f_pos = triangle_barycenters(vertices, faces)
+        features = np.concatenate([f_normals, f_pos], axis=1)
+        gt_normals = (
+            compute_face_normals(gt_vertices, faces) if gt_vertices is not None else None
+        )
+
+        fnum = faces.shape[0]
+        if fnum <= self.max_patch_size:
+            self.patches.append(
+                build_patch(
+                    features, adj, gt_normals,
+                    self.coarsening_levels, self.coarsening_steps, self.rng,
+                    reorder=self.reorder,
+                    patch_indices=np.arange(fnum),
+                )
+            )
+            return
+
+        covered = np.zeros(fnum, dtype=np.int8)
+        next_seed = -1
+        while np.any(covered == 0):
+            to_process = np.flatnonzero(covered == 0)
+            if next_seed == -1 or covered[next_seed] == 1:
+                seed = int(self.rng.choice(to_process))
+            else:
+                seed = next_seed
+            patch_adj, old_idx, next_seed = grow_graph_patch_masked(
+                adj, self.max_patch_size, seed, covered, self.min_patch_size
+            )
+            covered[old_idx] = 1
+            if old_idx.shape[0] < 100:      # skip tiny disjoint components
+                continue
+            self.patches.append(
+                build_patch(
+                    features[old_idx], patch_adj,
+                    None if gt_normals is None else gt_normals[old_idx],
+                    self.coarsening_levels, self.coarsening_steps, self.rng,
+                    patch_indices=old_idx, reorder=self.reorder,
+                )
+            )
+
+
+class InferenceMesh(MeshDataset):
+    """A whole mesh kept beside its patches for reassembly (reference
+    dataClasses.py:509-531)."""
+
+    def add_mesh(self, vertices, faces, gt_vertices=None):
+        super().add_mesh(vertices, faces, gt_vertices)
+        self.vertices = np.asarray(vertices, np.float32)
+        self.faces = np.asarray(faces)
+        self.normals = compute_face_normals(vertices, faces)
+        self.num_vertices = vertices.shape[0]
+        self.num_faces = faces.shape[0]

@@ -1,0 +1,93 @@
+"""Facet-graph adjacency K-list (host, NumPy).
+
+The port's own copy of the NumPy branch of
+``facet_graph_convolution_tpu/graph/adjacency.py::face_adjacency_klist``.
+
+The graph format is the padded K-list ``fadj[F, K]``: one-indexed, slot 0 =
+self, 0 = padding. Two faces are adjacent iff they share a vertex, so
+edge-shared neighbours appear twice, and connections beyond K−1 are dropped
+(reference ``getFacesLargeAdj``, utils.py:243-295).
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+
+
+def face_adjacency_klist(
+    faces: np.ndarray, k: int, return_dropped: bool = False
+):
+    """Vertex-shared facet adjacency K-list (reference ``getFacesLargeAdj``).
+
+    For every vertex (ascending) and every pair (a < b) of its incident faces
+    in face-index order, the reference appends b to a's list and then a to
+    b's, dropping entries once a face has K−1 neighbours (utils.py:272-291).
+    The same insertion sequence is reproduced with a global order key and a
+    stable grouped rank. A degenerate face that repeats a vertex is recorded
+    once per occurrence (the reference records a phantom face-0 neighbour).
+    """
+    faces = np.asarray(faces, dtype=np.int64)
+    fnum = faces.shape[0]
+    fadj = np.zeros((fnum, k), dtype=np.int32)
+    fadj[:, 0] = np.arange(fnum, dtype=np.int32) + 1
+    if fnum == 0:
+        return (fadj, 0) if return_dropped else fadj
+
+    vids = faces.reshape(-1)
+    fids = np.repeat(np.arange(fnum), 3)
+    order = np.lexsort((fids, vids))
+    vids, fids = vids[order], fids[order]
+
+    new = np.ones(vids.shape[0], dtype=bool)
+    new[1:] = vids[1:] != vids[:-1]
+    starts = np.flatnonzero(new)
+    counts = np.diff(np.append(starts, vids.shape[0]))
+
+    # all (a_idx < b_idx) incidence pairs per vertex, grouped by vertex
+    # degree; the insertion key is lexicographic (vertex, pair rank,
+    # which-of-the-two), the reference's double-loop order
+    max_deg = int(counts.max())
+    scale = np.int64(max_deg * (max_deg - 1) + 2)   # > 2 * max pairs per vertex
+    src_list, dst_list, key_list = [], [], []
+    for deg in np.unique(counts):
+        if deg < 2:
+            continue
+        sel = counts == deg
+        vstarts = starts[sel]                       # [nv]
+        inc = fids[vstarts[:, None] + np.arange(deg)[None, :]]   # [nv, deg]
+        ai, bi = np.triu_indices(deg, k=1)
+        npairs = ai.shape[0]
+        fa = inc[:, ai]                             # [nv, npairs]
+        fb = inc[:, bi]
+        pair_rank = np.broadcast_to(np.arange(npairs)[None, :], fa.shape)
+        vert_ids = np.broadcast_to(vids[vstarts][:, None], fa.shape).astype(np.int64)
+        base = vert_ids * scale + pair_rank * 2
+        src_list.append(np.stack([fa, fb], axis=-1).reshape(-1))
+        dst_list.append(np.stack([fb, fa], axis=-1).reshape(-1))
+        key_list.append(np.stack([base, base + 1], axis=-1).reshape(-1))
+
+    if not src_list:
+        return (fadj, 0) if return_dropped else fadj
+    src = np.concatenate(src_list)
+    dst = np.concatenate(dst_list)
+    keys = np.concatenate(key_list)
+
+    # order directed insertions globally, then rank within each target face
+    order = np.lexsort((keys, src))
+    src_o, dst_o = src[order], dst[order]
+    new_t = np.ones(src_o.shape[0], dtype=bool)
+    new_t[1:] = src_o[1:] != src_o[:-1]
+    tstarts = np.flatnonzero(new_t)
+    rank = np.arange(src_o.shape[0]) - np.repeat(
+        tstarts, np.diff(np.append(tstarts, src_o.shape[0]))
+    )
+    keep = rank < (k - 1)
+    fadj[src_o[keep], rank[keep] + 1] = dst_o[keep] + 1
+    dropped = int(np.sum(~keep))
+    if dropped:
+        warnings.warn(
+            f"face_adjacency_klist: {dropped // 2} connections dropped (K={k})"
+        )
+    return (fadj, dropped) if return_dropped else fadj

@@ -1,0 +1,200 @@
+"""K-list ↔ sparse adjacency conversion and the conv's host tables (NumPy).
+
+The port's own copy of the functions of
+``facet_graph_convolution_tpu/graph/convert.py`` that the inference path
+needs (reference ``listToSparseWNormals`` utils.py:1753-1796,
+``sparseToList`` utils.py:1799-1827, ``inv_perm`` utils.py:1830-1835), plus
+:func:`slot_major_arrays`, the tables of the kernel configuration
+(``facet_graph_convolution_tpu/ops/pallas_conv.py::slot_major_arrays``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import scipy.sparse
+
+
+def _klist_edges(adj: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Directed edges (row, col) of a one-indexed K-list, skipping slot 0
+    (self) and the 0 pads."""
+    n, k = adj.shape
+    neigh = adj[:, 1:].astype(np.int64) - 1
+    valid = neigh >= 0
+    rows = np.broadcast_to(np.arange(n)[:, None], neigh.shape)[valid]
+    cols = neigh[valid]
+    return rows, cols
+
+
+def klist_to_coo_normal_weighted(
+    adj: np.ndarray, positions: np.ndarray, normals: np.ndarray,
+    sigma: float = 0.001,
+) -> scipy.sparse.coo_matrix:
+    """Normal+position weighted conversion used before coarsening:
+    ``w_ij = max(⟨n_i, n_j⟩ · exp(−|c_i−c_j|²/(2σ²)), 0.001)`` (reference
+    ``listToSparseWNormals``)."""
+    n = adj.shape[0]
+    rows, cols = _klist_edges(adj)
+    dp = np.sum(normals[rows] * normals[cols], axis=-1)
+    d2 = np.sum((positions[cols] - positions[rows]) ** 2, axis=-1)
+    values = np.maximum(dp * np.exp(-d2 / (2.0 * sigma * sigma)), 0.001)
+    return scipy.sparse.coo_matrix(
+        (values.astype(np.float32), (rows, cols)), shape=(n, n)
+    )
+
+
+def coo_to_klist(adj: scipy.sparse.spmatrix, k: int) -> Tuple[np.ndarray, bool]:
+    """Sparse matrix → one-indexed K-list with slot 0 = self; returns
+    ``(klist, has_saturated)``, saturated when some node had ≥ K neighbours
+    and entries were dropped (reference ``sparseToList``). Entries follow COO
+    storage order with the diagonal skipped."""
+    n = adj.shape[0]
+    out = np.zeros((n, k), dtype=np.int32)
+    out[:, 0] = np.arange(n, dtype=np.int32) + 1
+    coo = adj.tocoo()
+    rows, cols = coo.row.astype(np.int64), coo.col.astype(np.int64)
+    off = rows != cols
+    rows, cols = rows[off], cols[off]
+    order = np.argsort(rows, kind="stable")
+    rows, cols = rows[order], cols[order]
+    if rows.size == 0:
+        return out, False
+    new = np.ones(rows.shape[0], dtype=bool)
+    new[1:] = rows[1:] != rows[:-1]
+    starts = np.flatnonzero(new)
+    rank = np.arange(rows.shape[0]) - np.repeat(
+        starts, np.diff(np.append(starts, rows.shape[0]))
+    )
+    keep = rank < (k - 1)
+    out[rows[keep], rank[keep] + 1] = cols[keep] + 1
+    return out, bool(np.any(~keep))
+
+
+def dedupe_klist(adj: np.ndarray):
+    """Collapse duplicate entries per row into (unique K-list, multiplicity).
+
+    The facet K-list lists edge-shared neighbours twice; their slots carry
+    identical assignment weights, so ``Σ_slots q·x = Σ_unique mult·q·x``
+    exactly.
+
+    Returns ``(adj_u [N, K'], mult [N, K'] float32)`` with K' the maximum
+    distinct row count; ``mult`` is 0 on padding slots.
+    """
+    n, k = adj.shape
+    adj32 = np.ascontiguousarray(adj, dtype=np.int32)
+    # sort each row's entries (zeros first), count runs of equal values
+    order = np.argsort(adj32, axis=1, kind="stable")
+    sorted_adj = np.take_along_axis(adj32, order, axis=1)
+    new = np.ones_like(sorted_adj, dtype=np.int8)
+    np.not_equal(sorted_adj[:, 1:], sorted_adj[:, :-1], out=new[:, 1:].view(bool))
+    valid = sorted_adj > 0
+    new &= valid
+    rank = np.cumsum(new, axis=1, dtype=np.int32) - 1
+    k_u = int(rank.max()) + 1 if n else 1
+    adj_u = np.zeros((n, k_u), dtype=np.int32)
+    rows = np.broadcast_to(np.arange(n, dtype=np.int64)[:, None], adj32.shape)
+    rv, kv = rows[valid], rank[valid]
+    # duplicates are runs of equal values at equal (row, rank), so a plain
+    # fancy-index assignment (last write wins) is exact
+    adj_u[rv, kv] = sorted_adj[valid]
+    flat = rv * k_u + kv
+    mult = np.bincount(flat, minlength=n * k_u).reshape(n, k_u).astype(np.float32)
+    return adj_u, mult
+
+
+def split_self_klist(
+    adj_u: np.ndarray, mult: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Split the self slot out of a deduped K-list: the self contribution
+    needs no gather, its features are the row's own.
+
+    Returns ``(adj_nbr [N, K''], mult_nbr [N, K''], self_mult [N])``: the
+    compacted neighbours-only one-indexed K-list, its multiplicities, and the
+    self multiplicity.
+    """
+    n, _ = adj_u.shape
+    self_col = np.arange(n, dtype=np.int64) + 1
+    is_self = adj_u.astype(np.int64) == self_col[:, None]
+    self_mult = np.sum(mult * is_self, axis=1).astype(np.float32)
+    nbr = np.where(is_self, 0, adj_u)
+    m_n = np.where(is_self, 0.0, mult).astype(np.float32)
+    # compact non-zero entries left (stable), trim to the max non-self count
+    order = np.argsort(nbr == 0, axis=1, kind="stable")
+    nbr = np.take_along_axis(nbr, order, axis=1)
+    m_n = np.take_along_axis(m_n, order, axis=1)
+    k_n = max(int(np.count_nonzero(nbr, axis=1).max()), 1) if n else 1
+    return nbr[:, :k_n].astype(np.int32), m_n[:, :k_n], self_mult
+
+
+def fused_mult_rows(mult_nbr: np.ndarray, self_mult: np.ndarray) -> np.ndarray:
+    """Per-slot multiplier ``[K+1, N]``, slot 0 = self: multiplicity ×
+    1/degree, 0 on padding slots. Folding the degree normalizer in is exact,
+    both factors being static per graph."""
+    deg = mult_nbr.sum(axis=1) + self_mult
+    inv_deg = np.where(deg > 0, 1.0 / np.maximum(deg, 1.0), 0.0)
+    rows = np.concatenate([self_mult[:, None], mult_nbr], axis=1) * inv_deg[:, None]
+    return np.ascontiguousarray(rows.T.astype(np.float32))
+
+
+def transpose_adjacency(adj: np.ndarray, num_targets: Optional[int] = None) -> np.ndarray:
+    """Transpose slot map for a scatter-free gather backward: for the
+    one-indexed ``adj`` [N, K], ``adj_t[j]`` lists the one-indexed flat slots
+    ``i*K + k`` with ``adj[i, k] == j+1`` (0 = pad). ``num_targets`` defaults
+    to N."""
+    n, k = adj.shape
+    if num_targets is None:
+        num_targets = n
+    flat = adj.reshape(-1).astype(np.int32)          # one-indexed targets
+    slots = np.arange(n * k, dtype=np.int32)
+    valid = flat > 0
+    targets = flat[valid] - 1
+    slots = slots[valid]
+    order = np.argsort(targets, kind="stable")
+    targets, slots = targets[order], slots[order]
+    if targets.size == 0:
+        return np.zeros((num_targets, 1), dtype=np.int32)
+    new = np.ones(targets.shape[0], dtype=bool)
+    new[1:] = targets[1:] != targets[:-1]
+    starts = np.flatnonzero(new)
+    counts = np.diff(np.append(starts, targets.shape[0]))
+    k_t = int(counts.max())
+    rank = np.arange(targets.shape[0], dtype=np.int64) - np.repeat(starts, counts)
+    adj_t = np.zeros((num_targets, k_t), dtype=np.int32)
+    adj_t[targets, rank] = slots + 1
+    return adj_t
+
+
+def slot_major_arrays(
+    adj_nbr: np.ndarray, mult_nbr: np.ndarray, self_mult: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host tables of the facet-conv kernel from the self-split deduped
+    K-list (:func:`split_self_klist`): ``(adj_sm [K, N'], adj_t_sm,
+    mult_rows [K+1, N', 1])``.
+
+    ``adj_sm`` is the slot-major one-indexed neighbour list, ``adj_t_sm`` its
+    transpose map over the flat slots ``k·N' + n`` (for the backward), and
+    ``mult_rows`` the fused multiplicity/degree rows. The node axis is padded
+    to N' (a multiple of 256, or of 8 below 256 nodes); padded nodes have
+    all-pad adjacency and zero mult rows, so their outputs are zero rows.
+    """
+    adj_sm = np.ascontiguousarray(adj_nbr.T.astype(np.int32))
+    n = adj_nbr.shape[0]
+    rows = fused_mult_rows(mult_nbr, self_mult)                # [K+1, N]
+    # pad before building the transpose map: its flat slots are strided by N'
+    target = -(-n // 256) * 256 if n >= 256 else -(-n // 8) * 8
+    if target != n:
+        adj_sm = np.pad(adj_sm, ((0, 0), (0, target - n)))
+        rows = np.pad(rows, ((0, 0), (0, target - n)))
+    adj_t_sm = transpose_adjacency(adj_sm, num_targets=target)
+    return adj_sm, adj_t_sm, rows[:, :, None].astype(np.float32)
+
+
+def invert_permutation(perm: np.ndarray) -> np.ndarray:
+    """Inverse permutation, sized to cover max(len, max+1) like the reference
+    ``inv_perm``."""
+    perm = np.asarray(perm, dtype=np.int64)
+    size = max(perm.shape[0], int(perm.max()) + 1) if perm.size else 0
+    inv = np.zeros(size, dtype=np.int64)
+    inv[perm] = np.arange(perm.shape[0])
+    return inv

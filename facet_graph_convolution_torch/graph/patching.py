@@ -1,0 +1,100 @@
+"""Masked BFS patch extraction over the facet graph (host).
+
+The port's own copy of the NumPy path of
+``facet_graph_convolution_tpu/graph/patching.py::grow_graph_patch_masked``
+(reference ``getGraphPatch_wMask``, utils.py:1508-1696).
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+def grow_graph_patch_masked(
+    adj: np.ndarray,
+    nodes_num: int,
+    seed: int,
+    mask: Optional[np.ndarray],
+    min_size: int,
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Grow a patch by BFS from ``seed`` up to ``nodes_num`` nodes.
+
+    - Nodes with ``mask == 1`` (covered by an earlier patch) are added when
+      reached but not expanded: they go to a border queue.
+    - If the unmasked region runs out below ``min_size``, growth continues
+      through the border queue, ignoring the mask, for receptive field.
+    - Returns (local K-list one-indexed, local→global indices, next seed):
+      the next seed is an unvisited, unmasked neighbour seen while completing
+      the frontier's adjacency rows, or −1.
+    """
+    k = adj.shape[1]
+    total = adj.shape[0]
+    adj0 = adj.astype(np.int64) - 1          # zero-indexed, -1 = pad
+    use_mask = mask if mask is not None else np.zeros(total, dtype=np.int8)
+
+    # BFS can overshoot either limit by < K when expanding a neighbourhood
+    cap = min(max(nodes_num, min_size) + k, total)
+    new_idx = np.full(total, -1, dtype=np.int64)
+    old_idx = np.full(cap, -1, dtype=np.int64)
+    out_adj = np.full((cap, k), -1, dtype=np.int64)
+    count = 0
+
+    def add_node(g: int) -> int:
+        nonlocal count
+        new_idx[g] = count
+        old_idx[count] = g
+        count += 1
+        return count - 1
+
+    main_q: deque = deque()
+    border_q: deque = deque()
+    add_node(seed)
+    main_q.append(seed)
+
+    def expand(queue: deque, limit: int, respect_mask: bool) -> None:
+        while count < limit and queue:
+            cur = queue.popleft()
+            local = new_idx[cur]
+            out_adj[local, 0] = local
+            for slot in range(1, k):
+                nbr = adj0[cur, slot]
+                if nbr == -1:
+                    break
+                if new_idx[nbr] == -1:
+                    add_node(nbr)
+                    if respect_mask and use_mask[nbr] == 1:
+                        border_q.append(nbr)
+                    else:
+                        main_q.append(nbr)
+                out_adj[local, slot] = new_idx[nbr]
+
+    expand(main_q, nodes_num, respect_mask=True)
+
+    if count < min_size:
+        expand(border_q, min_size, respect_mask=False)
+        expand(main_q, min_size, respect_mask=False)
+
+    # complete adjacency rows of the remaining frontier without growing
+    next_seed = -1
+    for queue in (main_q, border_q):
+        while queue:
+            cur = queue.popleft()
+            local = new_idx[cur]
+            out_adj[local, 0] = local
+            fill = 1
+            for slot in range(1, k):
+                nbr = adj0[cur, slot]
+                if nbr == -1:
+                    break
+                if new_idx[nbr] == -1:
+                    if use_mask[nbr] == 0:
+                        next_seed = int(nbr)
+                    continue
+                out_adj[local, fill] = new_idx[nbr]
+                fill += 1
+
+    out_adj = out_adj[:count] + 1            # back to one-indexed, pad → 0
+    return out_adj.astype(np.int32), old_idx[:count], next_seed

@@ -1,0 +1,135 @@
+"""Three-level facet-graph U-Net, forward (reference
+``get_model_reg_multi_scale``, model.py:837-946):
+
+    L0: conv1 → lrelu → max tree-pool (4:1)
+    L1: conv2 → lrelu → max tree-pool (4:1)
+    L2: conv3 → lrelu → dconv3 → lrelu
+    L1: unpool → upconv2 → concat skip → dconv2 → lrelu
+    L0: unpool → upconv1 → concat skip → dconv1 → lrelu → fc1 → lrelu → out0
+
+:func:`unet_apply` is the counterpart of
+``facet_graph_convolution_tpu/models/unet.py::unet_apply_pallas``, the
+repo's kernel configuration of the forward. Parameters are a plain dict of
+tensors with the JAX package's keys and layouts (:mod:`..params`).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from facet_graph_convolution_torch.graph.convert import (
+    dedupe_klist,
+    slot_major_arrays,
+    split_self_klist,
+)
+from facet_graph_convolution_torch.ops.conv import FacetConvVariant, facet_conv, linear
+from facet_graph_convolution_torch.ops.normalization import lrelu
+from facet_graph_convolution_torch.ops.pooling import tree_pool, tree_unpool
+
+
+def init_unet(
+    seed: int = 0,
+    in_channels: int = 6,
+    channels: Sequence[int] = (32, 64, 128),
+    num_filters: int = 9,
+    fc_channels: int = 1024,
+    out_channels: int = 3,
+    std_dev: float = 0.05,
+    std_dev_bias: float = 0.01,
+    variant: FacetConvVariant = FacetConvVariant.DEFAULT,
+    device: str = "cuda",
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Random parameters from a numpy seed (reference init: N(0, 0.05)
+    weights, N(0, 0.01) biases, model.py:31-44). The numbers differ from the
+    JAX package's ``init_unet`` for the same seed; the keys and layouts are
+    the same."""
+    if variant == FacetConvVariant.ROTATION_INVARIANT:
+        raise NotImplementedError("init_unet: the rotation-invariant variant is not ported yet")
+    rng = np.random.default_rng(seed)
+    c0, c1, c2 = channels
+
+    def normal(shape, std):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32) * np.float32(std),
+                               device=device)
+
+    def conv(cin, cout):
+        p = {
+            "w": normal((num_filters, cout, cin), std_dev),
+            "b": normal((cout,), std_dev_bias),
+            "u": normal((num_filters, cin), std_dev),
+            "c": normal((num_filters,), std_dev),
+        }
+        if variant == FacetConvVariant.DEFAULT:
+            p["v"] = normal((num_filters, cin), std_dev)
+        return p
+
+    def lin(cin, cout):
+        return {"w": normal((cin, cout), std_dev), "b": normal((cout,), std_dev_bias)}
+
+    return {
+        "conv1": conv(in_channels, c0),
+        "conv2": conv(c0, c1),
+        "conv3": conv(c1, c2),
+        "dconv3": conv(c2, c2),
+        "upconv2": conv(c2, c1),
+        "dconv2": conv(2 * c1, c1),
+        "upconv1": conv(c1, c0),
+        "dconv1": conv(2 * c0, c0),
+        "fc1": lin(c0, fc_channels),
+        "out0": lin(fc_channels, out_channels),
+    }
+
+
+def unet_apply(
+    params: Dict,
+    x: torch.Tensor,
+    adjs: Sequence[torch.Tensor],
+    mult_rows: Sequence[torch.Tensor],
+    coarsening_steps: int = 2,
+    alpha: float = 0.1,
+    variant: FacetConvVariant = FacetConvVariant.DEFAULT,
+) -> torch.Tensor:
+    """Forward pass: ``x`` [N, C] → [N, out]. ``adjs`` are the per-level
+    slot-major [K', N'] neighbour lists and ``mult_rows`` the [K'+1, N', 1]
+    rows of :func:`facet_graph_convolution_torch.graph.convert.
+    slot_major_arrays`, fine level first (1 or 3 levels)."""
+
+    def conv(name, h, level):
+        return facet_conv(params[name], h, adjs[level], mult_rows[level], variant=variant)
+
+    h1 = lrelu(conv("conv1", x, 0), alpha)
+    if len(adjs) == 1:
+        h = lrelu(linear(params["fc1"], h1), alpha)
+        return linear(params["out0"], h)
+
+    p1 = tree_pool(h1, steps=coarsening_steps)
+    h2 = lrelu(conv("conv2", p1, 1), alpha)
+    p2 = tree_pool(h2, steps=coarsening_steps)
+    h3 = lrelu(conv("conv3", p2, 2), alpha)
+    d3 = lrelu(conv("dconv3", h3, 2), alpha)
+
+    u2 = conv("upconv2", tree_unpool(d3, steps=coarsening_steps), 1)
+    d2 = lrelu(conv("dconv2", torch.cat([u2, h2], dim=-1), 1), alpha)
+
+    u1 = conv("upconv1", tree_unpool(d2, steps=coarsening_steps), 0)
+    d1 = lrelu(conv("dconv1", torch.cat([u1, h1], dim=-1), 0), alpha)
+
+    h = lrelu(linear(params["fc1"], d1), alpha)
+    return linear(params["out0"], h)
+
+
+def graph_tensors(adjs_raw: Sequence[np.ndarray], device: str):
+    """Kernel tables of a patch's raw one-indexed K-lists, as tensors on
+    ``device``: ``(adjs, mult_rows)`` for :func:`unet_apply` (the JAX
+    package's ``_graph_arrays(..., pallas=True)``, without the backward's
+    transpose maps)."""
+    adjs, rows = [], []
+    for a in adjs_raw:
+        a_u, mult = dedupe_klist(np.asarray(a))
+        adj_sm, _, mult_rows = slot_major_arrays(*split_self_klist(a_u, mult))
+        adjs.append(torch.as_tensor(adj_sm, device=device))
+        rows.append(torch.as_tensor(mult_rows, device=device))
+    return adjs, rows

@@ -1,0 +1,69 @@
+"""Facet graph convolution (FeaStNet-style soft-assignment conv), forward.
+
+Semantics of the reference ``custom_conv2d`` (model.py:427-504):
+
+    y_i = bias + (1/|N(i)|) Σ_{j∈N(i)} Σ_m q_ijm · (W_m x_j)
+    q_ij = softmax_M(u·x_i + v·x_j + c)        (default)
+    q_ij = softmax_M(u·(x_i − x_j) + c)        (translation-invariant: v = −u)
+
+:func:`facet_conv` is the counterpart of
+``facet_graph_convolution_tpu/ops/pallas_conv.py::facet_conv_pallas``: the
+projections and the final ``z @ W_flat.T`` are matmuls, the aggregation into
+``z`` is the K1 kernel (:mod:`facet_graph_convolution_torch.ops.facet_conv`).
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Dict
+
+import torch
+
+from facet_graph_convolution_torch.ops import facet_conv as k1
+
+
+class FacetConvVariant(str, enum.Enum):
+    DEFAULT = "default"
+    TRANSLATION_INVARIANT = "translation_invariant"
+    ROTATION_INVARIANT = "rotation_invariant"
+
+
+def linear(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Per-node dense layer, ``w`` [in, out] (reference ``custom_lin``,
+    model.py:763-769)."""
+    return x @ params["w"] + params["b"]
+
+
+def facet_conv(
+    params: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    adj_sm: torch.Tensor,
+    mult_rows: torch.Tensor,
+    variant: FacetConvVariant = FacetConvVariant.DEFAULT,
+) -> torch.Tensor:
+    """Facet conv ``x`` [N, C] → [N, out] over the kernel tables of
+    :func:`facet_graph_convolution_torch.graph.convert.slot_major_arrays`:
+    ``adj_sm`` [K', N'] int32 and ``mult_rows`` [K'+1, N', 1] f32, with the
+    node axis padded to N' ≥ N. ``params`` holds ``w`` [M, out, C], ``b``
+    [out], ``u`` [M, C], ``c`` [M] and, for the default variant, ``v``
+    [M, C]."""
+    if variant not in (FacetConvVariant.DEFAULT, FacetConvVariant.TRANSLATION_INVARIANT):
+        raise NotImplementedError(f"facet_conv: variant {variant} is not ported yet")
+    u, c, w, b = params["u"], params["c"], params["w"], params["b"]
+    n, in_ch = x.shape
+    m, out_ch, _ = w.shape
+
+    # padded destinations have all-zero mult rows → zero z rows
+    pad = mult_rows.shape[1] - n
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    proj = -u if variant == FacetConvVariant.TRANSLATION_INVARIANT else params["v"]
+    cat = torch.cat([x, x @ proj.T], dim=-1).contiguous()
+    rows = mult_rows[:, :, 0]
+    z = k1.facet_conv_fwd(cat, (x @ u.T).contiguous(), adj_sm, rows, c)
+    # z columns are m-major (m·C + ch)
+    w_flat = w.permute(1, 0, 2).reshape(out_ch, m * in_ch)
+    y = z @ w_flat.T
+    gate = (rows.sum(dim=0) > 0).to(y.dtype)
+    y = y + b[None, :] * gate[:, None]
+    return y[:n] if pad else y
