@@ -11,11 +11,22 @@ Phases, each fatal on failure:
    noisy subdivision-5 icosphere (20,480 faces, two patches), on the real
    slot tables (pad slots, padded nodes, zero fake rows); prints each
    launch's error, kernel and plain times and bound;
-3. serving: ``infer_directory`` answers 3 requests (subdivision-5 icosphere,
+3. backward kernel: the same for the facet-conv backward kernel (K2), on the
+   same shapes with the transpose maps; also checks that two launches on
+   the same inputs give the same bits (no atomics);
+4. serving: ``infer_directory`` answers 3 requests (subdivision-5 icosphere,
    torus, chamfered box, with noise) at the full model width (channels
    32/64/128, M = 9, fc 1024, random weights from a seed); checks the written
    meshes, that K1 ran 8 times per patch, and that each patch's forward
-   through the kernel matches the same forward through the plain version.
+   through the kernel matches the same forward through the plain version;
+5. training: noisy/GT OBJ pairs of the same 3 shapes → ``preprocess_directory``
+   → ``train_normals`` at full width for 50 steps with a mid-run and a final
+   checkpoint; checks finite, falling losses, that K1 and K2 each ran 8
+   times per step, that one step's gradients through the kernels match the
+   plain versions', and that the written ``params.pt`` serves a request
+   through ``infer_normals``; then times the train step on the whole
+   subdivision-5 icosphere (one patch, as ``bench.py`` builds it) and
+   profiles one step.
 
 Then it prints the kernels' JSON line, the card's ``nvidia-smi`` name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -35,6 +46,10 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 KERNEL_ATOL = KERNEL_RTOL = 1e-5
 FORWARD_ATOL = 1e-4
+# one step's gradients through K1/K2 against the plain versions, each
+# gradient scaled to max 1: float32 sums in another order through 8 convs
+GRAD_ATOL = 1e-4
+TRAIN_STEPS = 50
 CONVS = (  # name, level, input channels (out channels follow the model)
     ("conv1", 0, 6), ("conv2", 1, 32), ("conv3", 2, 64), ("dconv3", 2, 128),
     ("upconv2", 1, 128), ("dconv2", 1, 128), ("upconv1", 0, 64), ("dconv1", 0, 64),
@@ -48,28 +63,60 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def device_events(prof):
+    """(name, µs) of the device activities (kernels, copies) a profile
+    recorded; user annotations, which span other activities, are left out."""
+    import torch
+
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def cuda_ms(fn, reps):
-    """Per call: (device ms, wall ms). Device time is the sum of the device
-    activities (kernels, copies) that torch.profiler records over ``reps``
-    calls; wall time spans the calls with CUDA events, so for a kernel
-    shorter than its host-side launch it is the launch rate. Device time is
-    None when the profiler records no device activity."""
+    """Per call: (device ms, wall ms, {kernel: (device ms, launches)}).
+
+    Device time: ``reps`` calls captured in one CUDA graph and replayed
+    between two CUDA events, so the device runs them back to back without
+    the host's launch gaps. Wall time: ``reps`` eager calls between CUDA
+    events; for a kernel shorter than its host-side launch it is the launch
+    rate. The split by kernel comes from torch.profiler over the eager
+    calls and is informational: the profiler can drop device activities
+    from a window, so the launches it saw per call are returned beside each
+    kernel's time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                    # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end) / reps
+    del graph
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(reps):
             fn()
         end.record()
         torch.cuda.synchronize()
-    device_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    device_ms = device_us / 1e3 / reps if device_us > 0 else None
-    return device_ms, start.elapsed_time(end) / reps
+    by_name = {}
+    for name, us in device_events(prof):
+        ms, count = by_name.get(name, (0.0, 0.0))
+        by_name[name] = (ms + us / 1e3 / reps, count + 1.0 / reps)
+    return device_ms, start.elapsed_time(end) / reps, by_name
 
 
 def bound_ms(cat, ux, adj_sm, rows, c, z):
@@ -91,42 +138,54 @@ def bound_ms(cat, ux, adj_sm, rows, c, z):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(dev):
-    import torch
-
+def phase_patch():
+    """The larger patch of a noisy subdivision-5 icosphere, as served."""
     from facet_graph_convolution_torch.data.dataset import InferenceMesh
     from facet_graph_convolution_torch.data.synthetic import add_vertex_noise, icosphere
-    from facet_graph_convolution_torch.models.unet import graph_tensors
-    from facet_graph_convolution_torch.ops import facet_conv as k1
 
     v, f = icosphere(5)
     mesh = InferenceMesh(max_patch_size=20000, coarsening_steps=2, coarsening_levels=3,
                          k_faces=23, seed=0)
     mesh.add_mesh(add_vertex_noise(v, f, 0.2, np.random.default_rng(0)), f)
-    patch = max(mesh.patches, key=lambda p: p.num_nodes)
+    return max(mesh.patches, key=lambda p: p.num_nodes)
+
+
+def conv_inputs(patch, level, c_in, m, n_pad, rng, dev):
+    """Random ``cat`` [N', C+M] with zero rows at the padded nodes and, at
+    level 0, at the fake nodes; ``ux`` [N', M]; ``c`` [M]."""
+    import torch
+
+    n_real = patch.adjs[level].shape[0]
+    cat = rng.normal(size=(n_pad, c_in + m)).astype(np.float32)
+    cat[n_real:] = 0.0                                   # padded nodes
+    if level == 0:
+        cat[:n_real][~np.any(patch.inputs != 0, axis=1)] = 0.0   # fake nodes
+    return (torch.as_tensor(cat, device=dev),
+            torch.as_tensor(rng.normal(size=(n_pad, m)).astype(np.float32), device=dev),
+            torch.as_tensor(rng.normal(size=(m,)).astype(np.float32), device=dev))
+
+
+def kernel_phase(dev, patch):
+    import torch
+
+    from facet_graph_convolution_torch.models.unet import graph_tensors
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+
     adjs, mult_rows = graph_tensors(patch.adjs, dev)
-    fake0 = ~np.any(patch.inputs != 0, axis=1)          # level-0 fake nodes
     rng = np.random.default_rng(1)
     m = 9
     bound_kinds, worst = set(), 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     print("kernel phase: K1 vs plain, atol=rtol=%g, patch levels %s" % (
         KERNEL_ATOL, [a.shape[0] for a in patch.adjs]))
-    print("  device ms from torch.profiler, wall ms from CUDA events over back-to-back calls")
+    print("  device ms: 50 calls replayed from one CUDA graph; wall ms: 50 eager calls")
     print("  %-8s %6s %4s %3s %3s %10s %9s %9s %9s %9s %s" % (
         "conv", "N'", "C", "M", "K'", "max_err", "ms", "wall_ms", "plain_ms", "bound_ms",
         "bound_by"))
     for name, level, c_in in CONVS:
         adj_sm, rows = adjs[level], mult_rows[level][:, :, 0].contiguous()
         k_nbr, n_pad = adj_sm.shape
-        n_real = patch.adjs[level].shape[0]
-        cat = rng.normal(size=(n_pad, c_in + m)).astype(np.float32)
-        cat[n_real:] = 0.0                               # padded nodes
-        if level == 0:
-            cat[:n_real][fake0] = 0.0                    # fake nodes' zero signal
-        cat = torch.as_tensor(cat, device=dev)
-        ux = torch.as_tensor(rng.normal(size=(n_pad, m)).astype(np.float32), device=dev)
-        c = torch.as_tensor(rng.normal(size=(m,)).astype(np.float32), device=dev)
+        cat, ux, c = conv_inputs(patch, level, c_in, m, n_pad, rng, dev)
         args = (cat, ux, adj_sm, rows, c)
         z = k1.facet_conv_fwd(*args)
         torch.cuda.synchronize()
@@ -134,10 +193,8 @@ def kernel_phase(dev):
         err = float((z - z_ref).abs().max())
         if not torch.allclose(z, z_ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
             raise AssertionError(f"K1 disagrees with its plain version at {name}: {err}")
-        ms, wall_ms = cuda_ms(lambda: k1.facet_conv_fwd(*args), 50)
-        plain_ms, _ = cuda_ms(lambda: k1.facet_conv_fwd_plain(*args), 10)
-        if ms is None or plain_ms is None:
-            raise AssertionError("torch.profiler recorded no device time")
+        ms, wall_ms, _ = cuda_ms(lambda: k1.facet_conv_fwd(*args), 50)
+        plain_ms, _, _ = cuda_ms(lambda: k1.facet_conv_fwd_plain(*args), 10)
         b_ms, b_by = bound_ms(cat, ux, adj_sm, rows, c, z)
         worst = max(worst, err)
         totals["ms"] += ms
@@ -149,37 +206,80 @@ def kernel_phase(dev):
     return worst, totals, ("bytes" if bound_kinds == {"bytes"} else "operations")
 
 
-def profile_forward(params, patch, cfg, dev):
-    """Where one full-width patch forward spends its time: device time by
-    kernel (torch.profiler), and the device's busy share of the forward's
-    wall time (host table building included, as on the serving path)."""
+def bwd_bound_ms(args, dcat, dux):
+    """Least time for K2's work on this card: each input (cat, ux, the
+    tables, c, dz) read once and dcat, dux written once at the HBM rate,
+    against the operations this data needs (per live slot: M·(2C) FMAs for
+    dx and as many for dq as 2 ops each, ~10·M for the softmax and its
+    Jacobian; C+M adds per live neighbour slot in the transpose sum) at the
+    f32 rate; the larger of the two. The scratch ``dg`` is the kernel's own
+    and not counted."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from facet_graph_convolution_torch.inference.driver import forward_patch
+    cat, ux, adj_sm, adj_t_sm, rows, c, dz = args
+    n = adj_sm.shape[1]
+    m = ux.shape[1]
+    width = cat.shape[1]
+    c_in = width - m
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, dcat, dux))
+    live = rows != 0
+    live[1:] &= (adj_sm > 0) & (adj_sm <= n)
+    slots = int(torch.count_nonzero(live))
+    ops = slots * m * (4 * c_in + 10) + int(torch.count_nonzero(live[1:])) * width
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
-    with torch.no_grad():
-        forward_patch(params, patch, cfg, dev)
+
+def backward_kernel_phase(dev, patch):
+    import torch
+
+    from facet_graph_convolution_torch.models.unet import train_graph_tensors
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+
+    adjs, adj_ts, mult_rows = train_graph_tensors(patch.adjs, dev)
+    rng = np.random.default_rng(2)
+    m = 9
+    bound_kinds, worst = set(), 0.0
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    print("backward kernel phase: K2 vs plain, atol=rtol=%g, bitwise repeatable" % KERNEL_ATOL)
+    print("  device ms as in the kernel phase; A_ms, B_ms: its passes by torch.profiler")
+    print("  %-8s %6s %4s %3s %3s %3s %10s %9s %9s %9s %9s %9s %9s %6s %s" % (
+        "conv", "N'", "C", "M", "K'", "K_t", "max_err", "ms", "A_ms", "B_ms", "wall_ms",
+        "plain_ms", "bound_ms", "events", "bound_by"))
+    for name, level, c_in in CONVS:
+        adj_sm, adj_t_sm = adjs[level], adj_ts[level]
+        rows = mult_rows[level][:, :, 0].contiguous()
+        k_nbr, n_pad = adj_sm.shape
+        cat, ux, c = conv_inputs(patch, level, c_in, m, n_pad, rng, dev)
+        dz = torch.as_tensor(rng.normal(size=(n_pad, m * c_in)).astype(np.float32), device=dev)
+        args = (cat, ux, adj_sm, adj_t_sm, rows, c, dz)
+        dcat, dux = k1.facet_conv_bwd(*args)
+        again = k1.facet_conv_bwd(*args)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        forward_patch(params, patch, cfg, dev)
-        torch.cuda.synchronize()
-        bare_ms = 1e3 * (time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            forward_patch(params, patch, cfg, dev)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy_ms = sum(by_name.values())
-    print(f"profile: one forward of a {patch.num_nodes}-node patch: wall {bare_ms:.3f} ms "
-          f"({wall_ms:.3f} ms under the profiler), device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / bare_ms:.1f}% of the unprofiled wall time)")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"  {ms:9.4f} ms  {name[:100]}")
+        if not (torch.equal(dcat, again[0]) and torch.equal(dux, again[1])):
+            raise AssertionError(f"K2 gave different bits on the same inputs at {name}")
+        ref = k1.facet_conv_bwd_plain(*args)
+        err = max(float((a - b).abs().max()) for a, b in zip((dcat, dux), ref))
+        for got, want in zip((dcat, dux), ref):
+            if not torch.allclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
+                raise AssertionError(f"K2 disagrees with its plain version at {name}: {err}")
+        ms, wall_ms, by_kernel = cuda_ms(lambda: k1.facet_conv_bwd(*args), 50)
+        plain_ms, _, _ = cuda_ms(lambda: k1.facet_conv_bwd_plain(*args), 10)
+        # the kernel's two passes as the profiler saw them, and its launches
+        # per call (2 when it dropped none)
+        pass_ms = [sum(t for n_, (t, _) in by_kernel.items() if tag in n_)
+                   for tag in ("slot_cotangents", "transpose_sum")]
+        events = sum(c_ for _, c_ in by_kernel.values())
+        b_ms, b_by = bwd_bound_ms(args, dcat, dux)
+        worst = max(worst, err)
+        totals["ms"] += ms
+        totals["plain_ms"] += plain_ms
+        totals["bound_ms"] += b_ms
+        bound_kinds.add(b_by)
+        print("  %-8s %6d %4d %3d %3d %3d %10.3e %9.5f %9.5f %9.5f %9.5f %9.5f %9.5f %6.2f %s" % (
+            name, n_pad, c_in, m, k_nbr, adj_t_sm.shape[1], err, ms, pass_ms[0], pass_ms[1],
+            wall_ms, plain_ms, b_ms, events, b_by))
+    return worst, totals, ("bytes" if bound_kinds == {"bytes"} else "operations")
 
 
 def serving_phase(dev, workdir):
@@ -250,8 +350,209 @@ def serving_phase(dev, workdir):
     print(f"  forward through K1 vs through plain K1: max abs err {worst:.3e} "
           f"(atol {FORWARD_ATOL})")
     largest = max((p for r in records for p in r["mesh"].patches), key=lambda p: p.num_nodes)
-    profile_forward(params, largest, cfg, dev)
+    with torch.no_grad():
+        # host table building included, as on the serving path
+        device_profile(lambda: forward_patch(params, largest, cfg, dev),
+                       f"one forward of a {largest.num_nodes}-node patch")
     return launches, records
+
+
+def device_profile(fn, label):
+    """Device time by kernel (torch.profiler) of one call of ``fn``, and the
+    device's busy share of its unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    bare_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for name, us in device_events(prof):
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3
+    busy_ms = sum(by_name.values())
+    print(f"profile: {label}: wall {bare_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / bare_ms:.1f}% of the unprofiled wall time), "
+          f"{len(device_events(prof))} device activities")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:9.4f} ms  {name[:100]}")
+
+
+def count_edges(patch) -> int:
+    """Conv-edges of one step, as ``bench.py`` counts them: non-zero
+    adjacency entries per conv, summed over the 8 convs (3 at level 0, 3 at
+    level 1, 2 at level 2)."""
+    return sum(int(np.count_nonzero(adj)) * convs
+               for adj, convs in zip(patch.adjs, (3, 3, 2)))
+
+
+def gradient_check(state, cfg, tensors, dev):
+    """One step's parameter gradients through K1/K2 against the same step
+    through the plain versions (same rotation and samples); returns the
+    worst error of a gradient scaled to max 1."""
+    import torch
+
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.training.trainer import normals_loss
+
+    rng = np.random.default_rng(3)
+    rot = torch.as_tensor(np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32),
+                          device=dev)
+    idx = torch.as_tensor(rng.integers(0, tensors[0].shape[0], cfg.train.loss_samples),
+                          device=dev)
+    leaves = [t for layer in sorted(state.params) for _, t in sorted(state.params[layer].items())]
+
+    def grads():
+        loss = normals_loss(state.params, cfg, *tensors, idx, rot)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    kernels = (k1.facet_conv_fwd, k1.facet_conv_bwd)
+    loss, g = grads()
+    try:
+        k1.facet_conv_fwd, k1.facet_conv_bwd = k1.facet_conv_fwd_plain, k1.facet_conv_bwd_plain
+        loss_ref, g_ref = grads()
+    finally:
+        k1.facet_conv_fwd, k1.facet_conv_bwd = kernels
+    worst = 0.0
+    for a, b in zip(g, g_ref):
+        if not torch.isfinite(a).all():
+            raise AssertionError("non-finite gradient through the kernels")
+        scale = float(b.abs().max()) or 1.0
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    if worst > GRAD_ATOL or abs(loss - loss_ref) > FORWARD_ATOL:
+        raise AssertionError(f"kernel step differs from the plain step: gradient {worst}, "
+                             f"loss {loss} vs {loss_ref}")
+    print(f"  one step through K1/K2 vs through the plain versions: loss {loss:.6f} vs "
+          f"{loss_ref:.6f}, gradient max abs err {worst:.3e} scaled to max 1 "
+          f"(atol {GRAD_ATOL})")
+
+
+def training_phase(dev, workdir):
+    import torch
+
+    from facet_graph_convolution_torch import params as params_io
+    from facet_graph_convolution_torch.config import default_config
+    from facet_graph_convolution_torch.data.dataset import (
+        InferenceMesh,
+        TrainingSet,
+        bucket_size,
+        load_dataset,
+        pad_patch_to,
+    )
+    from facet_graph_convolution_torch.data.preprocess import preprocess_directory
+    from facet_graph_convolution_torch.data.synthetic import (
+        add_vertex_noise,
+        chamfered_box,
+        icosphere,
+        torus,
+    )
+    from facet_graph_convolution_torch.geometry.obj_io import write_obj
+    from facet_graph_convolution_torch.inference.driver import infer_normals
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.training.trainer import (
+        create_train_state,
+        make_normals_train_step,
+        patch_tensors,
+        train_normals,
+    )
+
+    base = os.path.join(workdir, "train_run")
+    cfg = default_config(base).replace(train={
+        "network_path": os.path.join(base, "Networks") + "/", "net_name": "smoke",
+        "save_every": TRAIN_STEPS // 2, "eval_every": 1, "seed": 0})
+    os.makedirs(cfg.data.training_data_path)
+    os.makedirs(cfg.data.gt_data_path)
+    rng = np.random.default_rng(4)
+    shapes = {"icosphere5": icosphere(5), "torus": torus(nu=128, nv=64),
+              "chamfered_box": chamfered_box(24)}
+    for name, (v, f) in shapes.items():
+        write_obj(add_vertex_noise(v, f, 0.2, rng), f,
+                  os.path.join(cfg.data.training_data_path, name + "_n1.obj"))
+        write_obj(v, f, os.path.join(cfg.data.gt_data_path, name + ".obj"))
+    t0 = time.perf_counter()
+    preprocess_directory(cfg)
+    train_set = load_dataset(os.path.join(cfg.data.binary_dump_path, "trainingSet.npz"))
+    print(f"training phase: preprocessed {len(train_set.patches)} patches in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    k1.facet_conv_fwd.launches = 0
+    k1.facet_conv_bwd.launches = 0
+    t0 = time.perf_counter()
+    state, hist = train_normals(cfg, train_set, num_iterations=TRAIN_STEPS, device=str(dev))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {"fwd": k1.facet_conv_fwd.launches, "bwd": k1.facet_conv_bwd.launches}
+
+    losses = hist[:, 0]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"bad loss history: {losses}")
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first 10 {first}, last 10 {last}")
+    if launches != {"fwd": 8 * TRAIN_STEPS, "bwd": 8 * TRAIN_STEPS}:
+        raise AssertionError(f"launches {launches} in {TRAIN_STEPS} steps (want 8 each a step)")
+    if state.step != TRAIN_STEPS:
+        raise AssertionError(f"{state.step} updates in {TRAIN_STEPS} steps")
+    net_dir = os.path.join(cfg.train.network_path, cfg.train.net_name)
+    saved = sorted(os.listdir(net_dir))
+    for want in (f"step_{TRAIN_STEPS // 2}.pt", f"step_{TRAIN_STEPS}.pt", "params.pt"):
+        if want not in saved:
+            raise AssertionError(f"checkpoint {want} missing: {saved}")
+    print(f"  {TRAIN_STEPS} steps over {len(train_set.patches)} patches in {train_s:.2f} s "
+          f"(tables, checkpoints and warm-up included): loss {losses[0]:.3f} → "
+          f"{losses[-1]:.3f}, mean of the first 10 {first:.3f}, of the last 10 {last:.3f}; "
+          f"K1 launches {launches['fwd']}, K2 launches {launches['bwd']}; saved {saved}")
+
+    gradient_check(state, cfg, patch_tensors(
+        pad_patch_to(train_set.patches[0], bucket_size(train_set.patches[0].num_nodes)),
+        str(dev)), dev)
+
+    # the written params.pt serves a request
+    v, f = shapes["chamfered_box"]
+    mesh = InferenceMesh(max_patch_size=cfg.data.max_patch_size,
+                         coarsening_steps=cfg.model.coarsening_steps,
+                         coarsening_levels=cfg.model.coarsening_levels,
+                         k_faces=cfg.data.k_faces, max_edges=cfg.data.max_edges, seed=0)
+    mesh.add_mesh(add_vertex_noise(v, f, 0.2, rng), f)
+    points, normals = infer_normals(mesh, cfg, device=str(dev))
+    if points.shape != v.shape or normals.shape != (f.shape[0], 3) or not (
+            np.isfinite(points).all() and np.isfinite(normals).all()):
+        raise AssertionError(f"serving the trained net: bad output {points.shape}")
+    params_io.load(os.path.join(net_dir, params_io.CHECKPOINT_FILE), device=str(dev))
+    print(f"  served chamfered_box ({f.shape[0]} faces) from {net_dir}/params.pt")
+
+    # the train step on the whole subdivision-5 icosphere, one patch, as
+    # bench.py builds it (noise 0.01, bucket-padded to a multiple of 1024)
+    v, f = icosphere(5)
+    ds = TrainingSet(max_patch_size=10**9, coarsening_steps=2, coarsening_levels=3,
+                     k_faces=23, seed=0)
+    noisy = (v + np.random.default_rng(0).normal(scale=0.01, size=v.shape)).astype(np.float32)
+    ds.add_mesh(noisy, f, gt_vertices=v)
+    patch = pad_patch_to(ds.patches[0], bucket_size(ds.patches[0].num_nodes, 1024))
+    edges = count_edges(patch)
+    tensors = patch_tensors(patch, str(dev))
+    bench = create_train_state(cfg, num_steps=100, device=str(dev))
+    step = make_normals_train_step(cfg)
+    times = []
+    for i in range(25):
+        t0 = time.perf_counter()
+        bench, loss = step(bench, *tensors)
+        float(loss)                     # waits for the step, as train_normals does
+        times.append(time.perf_counter() - t0)
+    times = sorted(times[5:])
+    median = times[len(times) // 2]
+    print(f"  train step, whole subdivision-5 icosphere ({patch.num_nodes} nodes, {edges} "
+          f"conv-edges): median {1e3 * median:.3f} ms over {len(times)} steps "
+          f"(min {1e3 * times[0]:.3f}, max {1e3 * times[-1]:.3f}), "
+          f"{edges / median:.4e} conv-edges/s")
+    device_profile(lambda: float(step(bench, *tensors)[1]),
+                   f"one train step of the {patch.num_nodes}-node patch")
+    return launches
 
 
 def main() -> int:
@@ -276,9 +577,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    err, totals, bound_by = kernel_phase(dev)
+    patch = phase_patch()
+    err, totals, bound_by = kernel_phase(dev, patch)
+    err2, totals2, bound_by2 = backward_kernel_phase(dev, patch)
     with tempfile.TemporaryDirectory() as workdir:
         launches, _ = serving_phase(dev, workdir)
+        train_launches = training_phase(dev, workdir)
 
     print(json.dumps({"kernels": [{
         "name": "facet_conv_fwd",
@@ -293,6 +597,20 @@ def main() -> int:
         "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "facet_conv_bwd",
+        "route": "cuda",
+        "source": "facet_graph_convolution_torch/csrc/facet_conv_bwd.cu",
+        "replaces": "facet_graph_convolution_tpu/ops/pallas_conv.py:111",
+        "launches": train_launches["bwd"],
+        "max_abs_err": err2,
+        # per train step: the sum over the 8 conv launches at the same shapes
+        "ms": totals2["ms"],
+        "plain_ms": totals2["plain_ms"],
+        "bound_ms": totals2["bound_ms"],
+        "bound_by": bound_by2,
+        # no single PyTorch call computes this backward
         "library_ms": None,
     }]}))
     print(card)

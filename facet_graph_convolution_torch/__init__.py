@@ -11,9 +11,18 @@ Layers of the inference path, entry point first:
 - ``cli.infer`` → ``inference.driver.infer_directory`` → ``infer_normals``;
 - ``data.dataset.InferenceMesh`` builds the coarsened patches on the host;
 - ``models.unet.unet_apply`` runs the U-Net forward per patch;
-- ``ops.conv.facet_conv`` wraps the hand-written kernel of
-  ``ops.facet_conv``;
+- ``ops.conv.facet_conv`` wraps the hand-written kernels of
+  ``ops.facet_conv`` (K1 forward, K2 backward, one autograd Function);
 - ``ops.vertex_update.update_positions_edges`` moves the vertices.
+
+Layers of the training path:
+
+- ``cli.preprocess`` → ``data.preprocess.preprocess_directory`` writes the
+  ``.npz`` training set (host, one process per mesh);
+- ``cli.train`` → ``training.trainer.train_normals`` → one train step per
+  iteration (augmentation, U-Net forward, loss, backward, Adam);
+- ``training.checkpoint.CheckpointManager`` writes ``step_<n>.pt`` and the
+  ``params.pt`` that ``cli.infer`` serves.
 """
 
 __version__ = "0.1.0"

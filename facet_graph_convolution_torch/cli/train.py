@@ -1,0 +1,54 @@
+"""Training CLI of the port (reference ``train.py:1942-1978`` →
+``mainFunction``):
+
+    python -m facet_graph_convolution_torch.cli.train --device cuda \
+        --base_path <dir> --num_iterations 300000 --net_name net
+
+Trains the normals network on ``<base_path>/Preprocessed_Data/
+trainingSet.npz`` (and ``validSet.npz`` when present; ``cli.preprocess``
+writes both) and checkpoints into ``<network_path>/<net_name>/``, whose
+``params.pt`` ``cli.infer`` serves. ``--device`` defaults to ``cuda``;
+without a card, pass ``--device cpu``.
+"""
+
+import argparse
+import os
+
+from facet_graph_convolution_torch.config import (
+    add_cli_overrides,
+    config_from_args,
+    parse_device,
+)
+from facet_graph_convolution_torch.data.dataset import load_dataset
+from facet_graph_convolution_torch.training.trainer import train_normals
+
+
+def main(argv=None):
+    parser = add_cli_overrides(argparse.ArgumentParser())
+    parser.add_argument(
+        "--steps_per_call", type=int, default=1,
+        help="train steps per call (only 1 is ported: raises above)")
+    parser.add_argument(
+        "--stream_dir", type=str, default=None,
+        help="train from streaming shards (not ported yet: raises)")
+    args = parser.parse_args(argv)
+    cfg = config_from_args(args)
+    if args.stream_dir:
+        raise NotImplementedError(
+            "--stream_dir: streaming training (ROADMAP queue 1, item 9) is not ported yet")
+    if cfg.model.include_vertices:
+        raise NotImplementedError(
+            "--include_vertices: the vertex pipeline (ROADMAP queue 1, item 7) is not "
+            "ported yet")
+    if args.steps_per_call > 1:
+        raise NotImplementedError(
+            "--steps_per_call > 1: the CUDA-graph step (ROADMAP queue 1, item 4) is not "
+            "ported yet")
+    train_set = load_dataset(os.path.join(cfg.data.binary_dump_path, "trainingSet.npz"))
+    valid_path = os.path.join(cfg.data.binary_dump_path, "validSet.npz")
+    valid_set = load_dataset(valid_path) if os.path.isfile(valid_path) else None
+    train_normals(cfg, train_set, valid_set, device=parse_device(args.device))
+
+
+if __name__ == "__main__":
+    main()

@@ -2,14 +2,17 @@
 
 The port's own copy of the normals-only pipeline of
 ``facet_graph_convolution_tpu/data/dataset.py`` (reference
-``PreprocessedData.addMesh_TimeEfficient`` and ``InferenceMesh``,
-dataClasses.py:6-234, 509-531): per-mesh or per-BFS-patch K-list adjacency,
-normal-weighted Graclus coarsening retried while any level saturates K, and
-binary-tree node order with zero-signal fake nodes.
+``PreprocessedData.addMesh_TimeEfficient``, ``TrainingSet`` and
+``InferenceMesh``, dataClasses.py:6-234, 480-531): per-mesh or per-BFS-patch
+K-list adjacency, normal-weighted Graclus coarsening retried while any level
+saturates K, and binary-tree node order with zero-signal fake nodes; the
+``.npz`` serialization in the JAX package's layout, so that one preprocessed
+set serves both packages; and the bucket padding of the training loop.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -210,6 +213,15 @@ class MeshDataset:
             )
 
 
+class TrainingSet(MeshDataset):
+    """min patch size = max patch size: no undersized training patches
+    (reference dataClasses.py:480-487)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.min_patch_size = self.max_patch_size
+
+
 class InferenceMesh(MeshDataset):
     """A whole mesh kept beside its patches for reassembly (reference
     dataClasses.py:509-531)."""
@@ -221,3 +233,118 @@ class InferenceMesh(MeshDataset):
         self.normals = compute_face_normals(vertices, faces)
         self.num_vertices = vertices.shape[0]
         self.num_faces = faces.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Serialization: the JAX package's .npz layout (data/dataset.py:334-414)
+# ---------------------------------------------------------------------------
+
+_OPTIONAL_FIELDS = ("gt_normals", "patch_indices", "perm_inv")
+# the vertex pipeline's patch fields, which the port does not read yet
+_VERTEX_FIELDS = ("vertices", "gt_vertices", "faces", "v_faces", "v_old_idx", "f_old_idx")
+_MESH_FIELDS = ("edge_map", "v_e_map", "vertices", "faces", "normals")
+
+
+def save_dataset(ds: MeshDataset, path: str) -> None:
+    """Write ``ds`` as a compressed ``.npz`` that the JAX package's
+    ``load_dataset`` reads."""
+    meta = {
+        "num_patches": len(ds.patches),
+        "max_patch_size": ds.max_patch_size,
+        "coarsening_steps": ds.coarsening_steps,
+        "coarsening_levels": ds.coarsening_levels,
+        "k_faces": ds.k_faces,
+        "num_vertices": ds.num_vertices,
+        "num_faces": ds.num_faces,
+    }
+    arrays = {
+        "meta": np.array([meta[k] for k in sorted(meta)], dtype=np.int64),
+        "meta_keys": np.array(sorted(meta)),
+    }
+    for name in _MESH_FIELDS:
+        value = getattr(ds, name)
+        if value is not None:
+            arrays[f"mesh_{name}"] = value
+    for i, p in enumerate(ds.patches):
+        arrays[f"p{i}_inputs"] = p.inputs
+        arrays[f"p{i}_num_real"] = np.array(p.num_real)
+        for lvl, a in enumerate(p.adjs):
+            arrays[f"p{i}_adj{lvl}"] = a
+        for f_name in _OPTIONAL_FIELDS:
+            value = getattr(p, f_name)
+            if value is not None:
+                arrays[f"p{i}_{f_name}"] = value
+    np.savez_compressed(path, **arrays)
+
+
+def load_dataset(path: str) -> MeshDataset:
+    """Read a dataset written by :func:`save_dataset` or by the JAX
+    package's ``save_dataset``. Raises on a vertex-pipeline set (its patches
+    carry vertex fields that the port does not read yet)."""
+    with np.load(path, allow_pickle=False) as data:
+        meta = dict(zip([str(k) for k in data["meta_keys"]], data["meta"]))
+        ds = MeshDataset(
+            max_patch_size=int(meta["max_patch_size"]),
+            coarsening_steps=int(meta["coarsening_steps"]),
+            coarsening_levels=int(meta["coarsening_levels"]),
+            k_faces=int(meta["k_faces"]),
+        )
+        ds.num_vertices = int(meta["num_vertices"])
+        ds.num_faces = int(meta["num_faces"])
+        for name in _MESH_FIELDS:
+            if f"mesh_{name}" in data:
+                setattr(ds, name, data[f"mesh_{name}"])
+        for i in range(int(meta["num_patches"])):
+            if any(f"p{i}_{f_name}" in data for f_name in _VERTEX_FIELDS):
+                raise NotImplementedError(
+                    f"{path}: a vertex-pipeline dataset; the vertex slice is not ported yet")
+            adjs = []
+            while f"p{i}_adj{len(adjs)}" in data:
+                adjs.append(data[f"p{i}_adj{len(adjs)}"])
+            patch = FacetPatch(inputs=data[f"p{i}_inputs"], adjs=adjs,
+                               num_real=int(data[f"p{i}_num_real"]))
+            for f_name in _OPTIONAL_FIELDS:
+                if f"p{i}_{f_name}" in data:
+                    setattr(patch, f_name, data[f"p{i}_{f_name}"])
+            ds.patches.append(patch)
+    return ds
+
+
+# ---------------------------------------------------------------------------
+# Bucket padding (data/dataset.py:421-482): the training loop pads patches to
+# a few sizes (multiples of 4^(levels-1), tree-aligned)
+# ---------------------------------------------------------------------------
+
+def pad_patch_to(patch: FacetPatch, target: int) -> FacetPatch:
+    """Pad a patch's fine level to ``target`` nodes with self-only fake nodes
+    (zero signal, zero GT → masked by the fake-node discipline everywhere).
+    Coarser levels pad proportionally."""
+    n = patch.num_nodes
+    if n == target:
+        return patch
+    if target < n:
+        raise ValueError(f"cannot shrink patch {n} → {target}")
+    group = n // patch.adjs[1].shape[0] if len(patch.adjs) > 1 else 1
+    inputs = np.zeros((target, patch.inputs.shape[1]), patch.inputs.dtype)
+    inputs[:n] = patch.inputs
+    gt = None
+    if patch.gt_normals is not None:
+        gt = np.zeros((target, 3), patch.gt_normals.dtype)
+        gt[:n] = patch.gt_normals
+    adjs = []
+    size = target
+    for a in patch.adjs:
+        pad = np.zeros((size, a.shape[1]), a.dtype)
+        pad[: a.shape[0]] = a
+        pad[a.shape[0]:, 0] = np.arange(a.shape[0], size) + 1
+        adjs.append(pad)
+        if group == 1:
+            break
+        size //= group
+    return dataclasses.replace(patch, inputs=inputs, gt_normals=gt, adjs=adjs)
+
+
+def bucket_size(n: int, align: int = 1024) -> int:
+    """Smallest multiple of ``align`` ≥ n (align must be a multiple of the
+    tree group so all pyramid levels stay integral)."""
+    return ((n + align - 1) // align) * align

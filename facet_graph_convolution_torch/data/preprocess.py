@@ -1,0 +1,99 @@
+"""Offline preprocessing: noisy/GT OBJ directories → ``.npz`` datasets
+(the port's counterpart of ``facet_graph_convolution_tpu/data/preprocess.py``,
+normals pipeline; reference ``pickleData``, preprocess.py:7-58).
+
+Each noisy mesh is added ``training_data_redundancy`` times (the randomized
+patching and coarsening make each repeat another sample), one worker process
+per mesh. The sets are written in the JAX package's ``.npz`` layout, so
+either package trains on them. Host code only: NumPy and SciPy.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+from facet_graph_convolution_torch.config import Config, default_config, gt_filename
+from facet_graph_convolution_torch.data.dataset import TrainingSet, save_dataset
+from facet_graph_convolution_torch.geometry.obj_io import load_obj
+
+
+def _process_one(task):
+    """Worker: a one-mesh TrainingSet (picklable arguments only)."""
+    noisy_dir, gt_dir, filename, cfg_kwargs, redundancy, seed = task
+    ds = TrainingSet(seed=seed, **cfg_kwargs)
+    vertices, faces, _ = load_obj(noisy_dir, filename)
+    gt_vertices, _, _ = load_obj(gt_dir, gt_filename(filename))
+    for _ in range(redundancy):
+        ds.add_mesh(vertices, faces, gt_vertices)
+    return filename, ds
+
+
+def _build_set(noisy_dir: str, gt_dir: str, cfg: Config, seed: Optional[int] = None,
+               num_workers: Optional[int] = None) -> TrainingSet:
+    """A training set from every OBJ of ``noisy_dir``, one process per mesh
+    (mesh i is seeded ``seed + i``, as in the JAX package)."""
+    cfg_kwargs = dict(
+        max_patch_size=cfg.data.max_patch_size,
+        coarsening_steps=cfg.model.coarsening_steps,
+        coarsening_levels=cfg.model.coarsening_levels,
+        k_faces=cfg.data.k_faces,
+        max_edges=cfg.data.max_edges,
+    )
+    files = sorted(f for f in os.listdir(noisy_dir) if f.endswith(".obj"))
+    base_seed = 0 if seed is None else seed
+    tasks = [(noisy_dir, gt_dir, f, cfg_kwargs, cfg.data.training_data_redundancy,
+              base_seed + i) for i, f in enumerate(files)]
+
+    ds = TrainingSet(seed=base_seed, **cfg_kwargs)
+    if num_workers is None:
+        num_workers = min(len(tasks), os.cpu_count() or 1, 16)
+    t0 = time.time()
+    if num_workers > 1 and len(tasks) > 1:
+        import concurrent.futures as cf
+        import multiprocessing as mp
+
+        # spawn: never fork a process that may hold CUDA or OpenMP threads
+        with cf.ProcessPoolExecutor(max_workers=num_workers,
+                                    mp_context=mp.get_context("spawn")) as pool:
+            parts = list(pool.map(_process_one, tasks))
+    else:
+        parts = [_process_one(task) for task in tasks]
+    for filename, part in parts:
+        ds.patches.extend(part.patches)
+        print(f"added {filename} ({len(part.patches)} patches)")
+    print(f"built {len(ds.patches)} patches in {time.time() - t0:.2f}s "
+          f"({num_workers} workers)")
+    return ds
+
+
+def preprocess_directory(cfg: Optional[Config] = None,
+                         with_vertices: Optional[bool] = None,
+                         shard_size: Optional[int] = None) -> None:
+    """Build and save ``trainingSet.npz`` (and ``validSet.npz`` when the
+    validation directory has meshes) under ``cfg.data.binary_dump_path``
+    (reference ``pickleData``, preprocess.py:7-49)."""
+    cfg = cfg or default_config()
+    if with_vertices is None:
+        with_vertices = cfg.model.include_vertices
+    if with_vertices:
+        raise NotImplementedError(
+            "preprocess_directory: the vertex pipeline (with_vertices) is not ported yet "
+            "(vertex slice, ROADMAP queue 1, item 7)")
+    if shard_size:
+        raise NotImplementedError(
+            "preprocess_directory: streaming shards (shard_size) are not ported yet "
+            "(streaming, ROADMAP queue 1, item 9)")
+    os.makedirs(cfg.data.binary_dump_path, exist_ok=True)
+
+    train = _build_set(cfg.data.training_data_path, cfg.data.gt_data_path, cfg)
+    train_path = os.path.join(cfg.data.binary_dump_path, "trainingSet.npz")
+    save_dataset(train, train_path)
+    print(f"saved {len(train.patches)} training patches → {train_path}")
+
+    if os.path.isdir(cfg.data.valid_data_path) and os.listdir(cfg.data.valid_data_path):
+        valid = _build_set(cfg.data.valid_data_path, cfg.data.gt_data_path, cfg)
+        valid_path = os.path.join(cfg.data.binary_dump_path, "validSet.npz")
+        save_dataset(valid, valid_path)
+        print(f"saved {len(valid.patches)} validation patches → {valid_path}")

@@ -15,7 +15,7 @@ tensors with the JAX package's keys and layouts (:mod:`..params`).
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -91,14 +91,17 @@ def unet_apply(
     coarsening_steps: int = 2,
     alpha: float = 0.1,
     variant: FacetConvVariant = FacetConvVariant.DEFAULT,
+    adj_ts: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Forward pass: ``x`` [N, C] → [N, out]. ``adjs`` are the per-level
     slot-major [K', N'] neighbour lists and ``mult_rows`` the [K'+1, N', 1]
     rows of :func:`facet_graph_convolution_torch.graph.convert.
-    slot_major_arrays`, fine level first (1 or 3 levels)."""
+    slot_major_arrays`, fine level first (1 or 3 levels); ``adj_ts`` their
+    transpose maps, which the backward needs (:func:`train_graph_tensors`)."""
 
     def conv(name, h, level):
-        return facet_conv(params[name], h, adjs[level], mult_rows[level], variant=variant)
+        return facet_conv(params[name], h, adjs[level], mult_rows[level], variant=variant,
+                          adj_t_sm=None if adj_ts is None else adj_ts[level])
 
     h1 = lrelu(conv("conv1", x, 0), alpha)
     if len(adjs) == 1:
@@ -121,15 +124,33 @@ def unet_apply(
     return linear(params["out0"], h)
 
 
+def _level_tables(adjs_raw: Sequence[np.ndarray]):
+    for a in adjs_raw:
+        a_u, mult = dedupe_klist(np.asarray(a))
+        # slot_major_arrays pads the node axis before it builds the transpose
+        # map, whose flat slots k·N' + n are strided by the padded N'
+        yield slot_major_arrays(*split_self_klist(a_u, mult))
+
+
 def graph_tensors(adjs_raw: Sequence[np.ndarray], device: str):
     """Kernel tables of a patch's raw one-indexed K-lists, as tensors on
     ``device``: ``(adjs, mult_rows)`` for :func:`unet_apply` (the JAX
     package's ``_graph_arrays(..., pallas=True)``, without the backward's
     transpose maps)."""
     adjs, rows = [], []
-    for a in adjs_raw:
-        a_u, mult = dedupe_klist(np.asarray(a))
-        adj_sm, _, mult_rows = slot_major_arrays(*split_self_klist(a_u, mult))
+    for adj_sm, _, mult_rows in _level_tables(adjs_raw):
         adjs.append(torch.as_tensor(adj_sm, device=device))
         rows.append(torch.as_tensor(mult_rows, device=device))
     return adjs, rows
+
+
+def train_graph_tensors(adjs_raw: Sequence[np.ndarray], device: str):
+    """The training form of :func:`graph_tensors`: ``(adjs, adj_ts,
+    mult_rows)``, with each level's transpose map for the backward (the JAX
+    package's ``_graph_arrays(..., pallas=True)``)."""
+    adjs, adj_ts, rows = [], [], []
+    for adj_sm, adj_t_sm, mult_rows in _level_tables(adjs_raw):
+        adjs.append(torch.as_tensor(adj_sm, device=device))
+        adj_ts.append(torch.as_tensor(adj_t_sm, device=device))
+        rows.append(torch.as_tensor(mult_rows, device=device))
+    return adjs, adj_ts, rows

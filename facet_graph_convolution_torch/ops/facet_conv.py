@@ -1,23 +1,30 @@
-"""K1: the facet-conv forward epilogue, gather fused in.
+"""K1 and K2: the facet-conv epilogue, forward and backward, gather fused in.
 
 :func:`facet_conv_fwd` launches the hand-written CUDA kernel
 ``csrc/facet_conv_fwd.cu`` on CUDA tensors; it replaces
 ``facet_graph_convolution_tpu/ops/pallas_conv.py::_epilogue_fwd_kernel``
-(launched by ``_conv_epilogue_fwd``). The source's head note says what bounds
-it on an H100 (writing ``z``: it is memory-bound) and how its design, one warp
-per node with the gather in the kernel, answers that.
-:func:`facet_conv_fwd_plain` is the same function in plain PyTorch: the
-wrapper takes it for CPU tensors, and the tests and ``chip_smoke.py`` hold the
-kernel against it.
+(launched by ``_conv_epilogue_fwd``). :func:`facet_conv_bwd` launches
+``csrc/facet_conv_bwd.cu``; it replaces ``_epilogue_bwd_kernel`` (launched by
+``_conv_epilogue_bwd``) together with the gather's transpose ``_gsm_bwd``.
+Each source's head note says what bounds it on an H100 (bytes, for both) and
+how its design answers that. :func:`facet_conv_fwd_plain` and
+:func:`facet_conv_bwd_plain` are the same functions in plain PyTorch: the
+wrappers take them for CPU tensors, and the tests and ``chip_smoke.py`` hold
+the kernels against them.
 
 For node i and slot k = 0..K' (slot 0 = self; else j = ``adj_sm[k-1, i]-1``,
 index 0 a pad):
 
-    logits = ux[i] + vx[j] + c;  q = softmax_M(logits) · mult_rows[k, i]
+    logits = ux[i] + vx[j] + c;  s = softmax_M(logits);  q = s · mult_rows[k, i]
     z[i, m·C + ch] = Σ_k q[m] · x[j, ch]
 
 with ``cat = [x | vx]`` [N, C+M], ``ux`` [N, M], ``adj_sm`` [K', N] int32,
 ``mult_rows`` [K'+1, N] f32, ``c`` [M] → ``z`` [N, M·C] f32.
+
+:class:`FacetConvEpilogue` is the ``torch.autograd.Function`` over the pair
+(``jax.custom_vjp`` of ``conv_epilogue`` in the JAX package): forward K1,
+backward K2, on every device. It saves the inputs and recomputes the softmax
+in the backward, as the TPU kernel does.
 """
 
 from __future__ import annotations
@@ -29,34 +36,71 @@ import torch
 from facet_graph_convolution_torch.ops import cuda_library
 
 
-def facet_conv_fwd_plain(cat, ux, adj_sm, mult_rows, c):
-    """Plain PyTorch K1: gather, softmax, multiply by mult, then einsum."""
+def _slots(cat, adj_sm):
+    """[K'+1, N, C+M]: each node's own row, then its gathered neighbour rows
+    (zero rows for pads)."""
     k_nbr, n = adj_sm.shape
-    m = ux.shape[1]
-    c_in = cat.shape[1] - m
     padded = torch.cat([cat.new_zeros(1, cat.shape[1]), cat], dim=0)
     gathered = padded.index_select(0, adj_sm.reshape(-1).long()).reshape(k_nbr, n, -1)
-    slots = torch.cat([cat[None], gathered], dim=0)               # [K'+1, N, C+M]
+    return torch.cat([cat[None], gathered], dim=0)
+
+
+def facet_conv_fwd_plain(cat, ux, adj_sm, mult_rows, c):
+    """Plain PyTorch K1: gather, softmax, multiply by mult, then einsum."""
+    n = adj_sm.shape[1]
+    m = ux.shape[1]
+    c_in = cat.shape[1] - m
+    slots = _slots(cat, adj_sm)                                   # [K'+1, N, C+M]
     q = torch.softmax(ux[None] + slots[..., c_in:] + c, dim=-1)
     q = q * mult_rows[..., None]                                  # [K'+1, N, M]
     z = torch.einsum("knm,knc->nmc", q, slots[..., :c_in])
     return z.reshape(n, m * c_in)
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_library.load("facet_conv_fwd")
-    if lib.facet_conv_fwd_f32.argtypes is None:
+def facet_conv_bwd_plain(cat, ux, adj_sm, adj_t_sm, mult_rows, c, dz):
+    """Plain PyTorch K2, written out (no autograd): ``(dcat, dux)`` for the
+    cotangent ``dz`` [N, M·C] of :func:`facet_conv_fwd_plain`.
+
+    Per slot, with s the recomputed softmax and w = mult:
+    ``dx = Σ_m w·s[m]·dz_m``, ``dq[m] = w·⟨x_j, dz_m⟩``,
+    ``dlog = s ⊙ (dq − ⟨s, dq⟩)``; ``dux = Σ_k dlog``. The self slot's
+    ``[dx | dlog]`` is node i's own row of ``dcat``; a neighbour slot's row
+    goes to its source j through the transpose map ``adj_t_sm`` [N, K_t],
+    which lists the one-indexed flat slots ``k·N + i`` that read j (0 = pad):
+    a gather-sum, no scatter."""
+    n = adj_sm.shape[1]
+    m = ux.shape[1]
+    c_in = cat.shape[1] - m
+    slots = _slots(cat, adj_sm)
+    s = torch.softmax(ux[None] + slots[..., c_in:] + c, dim=-1)  # [K'+1, N, M]
+    w = mult_rows[..., None]
+    dz3 = dz.reshape(n, m, c_in)
+    dx = torch.einsum("knm,nmc->knc", s * w, dz3)
+    dq = torch.einsum("knc,nmc->knm", slots[..., :c_in], dz3) * w
+    dlog = s * (dq - (dq * s).sum(dim=-1, keepdim=True))
+    dsrc = torch.cat([dx, dlog], dim=-1)                          # [K'+1, N, C+M]
+    dg = torch.cat([dsrc.new_zeros(1, dsrc.shape[-1]), dsrc[1:].reshape(-1, dsrc.shape[-1])])
+    dcat = dsrc[0] + dg.index_select(0, adj_t_sm.reshape(-1).long()).reshape(
+        n, adj_t_sm.shape[1], -1).sum(dim=1)
+    return dcat, dlog.sum(dim=0)
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = cuda_library.load(name)
+    entry = getattr(lib, name + "_f32")
+    if entry.argtypes is None:
         # c_void_p for every pointer: without argtypes ctypes would pass the
         # Python ints as 32-bit C ints and cut the addresses
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.facet_conv_fwd_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-        lib.facet_conv_fwd_f32.restype = ctypes.c_int
-        lib.facet_conv_fwd_max_c.restype = ctypes.c_int
-        lib.facet_conv_fwd_max_m.restype = ctypes.c_int
+        entry.argtypes = ([p] * 6 + [i] * 4 + [p] if name == "facet_conv_fwd"
+                          else [p] * 10 + [i] * 5 + [p])
+        entry.restype = ctypes.c_int
+        getattr(lib, name + "_max_c").restype = ctypes.c_int
+        getattr(lib, name + "_max_m").restype = ctypes.c_int
     return lib
 
 
-def _check(cat, ux, adj_sm, mult_rows, c):
+def _check(kernel, cat, ux, adj_sm, mult_rows, c, **extra):
     k_nbr, n = adj_sm.shape
     m = ux.shape[1]
     expect = {
@@ -65,20 +109,27 @@ def _check(cat, ux, adj_sm, mult_rows, c):
         "adj_sm": (adj_sm, torch.int32, (k_nbr, n)),
         "mult_rows": (mult_rows, torch.float32, (k_nbr + 1, n)),
         "c": (c, torch.float32, (m,)),
+        **extra,
     }
     for name, (t, dtype, shape) in expect.items():
         if t.device != cat.device:
-            raise ValueError(f"facet_conv_fwd: {name} on {t.device}, cat on {cat.device}")
+            raise ValueError(f"{kernel}: {name} on {t.device}, cat on {cat.device}")
         if t.dtype != dtype:
-            raise TypeError(f"facet_conv_fwd: {name} is {t.dtype}, needs {dtype}")
+            raise TypeError(f"{kernel}: {name} is {t.dtype}, needs {dtype}")
         if tuple(t.shape) != shape:
-            raise ValueError(f"facet_conv_fwd: {name} has shape {tuple(t.shape)}, needs {shape}")
+            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, needs {shape}")
         if not t.is_contiguous():
-            raise ValueError(f"facet_conv_fwd: {name} is not contiguous")
+            raise ValueError(f"{kernel}: {name} is not contiguous")
     if cat.shape[1] <= m:
-        raise ValueError(f"facet_conv_fwd: cat width {cat.shape[1]} leaves no channels for M={m}")
-    if n >= 2**31:
-        raise ValueError(f"facet_conv_fwd: N={n} overflows the kernel's int32 node index")
+        raise ValueError(f"{kernel}: cat width {cat.shape[1]} leaves no channels for M={m}")
+    if n * max(k_nbr, 1) >= 2**31:
+        raise ValueError(f"{kernel}: N={n}, K'={k_nbr} overflow the kernel's int32 slot index")
+    c_in = cat.shape[1] - m
+    lib = _library(kernel)
+    max_c, max_m = getattr(lib, kernel + "_max_c")(), getattr(lib, kernel + "_max_m")()
+    if c_in > max_c or m > max_m:
+        raise ValueError(f"{kernel}: C={c_in}, M={m} exceed the kernel's C<={max_c}, M<={max_m}")
+    return lib
 
 
 def facet_conv_fwd(cat, ux, adj_sm, mult_rows, c):
@@ -89,15 +140,10 @@ def facet_conv_fwd(cat, ux, adj_sm, mult_rows, c):
         return facet_conv_fwd_plain(cat, ux, adj_sm, mult_rows, c)
     if cat.device.type != "cuda":
         raise ValueError(f"facet_conv_fwd: no kernel for device {cat.device}")
-    _check(cat, ux, adj_sm, mult_rows, c)
+    lib = _check("facet_conv_fwd", cat, ux, adj_sm, mult_rows, c)
     k_nbr, n = adj_sm.shape
     m = ux.shape[1]
     c_in = cat.shape[1] - m
-    lib = _library()
-    if c_in > lib.facet_conv_fwd_max_c() or m > lib.facet_conv_fwd_max_m():
-        raise ValueError(
-            f"facet_conv_fwd: C={c_in}, M={m} exceed the kernel's "
-            f"C<={lib.facet_conv_fwd_max_c()}, M<={lib.facet_conv_fwd_max_m()}")
     z = torch.empty((n, m * c_in), device=cat.device, dtype=torch.float32)
     with torch.cuda.device(cat.device):
         stream = torch.cuda.current_stream(cat.device).cuda_stream
@@ -111,3 +157,65 @@ def facet_conv_fwd(cat, ux, adj_sm, mult_rows, c):
 
 
 facet_conv_fwd.launches = 0
+
+
+def facet_conv_bwd(cat, ux, adj_sm, adj_t_sm, mult_rows, c, dz):
+    """K2 on ``cat``'s device: ``(dcat, dux)`` from the CUDA kernel for CUDA
+    tensors, from the plain version for CPU tensors. Raises on any other
+    device, and on shapes, dtypes or layouts the kernel does not take."""
+    if cat.device.type == "cpu":
+        return facet_conv_bwd_plain(cat, ux, adj_sm, adj_t_sm, mult_rows, c, dz)
+    if cat.device.type != "cuda":
+        raise ValueError(f"facet_conv_bwd: no kernel for device {cat.device}")
+    k_nbr, n = adj_sm.shape
+    m = ux.shape[1]
+    width = cat.shape[1]
+    c_in = width - m
+    if adj_t_sm.dim() != 2:
+        raise ValueError(f"facet_conv_bwd: adj_t_sm has {adj_t_sm.dim()} dims, needs 2")
+    k_t = adj_t_sm.shape[1]
+    lib = _check("facet_conv_bwd", cat, ux, adj_sm, mult_rows, c,
+                 adj_t_sm=(adj_t_sm, torch.int32, (n, k_t)),
+                 dz=(dz, torch.float32, (n, m * c_in)))
+    # dg holds the neighbour slots' rows between the kernel's two passes;
+    # the rows of dead slots are never written nor read
+    dg = torch.empty((k_nbr * n, width), device=cat.device, dtype=torch.float32)
+    dcat = torch.empty((n, width), device=cat.device, dtype=torch.float32)
+    dux = torch.empty((n, m), device=cat.device, dtype=torch.float32)
+    with torch.cuda.device(cat.device):
+        stream = torch.cuda.current_stream(cat.device).cuda_stream
+        err = lib.facet_conv_bwd_f32(
+            cat.data_ptr(), ux.data_ptr(), adj_sm.data_ptr(), adj_t_sm.data_ptr(),
+            mult_rows.data_ptr(), c.data_ptr(), dz.data_ptr(), dg.data_ptr(),
+            dcat.data_ptr(), dux.data_ptr(), n, k_nbr, k_t, c_in, m, stream)
+    if err != 0:
+        raise RuntimeError(f"facet_conv_bwd: kernel launch failed (cudaError {err})")
+    facet_conv_bwd.launches += 1
+    return dcat, dux
+
+
+facet_conv_bwd.launches = 0
+
+
+class FacetConvEpilogue(torch.autograd.Function):
+    """``z = K1(cat, ux, c)`` over the tables ``adj_sm``, ``adj_t_sm`` (the
+    backward's transpose map; may be None when no gradient is taken) and
+    ``mult_rows``; the backward is K2, with ``dc = Σ_n dux``. The tables
+    get no gradient. Both directions dispatch on the device, so the same
+    graph is differentiated on the CPU and on the card."""
+
+    @staticmethod
+    def forward(ctx, cat, ux, c, adj_sm, adj_t_sm, mult_rows):
+        ctx.save_for_backward(cat, ux, c, adj_sm, adj_t_sm, mult_rows)
+        return facet_conv_fwd(cat, ux, adj_sm, mult_rows, c)
+
+    @staticmethod
+    def backward(ctx, dz):
+        cat, ux, c, adj_sm, adj_t_sm, mult_rows = ctx.saved_tensors
+        if adj_t_sm is None:
+            raise RuntimeError(
+                "facet_conv: the backward needs the transpose map adj_t_sm "
+                "(models.unet.train_graph_tensors builds it)")
+        dcat, dux = facet_conv_bwd(cat, ux, adj_sm, adj_t_sm, mult_rows, c,
+                                   dz.contiguous())
+        return dcat, dux, dux.sum(dim=0), None, None, None

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU with ``nvcc`` (they build ``csrc/``) and skip
 without one; run them on the card with
@@ -8,8 +8,10 @@ without one; run them on the card with
 (``--noconftest``: the suite's conftest imports JAX, which a card machine
 running only the port may not have.)
 
-Tolerances, float32 with TF32 off: K1 atol 1e-5 + rtol 1e-5 (the same sums
-in another order); the U-Net forward and inference atol 1e-4.
+Tolerances, float32 with TF32 off: K1 and K2 atol 1e-5 + rtol 1e-5 (the same
+sums in another order); the U-Net forward and inference atol 1e-4; a train
+step's loss atol 1e-4 degrees and its gradients atol 1e-4 on each gradient
+scaled to max 1 (the backward through 8 convs, summed in another order).
 """
 
 import numpy as np
@@ -45,15 +47,20 @@ def cuda():
     return torch.device("cuda")
 
 
-def _tables(rng, n, k):
+def _all_tables(rng, n, k):
     adj = np.zeros((n, k), np.int32)
     adj[:, 0] = np.arange(n) + 1
     for i in range(n):
         deg = int(rng.integers(0, k - 1))
         adj[i, 1:1 + deg] = rng.choice(n, size=deg, replace=True) + 1
     a_u, mult = dedupe_klist(adj)
-    adj_sm, _, rows = slot_major_arrays(*split_self_klist(a_u, mult))
-    return adj_sm, rows[:, :, 0]
+    adj_sm, adj_t_sm, rows = slot_major_arrays(*split_self_klist(a_u, mult))
+    return adj_sm, adj_t_sm, rows[:, :, 0]
+
+
+def _tables(rng, n, k):
+    adj_sm, _, rows = _all_tables(rng, n, k)
+    return adj_sm, rows
 
 
 @pytest.mark.parametrize("c_in", [6, 32, 37, 64, 128])
@@ -114,3 +121,135 @@ def test_inference_on_card_matches_cpu(cuda):
     pts_cpu, n_cpu = infer_normals(mesh, cfg, params=params, device="cpu")
     np.testing.assert_allclose(n, n_cpu, atol=1e-4)
     np.testing.assert_allclose(pts, pts_cpu, atol=1e-4)
+
+
+def _bwd_args(cuda, rng, n, k, c_in, m):
+    adj_sm, adj_t_sm, rows = _all_tables(rng, n, k)
+    n_pad = adj_sm.shape[1]
+    cat = rng.normal(size=(n_pad, c_in + m)).astype(np.float32)
+    cat[n:] = 0.0                                       # padded nodes
+    return [torch.as_tensor(a, device=cuda) for a in (
+        cat, rng.normal(size=(n_pad, m)).astype(np.float32), adj_sm, adj_t_sm, rows,
+        rng.normal(size=(m,)).astype(np.float32),
+        rng.normal(size=(n_pad, m * c_in)).astype(np.float32))]
+
+
+@pytest.mark.parametrize("c_in", [6, 32, 37, 64, 128])
+@pytest.mark.parametrize("m", [4, 9, 16])
+def test_backward_kernel_matches_plain(cuda, rng, c_in, m):
+    args = _bwd_args(cuda, rng, 700, 14, c_in, m)
+    before = k1.facet_conv_bwd.launches
+    dcat, dux = k1.facet_conv_bwd(*args)
+    assert k1.facet_conv_bwd.launches == before + 1
+    ref_dcat, ref_dux = k1.facet_conv_bwd_plain(*args)
+    torch.testing.assert_close(dcat, ref_dcat, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dux, ref_dux, atol=1e-5, rtol=1e-5)
+
+
+def test_backward_kernel_walks_more_than_32_slots(cuda, rng):
+    """K'+1 > 32 and transpose maps wider than 32: both passes walk their
+    tables in chunks of 32."""
+    args = _bwd_args(cuda, rng, 300, 45, 41, 9)
+    assert args[2].shape[0] + 1 > 32 and args[3].shape[1] > 32
+    for got, ref in zip(k1.facet_conv_bwd(*args), k1.facet_conv_bwd_plain(*args)):
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_backward_kernel_is_deterministic(cuda, rng):
+    """No atomics: two launches on the same inputs give the same bits."""
+    args = _bwd_args(cuda, rng, 2000, 23, 64, 9)
+    first = k1.facet_conv_bwd(*args)
+    second = k1.facet_conv_bwd(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_backward_kernel_refuses_what_it_does_not_take(cuda, rng):
+    cat, ux, adj, adj_t, rows, c, dz = _bwd_args(cuda, rng, 64, 6, 9, 4)
+    with pytest.raises(TypeError):
+        k1.facet_conv_bwd(cat, ux, adj, adj_t, rows, c, dz.double())
+    with pytest.raises(TypeError):
+        k1.facet_conv_bwd(cat, ux, adj, adj_t.long(), rows, c, dz)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.facet_conv_bwd(cat, ux, adj, adj_t, rows, c, dz.T.contiguous().T)
+    with pytest.raises(ValueError, match="shape"):
+        k1.facet_conv_bwd(cat, ux, adj, adj_t[:-1], rows, c, dz)
+    n = cat.shape[0]
+    with pytest.raises(ValueError, match="exceed"):
+        k1.facet_conv_bwd(torch.randn(n, 133, device=cuda), ux, adj, adj_t, rows, c,
+                          torch.randn(n, 4 * 129, device=cuda))
+    m = 17
+    with pytest.raises(ValueError, match="exceed"):
+        k1.facet_conv_bwd(torch.randn(n, 9 + m, device=cuda), torch.randn(n, m, device=cuda),
+                          adj, adj_t, rows, torch.randn(m, device=cuda),
+                          torch.randn(n, 9 * m, device=cuda))
+
+
+def test_conv_on_card_keeps_its_gradient(cuda, rng):
+    """The conv's output on the card has a grad_fn, and its gradients match
+    the CPU's (slice 1 launched K1 outside autograd: the gradient stopped)."""
+    from facet_graph_convolution_torch.ops.conv import facet_conv
+
+    adj_sm, adj_t_sm, rows = _all_tables(rng, 500, 12)
+    x = rng.normal(size=(500, 6)).astype(np.float32)
+    layer = init_unet(3, device="cpu", **SMALL)["conv1"]
+    grads = []
+    for dev in ("cpu", cuda):
+        p = {k: t.to(dev).requires_grad_() for k, t in layer.items()}
+        xt = torch.as_tensor(x, device=dev).requires_grad_()
+        y = facet_conv(p, xt, torch.as_tensor(adj_sm, device=dev),
+                       torch.as_tensor(rows[:, :, None], device=dev),
+                       adj_t_sm=torch.as_tensor(adj_t_sm, device=dev))
+        assert y.grad_fn is not None
+        names = sorted(p)
+        g = torch.autograd.grad((y * y).sum(), [p[k] for k in names] + [xt])
+        grads.append([t.cpu() for t in g])
+    for g_cpu, g_card in zip(*grads):
+        torch.testing.assert_close(g_card, g_cpu, atol=1e-4, rtol=1e-4)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step on the card against the same step on the CPU, with the
+    same rotation and loss samples: its loss, its gradients (each scaled to
+    max 1) and K1/K2's 8 launches each. The updated parameters are not
+    compared: Adam's first update is ±lr for a gradient of any size, so a
+    near-zero gradient summed in another order may flip it."""
+    from facet_graph_convolution_torch.data.dataset import TrainingSet
+    from facet_graph_convolution_torch.training.trainer import (
+        create_train_state,
+        make_normals_train_step,
+        normals_loss,
+        patch_tensors,
+    )
+
+    v, f = icosphere(3)
+    ds = TrainingSet(max_patch_size=20000, coarsening_steps=2, coarsening_levels=3,
+                     k_faces=23, seed=0)
+    ds.add_mesh(add_vertex_noise(v, f, 0.2, np.random.default_rng(0)), f, gt_vertices=v)
+    cfg = default_config().replace(
+        model={"channels": SMALL["channels"], "num_filters": 4, "fc_channels": 32},
+        train={"loss_samples": 512})
+    patch = ds.patches[0]
+    rng = np.random.default_rng(1)
+    rot = torch.as_tensor(np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32))
+    idx = torch.as_tensor(rng.integers(0, patch.num_nodes, size=512))
+    out = []
+    for dev in ("cpu", cuda):
+        state = create_train_state(cfg, device=str(dev))
+        tensors = patch_tensors(patch, str(dev))
+        names = [(layer, k) for layer in sorted(state.params) for k in sorted(state.params[layer])]
+        loss = normals_loss(state.params, cfg, *tensors, idx.to(dev), rot.to(dev))
+        grads = torch.autograd.grad(loss, [state.params[a][b] for a, b in names])
+        out.append((float(loss.detach()), [g.cpu() for g in grads]))
+        fwd, bwd = k1.facet_conv_fwd.launches, k1.facet_conv_bwd.launches
+        state, step_loss = make_normals_train_step(cfg)(state, *tensors, rot=rot,
+                                                         sample_idx=idx)
+        assert abs(float(step_loss) - float(loss.detach())) <= 1e-6 and state.step == 1
+        if dev != "cpu":
+            assert k1.facet_conv_fwd.launches == fwd + 8
+            assert k1.facet_conv_bwd.launches == bwd + 8
+    (loss_cpu, g_cpu), (loss_card, g_card) = out
+    assert abs(loss_cpu - loss_card) < 1e-4
+    for a, b in zip(g_card, g_cpu):
+        scale = b.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(a / scale, b / scale, atol=1e-4, rtol=0)
