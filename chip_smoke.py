@@ -26,7 +26,20 @@ Phases, each fatal on failure:
    plain versions', and that the written ``params.pt`` serves a request
    through ``infer_normals``; then times the train step on the whole
    subdivision-5 icosphere (one patch, as ``bench.py`` builds it) and
-   profiles one step.
+   profiles one step;
+6. vertex serving: ``infer_directory(with_vertices=True)`` answers the same 3
+   requests at full width with random multi-scale weights, once under the
+   operator solver and once under the naive one; checks the 7 written meshes
+   of each request, that K1 ran 8 times per patch and the zero-ignoring
+   tree pool (K4) 180 times per patch under the naive solver and never under
+   the operator one, each patch's three heads through K1 against the plain
+   K1, each patch's naive solve through K4 against the same solve through
+   the plain K4 (bit for bit), and the operator points against the naive
+   points on the same patches;
+7. pool kernel: K4 against its plain version, bit for bit, at the solver's
+   two pools of the largest served patch, at C = 3 and N = 1,048,576, on
+   rows of zeros, groups of zeros and -0.0 rows, and at steps 1, 2 and 3;
+   prints its times and bound.
 
 Then it prints the kernels' JSON line, the card's ``nvidia-smi`` name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -46,6 +59,11 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 KERNEL_ATOL = KERNEL_RTOL = 1e-5
 FORWARD_ATOL = 1e-4
+# the operator and naive solvers on the same patches, in the patches' frame
+# (bounding-box diagonal 1): the same sums reassociated over 120 iterations
+SOLVER_ATOL = 1e-4
+SEVEN_FILES = ("_denoised.obj", "_d_mid.obj", "_d_coarse.obj", "_fine_normals_s.obj",
+               "_original_normals.obj", "_mid_normals_s.obj", "_coarse_normals_s.obj")
 # one step's gradients through K1/K2 against the plain versions, each
 # gradient scaled to max 1: float32 sums in another order through 8 convs
 GRAD_ATOL = 1e-4
@@ -555,6 +573,214 @@ def training_phase(dev, workdir):
     return launches
 
 
+def request_shapes():
+    from facet_graph_convolution_torch.data.synthetic import chamfered_box, icosphere, torus
+
+    return {"icosphere5": icosphere(5), "torus": torus(nu=128, nv=64),
+            "chamfered_box": chamfered_box(24)}
+
+
+def vertex_serving_phase(dev, workdir):
+    """The 3 requests through the vertex pipeline under both solvers;
+    returns (K4 launches of the naive run, the naive run's records)."""
+    import torch
+
+    from facet_graph_convolution_torch.config import default_config
+    from facet_graph_convolution_torch.data.synthetic import add_vertex_noise
+    from facet_graph_convolution_torch.geometry.obj_io import load_obj, write_obj
+    from facet_graph_convolution_torch.inference.driver import (
+        forward_patch,
+        infer_directory,
+        infer_with_vertices,
+        solve_patch,
+        solver_tables,
+    )
+    from facet_graph_convolution_torch.models.unet import init_unet
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
+
+    t_phase = time.perf_counter()
+    in_dir = os.path.join(workdir, "vertex_requests")
+    os.makedirs(in_dir)
+    rng = np.random.default_rng(5)
+    shapes = request_shapes()
+    for name, (v, f) in shapes.items():
+        write_obj(add_vertex_noise(v, f, 0.2, rng), f, os.path.join(in_dir, name + ".obj"))
+    # full width with the multi-scale heads: 32/64/128, M = 9, fc 1024
+    params = init_unet(seed=1, multi_scale=True, device=str(dev))
+    print("vertex serving phase: 3 requests, full width, multi-scale heads, random weights")
+    runs = {}
+    for solver in ("operator", "naive"):
+        cfg = default_config(workdir).replace(eval={
+            "results_path": os.path.join(workdir, "vertex_results_" + solver) + "/",
+            "vertex_solver": solver})
+        k1.facet_conv_fwd.launches = 0
+        k1.facet_conv_bwd.launches = 0
+        k4.tree_pool_ignore_zeros.launches = 0
+        records = infer_directory(in_dir, cfg, with_vertices=True, params=params,
+                                  device=str(dev))
+        launches = {"K1": k1.facet_conv_fwd.launches, "K2": k1.facet_conv_bwd.launches,
+                    "K4": k4.tree_pool_ignore_zeros.launches}
+        if len(records) != 3:
+            raise AssertionError(f"{solver}: served {len(records)} of 3 requests")
+        patches = sum(r["patches"] for r in records)
+        want = {"K1": 8 * patches, "K2": 0, "K4": 180 * patches if solver == "naive" else 0}
+        if launches != want:
+            raise AssertionError(f"{solver}: launches {launches} for {patches} patches, "
+                                 f"want {want}")
+        print(f"  {solver} solver: {patches} patches, launches {launches}")
+        for r in records:
+            v, f = shapes[r["name"]]
+            results = cfg.eval.results_path
+            for suffix in SEVEN_FILES:
+                out_v, out_f, _ = load_obj(os.path.join(results, r["name"] + suffix))
+                if not np.isfinite(out_v).all():
+                    raise AssertionError(f"{r['name']}{suffix}: non-finite vertices")
+                if suffix.startswith("_d") and (
+                        out_v.shape != v.shape
+                        or not np.array_equal(out_f.astype(np.int64), f.astype(np.int64))):
+                    raise AssertionError(f"{r['name']}{suffix}: bad mesh {out_v.shape}")
+            print("    request %-14s faces %6d patches %d  preprocess %.3f s  forward %.3f s  "
+                  "solver %.3f s (%d iterations a patch)" % (
+                      r["name"], r["faces"], r["patches"], r["preprocess_s"], r["forward_s"],
+                      r["solver_s"], r["solver_iterations"]))
+        runs[solver] = (records, cfg, launches)
+
+    records, cfg, launches = runs["naive"]
+    cfg_operator = runs["operator"][1]
+    heads_err = solve_err = points_err = 0.0
+    identical = True
+    kernels = (k1.facet_conv_fwd, k4.tree_pool_ignore_zeros)
+    for r in records:
+        for patch in r["mesh"].patches:
+            with torch.no_grad():
+                heads = forward_patch(params, patch, cfg, dev, multi_scale=True)
+                try:
+                    k1.facet_conv_fwd = k1.facet_conv_fwd_plain
+                    heads_ref = forward_patch(params, patch, cfg, dev, multi_scale=True)
+                finally:
+                    k1.facet_conv_fwd = kernels[0]
+            for h, h_ref in zip(heads, heads_ref):
+                if not torch.isfinite(h).all():
+                    raise AssertionError(f"{r['name']}: non-finite head")
+                heads_err = max(heads_err, float((h - h_ref).abs().max()))
+            solved = solve_patch(patch, cfg, heads, dev)
+            try:
+                k4.tree_pool_ignore_zeros = k4.tree_pool_ignore_zeros_plain
+                solved_ref = solve_patch(patch, cfg, heads, dev)
+            finally:
+                k4.tree_pool_ignore_zeros = kernels[1]
+            for a, b in zip([solved[0], *solved[1]], [solved_ref[0], *solved_ref[1]]):
+                identical = identical and torch.equal(a, b)
+                solve_err = max(solve_err, float((a - b).abs().max()))
+        # the operator solver on the same patches as the naive run
+        out_op = infer_with_vertices(r["mesh"], cfg_operator, params=params, device=str(dev))
+        for key in ("points", "points_mid", "points_coarse"):
+            points_err = max(points_err, float(np.abs(out_op[key] - r["outputs"][key]).max()))
+    if heads_err > FORWARD_ATOL:
+        raise AssertionError(f"the heads through K1 differ from the plain K1's by {heads_err}")
+    if not identical:
+        raise AssertionError(f"the naive solve through K4 differs from the plain K4's by "
+                             f"{solve_err}")
+    if points_err > SOLVER_ATOL:
+        raise AssertionError(f"operator and naive points differ by {points_err}")
+    print(f"  three heads through K1 vs through plain K1: max abs err {heads_err:.3e} "
+          f"(atol {FORWARD_ATOL})")
+    print(f"  naive solve through K4 vs through plain K4: max abs err {solve_err:.3e} "
+          f"(bit for bit)")
+    print(f"  operator vs naive points, same patches: max abs err {points_err:.3e} "
+          f"(atol {SOLVER_ATOL}, patch frame)")
+
+    # where a solve's time goes, on the largest patch
+    largest = max((p for r in records for p in r["mesh"].patches), key=lambda p: p.num_nodes)
+    with torch.no_grad():
+        heads = forward_patch(params, largest, cfg, dev, multi_scale=True)
+    t0 = time.perf_counter()
+    solver_tables(cfg_operator, largest, dev)
+    torch.cuda.synchronize()
+    print(f"  operator tables of the {largest.num_nodes}-face patch, built on the host: "
+          f"{time.perf_counter() - t0:.3f} s")
+    for solver, solver_cfg in (("naive", cfg), ("operator", cfg_operator)):
+        device_profile(lambda: solve_patch(largest, solver_cfg, heads, dev),
+                       f"one {solver} solve of the {largest.num_nodes}-face patch")
+    print(f"  vertex serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches["K4"], records
+
+
+def pool_bound_ms(x, out, steps):
+    """Least time for K4's work on this card: x read once and out written
+    once at the HBM rate, against its operations (per pairwise value: two
+    zero tests, an add and a multiply) at the f32 rate; the larger."""
+    nbytes = (x.numel() + out.numel()) * 4
+    ops = sum(4 * (x.shape[0] >> r) * x.shape[1] for r in range(1, steps + 1))
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def pool_kernel_phase(dev, records, schedule):
+    """K4 against its plain version, bit for bit; returns (worst error,
+    per served patch {ms, plain_ms, bound_ms}, bound kind)."""
+    import torch
+
+    from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
+    from facet_graph_convolution_torch.ops.vertex_update import face_centers_pyramid
+
+    largest = max((p for r in records for p in r["mesh"].patches), key=lambda p: p.num_nodes)
+    rng = np.random.default_rng(6)
+    with torch.no_grad():
+        centers = face_centers_pyramid(torch.as_tensor(largest.vertices, device=dev),
+                                       torch.as_tensor(largest.faces, device=dev), 2, 1)[0]
+    level1 = k4.tree_pool_ignore_zeros_plain(centers, 2).contiguous()
+    big = rng.normal(size=(1 << 20, 3)).astype(np.float32)
+    big[rng.random(1 << 20) < 0.1] = 0.0
+    edge = rng.normal(size=(4096, 3)).astype(np.float32)
+    edge[rng.random(4096) < 0.3] = 0.0               # zero rows
+    edge[64:128] = 0.0                               # zero groups, at every steps
+    edge[3] = -0.0                                   # -0.0 rows
+    edge[9, 1] = -0.0
+    edge[200] = (0.0, -0.0, 0.0)
+    wide = rng.normal(size=(4096, 40)).astype(np.float32)
+    wide[rng.random(4096) < 0.3] = 0.0
+    wide[5] = -0.0
+    cases = [("solver level 0→1", centers, 2, True), ("solver level 1→2", level1, 2, True),
+             ("C=3, N=1,048,576", torch.as_tensor(big, device=dev), 2, True)]
+    cases += [(f"edge rows, steps {s}", torch.as_tensor(edge, device=dev), s, False)
+              for s in (1, 2, 3)]
+    cases += [(f"C=40 edge rows, steps {s}", torch.as_tensor(wide, device=dev), s, False)
+              for s in (1, 3)]
+    print("pool kernel phase: K4 vs plain, bit for bit; largest served patch "
+          f"{largest.num_nodes} faces")
+    print("  %-22s %8s %3s %5s %10s %9s %9s %9s %9s %s" % (
+        "case", "N", "C", "steps", "max_err", "ms", "wall_ms", "plain_ms", "bound_ms",
+        "bound_by"))
+    worst, timed = 0.0, []
+    for label, x, steps, time_it in cases:
+        out = k4.tree_pool_ignore_zeros(x, steps)
+        torch.cuda.synchronize()
+        ref = k4.tree_pool_ignore_zeros_plain(x, steps)
+        err = float((out - ref).abs().max())
+        if not (torch.equal(out, ref) and torch.equal(torch.signbit(out), torch.signbit(ref))):
+            raise AssertionError(f"K4 differs from its plain version at {label}: {err}")
+        worst = max(worst, err)
+        ms = wall_ms = plain_ms = float("nan")
+        if time_it:
+            ms, wall_ms, _ = cuda_ms(lambda: k4.tree_pool_ignore_zeros(x, steps), 50)
+            plain_ms, _, _ = cuda_ms(lambda: k4.tree_pool_ignore_zeros_plain(x, steps), 10)
+        b_ms, b_by = pool_bound_ms(x, out, steps)
+        timed.append((ms, plain_ms, b_ms, b_by))
+        print("  %-22s %8d %3d %5d %10.3e %9.5f %9.5f %9.5f %9.6f %s" % (
+            label, x.shape[0], x.shape[1], steps, err, ms, wall_ms, plain_ms, b_ms, b_by))
+    # per served patch of the largest size: the coarse scale pools twice an
+    # iteration, the mid scale once (iterations coarse first)
+    per_patch = {key: (schedule[0] + schedule[1]) * timed[0][i] + schedule[0] * timed[1][i]
+                 for i, key in enumerate(("ms", "plain_ms", "bound_ms"))}
+    print("  per served patch (%d + %d launches): K4 %.5f ms, plain %.5f ms, bound %.6f ms" % (
+        schedule[0] + schedule[1], schedule[0], per_patch["ms"], per_patch["plain_ms"],
+        per_patch["bound_ms"]))
+    kinds = {timed[0][3], timed[1][3]}
+    return worst, per_patch, ("bytes" if kinds == {"bytes"} else "operations")
+
+
 def main() -> int:
     import torch
 
@@ -562,8 +788,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     # fails outside the repo, before anything is printed
+    from facet_graph_convolution_torch.config import default_config
     from facet_graph_convolution_torch.ops import cuda_library
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card)
 
@@ -583,6 +811,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         launches, _ = serving_phase(dev, workdir)
         train_launches = training_phase(dev, workdir)
+        pool_launches, vertex_records = vertex_serving_phase(dev, workdir)
+        err4, totals4, bound_by4 = pool_kernel_phase(
+            dev, vertex_records, default_config().eval.ms_solver_iterations)
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "facet_conv_fwd",
@@ -611,6 +843,21 @@ def main() -> int:
         "bound_ms": totals2["bound_ms"],
         "bound_by": bound_by2,
         # no single PyTorch call computes this backward
+        "library_ms": None,
+    }, {
+        "name": "tree_pool_ignore_zeros",
+        "route": "cuda",
+        "source": "facet_graph_convolution_torch/csrc/tree_pool_iz.cu",
+        "replaces": "facet_graph_convolution_tpu/ops/pallas_kernels.py:91",
+        "launches": pool_launches,
+        "max_abs_err": err4,
+        # per served patch of the largest size under the naive solver: its
+        # 180 launches at the two solver shapes
+        "ms": totals4["ms"],
+        "plain_ms": totals4["plain_ms"],
+        "bound_ms": totals4["bound_ms"],
+        "bound_by": bound_by4,
+        # no single PyTorch call computes a zero-ignoring pairwise mean
         "library_ms": None,
     }]}))
     print(card)

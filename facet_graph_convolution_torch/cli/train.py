@@ -38,8 +38,8 @@ def main(argv=None):
             "--stream_dir: streaming training (ROADMAP queue 1, item 9) is not ported yet")
     if cfg.model.include_vertices:
         raise NotImplementedError(
-            "--include_vertices: the vertex pipeline (ROADMAP queue 1, item 7) is not "
-            "ported yet")
+            "--include_vertices: the vertex pipeline's training half (ROADMAP queue 1, "
+            "item 7) is not ported yet; only its serving half is")
     if args.steps_per_call > 1:
         raise NotImplementedError(
             "--steps_per_call > 1: the CUDA-graph step (ROADMAP queue 1, item 4) is not "

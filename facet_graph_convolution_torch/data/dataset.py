@@ -1,13 +1,15 @@
-"""Mesh → tree-ordered, padded facet-graph patches (host, normals pipeline).
+"""Mesh → tree-ordered, padded facet-graph patches (host).
 
-The port's own copy of the normals-only pipeline of
-``facet_graph_convolution_tpu/data/dataset.py`` (reference
-``PreprocessedData.addMesh_TimeEfficient``, ``TrainingSet`` and
-``InferenceMesh``, dataClasses.py:6-234, 480-531): per-mesh or per-BFS-patch
-K-list adjacency, normal-weighted Graclus coarsening retried while any level
-saturates K, and binary-tree node order with zero-signal fake nodes; the
-``.npz`` serialization in the JAX package's layout, so that one preprocessed
-set serves both packages; and the bucket padding of the training loop.
+The port's own copy of ``facet_graph_convolution_tpu/data/dataset.py``
+(reference ``PreprocessedData.addMesh_TimeEfficient`` and
+``addMeshWithVertices``, ``TrainingSet`` and ``InferenceMesh``,
+dataClasses.py:6-531): per-mesh or per-BFS-patch K-list adjacency,
+normal-weighted Graclus coarsening retried while any level saturates K, and
+binary-tree node order with zero-signal fake nodes; the vertex pipeline's
+patches with their own vertices, tree-ordered faces and per-vertex face
+lists; the ``.npz`` serialization of normals sets in the JAX package's
+layout, so that one preprocessed set serves both packages; and the bucket
+padding of the training loop.
 """
 
 from __future__ import annotations
@@ -22,6 +24,12 @@ from facet_graph_convolution_torch.geometry.mesh_math import (
     compute_face_normals,
     edge_map,
     triangle_barycenters,
+    vertex_faces,
+)
+from facet_graph_convolution_torch.geometry.pointset import (
+    bounding_box,
+    normalize_point_sets,
+    point_set_slice,
 )
 from facet_graph_convolution_torch.graph.adjacency import face_adjacency_klist
 from facet_graph_convolution_torch.graph.coarsen import coarsen_graph
@@ -30,7 +38,10 @@ from facet_graph_convolution_torch.graph.convert import (
     invert_permutation,
     klist_to_coo_normal_weighted,
 )
-from facet_graph_convolution_torch.graph.patching import grow_graph_patch_masked
+from facet_graph_convolution_torch.graph.patching import (
+    grow_graph_patch_masked,
+    grow_mesh_patch,
+)
 
 
 @dataclass
@@ -43,6 +54,13 @@ class FacetPatch:
     gt_normals: Optional[np.ndarray] = None  # [N, 3]
     patch_indices: Optional[np.ndarray] = None   # global face ids [num_real]
     perm_inv: Optional[np.ndarray] = None    # tree order → original order
+    # vertex pipeline (reference addMeshWithVertices)
+    vertices: Optional[np.ndarray] = None    # [V, 3]
+    gt_vertices: Optional[np.ndarray] = None
+    faces: Optional[np.ndarray] = None       # [N, 3] tree order, −1 for fakes
+    v_faces: Optional[np.ndarray] = None     # [V, k_vertices], −1 padded
+    v_old_idx: Optional[np.ndarray] = None   # patch vertex → mesh vertex
+    f_old_idx: Optional[np.ndarray] = None   # patch face → mesh face
 
     @property
     def num_nodes(self) -> int:
@@ -88,9 +106,11 @@ def build_patch(
     rng: np.random.Generator,
     patch_indices: Optional[np.ndarray] = None,
     reorder: Optional[str] = None,
+    faces: Optional[np.ndarray] = None,
 ) -> FacetPatch:
     """Coarsen one patch into the tree-ordered padded record (reference
-    dataClasses.py:109-158)."""
+    dataClasses.py:109-158); ``faces`` [n, 3], when given, are permuted into
+    the same order, with ``-1`` rows for the fake nodes."""
     k = adj.shape[1]
     n = features.shape[0]
     if levels > 1:
@@ -107,6 +127,11 @@ def build_patch(
             gt = np.zeros((new_n, 3), gt_normals.dtype)
             gt[:n] = gt_normals
             gt = gt[new_to_old]
+        faces_out = None
+        if faces is not None:
+            faces_out = np.full((new_n, 3), -1, dtype=np.int32)
+            faces_out[:n] = faces
+            faces_out = faces_out[new_to_old]
         return FacetPatch(
             inputs=feat.astype(np.float32),
             adjs=adjs,
@@ -114,6 +139,7 @@ def build_patch(
             gt_normals=None if gt is None else gt.astype(np.float32),
             patch_indices=patch_indices,
             perm_inv=invert_permutation(new_to_old),
+            faces=faces_out,
         )
     return FacetPatch(
         inputs=features.astype(np.float32),
@@ -122,12 +148,13 @@ def build_patch(
         gt_normals=None if gt_normals is None else gt_normals.astype(np.float32),
         patch_indices=patch_indices,
         perm_inv=None,
+        faces=None if faces is None else np.asarray(faces, np.int32),
     )
 
 
 class MeshDataset:
     """Meshes split into coarsened facet patches (reference
-    ``PreprocessedData``, dataClasses.py:6-478), normals pipeline only."""
+    ``PreprocessedData``, dataClasses.py:6-478)."""
 
     def __init__(
         self,
@@ -136,6 +163,7 @@ class MeshDataset:
         coarsening_levels: int,
         k_faces: int = 23,
         min_patch_size: int = 2000,
+        k_vertices: int = 25,
         max_edges: int = 20,
         seed: Optional[int] = None,
         reorder: Optional[str] = "rcm",
@@ -146,6 +174,7 @@ class MeshDataset:
         self.coarsening_steps = coarsening_steps
         self.coarsening_levels = coarsening_levels
         self.k_faces = k_faces
+        self.k_vertices = k_vertices
         self.max_edges = max_edges
         # reverse Cuthill-McKee coarse order (graph.coarsen.coarsen_graph);
         # None gives the reference's identity coarse order
@@ -212,6 +241,72 @@ class MeshDataset:
                 )
             )
 
+    def add_mesh_with_vertices(
+        self,
+        vertices: np.ndarray,
+        faces: np.ndarray,
+        gt_vertices: Optional[np.ndarray] = None,
+    ) -> None:
+        """Add one mesh for the vertex pipeline (reference
+        dataClasses.py:236-456): vertices scaled by the bounding-box diagonal
+        (jointly with the GT when given), the GT as a point set sliced to each
+        patch's bounding box, faces co-permuted into tree order with −1
+        fakes, and per-vertex incident face lists. The patches' vertices stay
+        in that scaled frame, so the points served from them do too."""
+        self.num_vertices = vertices.shape[0]
+        self.num_faces = faces.shape[0]
+        f_normals = compute_face_normals(vertices, faces)
+        adj = face_adjacency_klist(faces, self.k_faces)
+        f_pos = triangle_barycenters(vertices, faces, normalize=True)
+        features = np.concatenate([f_normals, f_pos], axis=1)
+        gt_normals = (
+            compute_face_normals(gt_vertices, faces) if gt_vertices is not None else None
+        )
+        vertices, gt_vertices = normalize_point_sets(
+            vertices, vertices if gt_vertices is None else gt_vertices)
+        if gt_normals is None:
+            gt_vertices = None
+
+        fnum = faces.shape[0]
+        if fnum <= self.max_patch_size:
+            patch = build_patch(
+                features, adj, gt_normals,
+                self.coarsening_levels, self.coarsening_steps, self.rng,
+                patch_indices=np.arange(fnum), faces=faces, reorder=self.reorder,
+            )
+            self._add_vertex_patch(patch, vertices, gt_vertices,
+                                   np.arange(vertices.shape[0]), np.arange(fnum))
+            return
+
+        covered = np.zeros(fnum, dtype=np.int8)
+        while np.any(covered == 0):
+            seed = int(self.rng.choice(np.flatnonzero(covered == 0)))
+            pv, pf, padj, v_old, f_old = grow_mesh_patch(
+                vertices, faces, adj, self.max_patch_size, seed)
+            covered[f_old] += 1
+            if f_old.shape[0] < 100:
+                continue
+            patch_gt = None
+            if gt_vertices is not None:
+                patch_gt = point_set_slice(gt_vertices, bounding_box(pv))
+                if patch_gt.shape[0] < pv.shape[0]:
+                    continue    # no GT support in this window (dataClasses.py:302-304)
+            patch = build_patch(
+                features[f_old], padj,
+                None if gt_normals is None else gt_normals[f_old],
+                self.coarsening_levels, self.coarsening_steps, self.rng,
+                patch_indices=f_old, faces=pf, reorder=self.reorder,
+            )
+            self._add_vertex_patch(patch, pv, patch_gt, v_old, f_old)
+
+    def _add_vertex_patch(self, patch, vertices, gt_vertices, v_old, f_old):
+        patch.vertices = np.asarray(vertices, np.float32)
+        patch.gt_vertices = None if gt_vertices is None else np.asarray(gt_vertices, np.float32)
+        patch.v_faces = vertex_faces(patch.faces, self.k_vertices, vertices.shape[0])
+        patch.v_old_idx = v_old
+        patch.f_old_idx = f_old
+        self.patches.append(patch)
+
 
 class TrainingSet(MeshDataset):
     """min patch size = max patch size: no undersized training patches
@@ -228,6 +323,13 @@ class InferenceMesh(MeshDataset):
 
     def add_mesh(self, vertices, faces, gt_vertices=None):
         super().add_mesh(vertices, faces, gt_vertices)
+        self._keep_whole(vertices, faces)
+
+    def add_mesh_with_vertices(self, vertices, faces, gt_vertices=None):
+        super().add_mesh_with_vertices(vertices, faces, gt_vertices)
+        self._keep_whole(vertices, faces)
+
+    def _keep_whole(self, vertices, faces):
         self.vertices = np.asarray(vertices, np.float32)
         self.faces = np.asarray(faces)
         self.normals = compute_face_normals(vertices, faces)
@@ -240,7 +342,8 @@ class InferenceMesh(MeshDataset):
 # ---------------------------------------------------------------------------
 
 _OPTIONAL_FIELDS = ("gt_normals", "patch_indices", "perm_inv")
-# the vertex pipeline's patch fields, which the port does not read yet
+# the vertex pipeline's patch fields, whose serialization comes with vertex
+# training
 _VERTEX_FIELDS = ("vertices", "gt_vertices", "faces", "v_faces", "v_old_idx", "f_old_idx")
 _MESH_FIELDS = ("edge_map", "v_e_map", "vertices", "faces", "normals")
 
@@ -297,7 +400,8 @@ def load_dataset(path: str) -> MeshDataset:
         for i in range(int(meta["num_patches"])):
             if any(f"p{i}_{f_name}" in data for f_name in _VERTEX_FIELDS):
                 raise NotImplementedError(
-                    f"{path}: a vertex-pipeline dataset; the vertex slice is not ported yet")
+                    f"{path}: a vertex-pipeline dataset; reading one comes with vertex "
+                    "training, which is not ported yet")
             adjs = []
             while f"p{i}_adj{len(adjs)}" in data:
                 adjs.append(data[f"p{i}_adj{len(adjs)}"])

@@ -41,13 +41,16 @@ def compute_vertex_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarra
     return normalize_rows(normals)
 
 
-def triangle_barycenters(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
-    """Per-face centroid of the mesh scaled by its bounding-box diagonal
-    (reference ``getTrianglesBarycenter``, utils.py:1264-1294)."""
+def triangle_barycenters(
+    vertices: np.ndarray, faces: np.ndarray, normalize: bool = True
+) -> np.ndarray:
+    """Per-face centroid, optionally scaled by the mesh's bounding-box
+    diagonal (reference ``getTrianglesBarycenter``, utils.py:1264-1294)."""
     vertices = np.asarray(vertices, dtype=np.float64)
-    diag = float(np.sqrt(np.sum((vertices.max(axis=0) - vertices.min(axis=0)) ** 2)))
-    if diag > 0:
-        vertices = vertices / diag
+    if normalize:
+        diag = float(np.sqrt(np.sum((vertices.max(axis=0) - vertices.min(axis=0)) ** 2)))
+        if diag > 0:
+            vertices = vertices / diag
     tri = vertices[faces.astype(np.int64)]
     return tri.mean(axis=1).astype(np.float32)
 
@@ -121,3 +124,28 @@ def edge_map(faces: np.ndarray, max_edges: int = 50):
     if nonmanifold:
         warnings.warn(f"edge_map: {nonmanifold} non-manifold edges (kept first 2 faces)")
     return e_map_arr, v_e_map
+
+
+def vertex_faces(faces: np.ndarray, k_v: int, vnum: int = 0) -> np.ndarray:
+    """Per-vertex incident faces ``[V, k_v]`` (−1 padded), skipping fake
+    faces (first vertex −1), filled in face order, each face's three corners
+    in turn (reference ``getVerticesFaces``, utils.py:370-395)."""
+    faces = faces.astype(np.int64)
+    if vnum == 0:
+        vnum = int(faces.max()) + 1
+    keep = np.repeat(faces[:, 0] != -1, 3)
+    fids = np.repeat(np.arange(faces.shape[0]), 3)[keep]
+    vids = faces.reshape(-1)[keep]
+    # a stable sort by vertex keeps the (face, corner) order within a vertex
+    order = np.argsort(vids, kind="stable")
+    vids, fids = vids[order], fids[order]
+    v_f = np.full((vnum, k_v), -1, dtype=np.int32)
+    if vids.size:
+        new = np.ones(vids.shape[0], dtype=bool)
+        new[1:] = vids[1:] != vids[:-1]
+        starts = np.flatnonzero(new)
+        rank = np.arange(vids.shape[0]) - np.repeat(
+            starts, np.diff(np.append(starts, vids.shape[0])))
+        fits = rank < k_v
+        v_f[vids[fits], rank[fits]] = fids[fits]
+    return v_f

@@ -5,7 +5,8 @@ The port's own copy of the functions of
 needs (reference ``listToSparseWNormals`` utils.py:1753-1796,
 ``sparseToList`` utils.py:1799-1827, ``inv_perm`` utils.py:1830-1835), plus
 :func:`slot_major_arrays`, the tables of the kernel configuration
-(``facet_graph_convolution_tpu/ops/pallas_conv.py::slot_major_arrays``).
+(``facet_graph_convolution_tpu/ops/pallas_conv.py::slot_major_arrays``), and
+:func:`lane_tables`, those of the vertex solver's node-minor gathers.
 """
 
 from __future__ import annotations
@@ -163,6 +164,23 @@ def transpose_adjacency(adj: np.ndarray, num_targets: Optional[int] = None) -> n
     adj_t = np.zeros((num_targets, k_t), dtype=np.int32)
     adj_t[targets, rank] = slots + 1
     return adj_t
+
+
+def lane_tables(
+    adj_nbr: np.ndarray, num_sources: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Tables of the node-minor (lane-axis) gather of a one-indexed
+    neighbours-only K-list ``adj_nbr`` [N, K]: ``(adjT [K, N], adjT_t [K_t,
+    num_sources])``, the transposed K-list and its transpose slot map over
+    the flat slots ``k·N + n`` (one-indexed, 0 = pad), both node-axis minor
+    (``facet_graph_convolution_tpu/graph/convert.py::lane_tables``).
+    ``num_sources`` defaults to N."""
+    adj_t = np.ascontiguousarray(adj_nbr.T.astype(np.int32))
+    # transpose_adjacency flattens its [K, N] input row-major, so the flat
+    # slots it lists are k·N + n
+    adj_t_t = transpose_adjacency(
+        adj_t, num_targets=adj_nbr.shape[0] if num_sources is None else num_sources)
+    return adj_t, np.ascontiguousarray(adj_t_t.T)
 
 
 def slot_major_arrays(

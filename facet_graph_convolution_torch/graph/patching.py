@@ -1,8 +1,9 @@
 """Masked BFS patch extraction over the facet graph (host).
 
-The port's own copy of the NumPy path of
+The port's own copy of the NumPy paths of
 ``facet_graph_convolution_tpu/graph/patching.py::grow_graph_patch_masked``
-(reference ``getGraphPatch_wMask``, utils.py:1508-1696).
+(reference ``getGraphPatch_wMask``, utils.py:1508-1696) and
+``grow_mesh_patch`` (reference ``getMeshPatch``, utils.py:1298-1411).
 """
 
 from __future__ import annotations
@@ -98,3 +99,26 @@ def grow_graph_patch_masked(
 
     out_adj = out_adj[:count] + 1            # back to one-indexed, pad → 0
     return out_adj.astype(np.int32), old_idx[:count], next_seed
+
+
+def grow_mesh_patch(
+    vertices: np.ndarray,
+    faces: np.ndarray,
+    adj: np.ndarray,
+    face_num: int,
+    seed: int,
+):
+    """A BFS face patch with its own vertices (reference ``getMeshPatch``):
+    returns (patch vertices, patch faces over them, patch K-list, vertex
+    local→global, face local→global). Vertices are numbered in order of
+    first appearance over the patch's faces, as the reference's walk
+    (utils.py:1319-1342) numbers them."""
+    patch_adj, f_old, _ = grow_graph_patch_masked(adj, face_num, seed, None, 0)
+    faces = np.asarray(faces, dtype=np.int64)
+    sel_faces = faces[f_old]
+    uniq, first_pos = np.unique(sel_faces.reshape(-1), return_index=True)
+    v_old = uniq[np.argsort(first_pos)]
+    v_new = np.full(int(faces.max()) + 1, -1, dtype=np.int64)
+    v_new[v_old] = np.arange(v_old.shape[0])
+    patch_vertices = np.asarray(vertices)[v_old]
+    return patch_vertices, v_new[sel_faces].astype(np.int32), patch_adj, v_old, f_old

@@ -4,7 +4,9 @@
     L0: conv1 → lrelu → max tree-pool (4:1)
     L1: conv2 → lrelu → max tree-pool (4:1)
     L2: conv3 → lrelu → dconv3 → lrelu
+        [multi-scale head: fc_coarse → lrelu → out2]
     L1: unpool → upconv2 → concat skip → dconv2 → lrelu
+        [multi-scale head: fc_mid → lrelu → out1]
     L0: unpool → upconv1 → concat skip → dconv1 → lrelu → fc1 → lrelu → out0
 
 :func:`unet_apply` is the counterpart of
@@ -15,7 +17,7 @@ tensors with the JAX package's keys and layouts (:mod:`..params`).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,15 +39,17 @@ def init_unet(
     num_filters: int = 9,
     fc_channels: int = 1024,
     out_channels: int = 3,
+    multi_scale: bool = False,
     std_dev: float = 0.05,
     std_dev_bias: float = 0.01,
     variant: FacetConvVariant = FacetConvVariant.DEFAULT,
     device: str = "cuda",
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Random parameters from a numpy seed (reference init: N(0, 0.05)
-    weights, N(0, 0.01) biases, model.py:31-44). The numbers differ from the
-    JAX package's ``init_unet`` for the same seed; the keys and layouts are
-    the same."""
+    weights, N(0, 0.01) biases, model.py:31-44); ``multi_scale`` adds the
+    mid and coarse heads (``fc_mid``, ``out1``, ``fc_coarse``, ``out2``).
+    The numbers differ from the JAX package's ``init_unet`` for the same
+    seed; the keys and layouts are the same."""
     if variant == FacetConvVariant.ROTATION_INVARIANT:
         raise NotImplementedError("init_unet: the rotation-invariant variant is not ported yet")
     rng = np.random.default_rng(seed)
@@ -69,7 +73,7 @@ def init_unet(
     def lin(cin, cout):
         return {"w": normal((cin, cout), std_dev), "b": normal((cout,), std_dev_bias)}
 
-    return {
+    params = {
         "conv1": conv(in_channels, c0),
         "conv2": conv(c0, c1),
         "conv3": conv(c1, c2),
@@ -81,6 +85,12 @@ def init_unet(
         "fc1": lin(c0, fc_channels),
         "out0": lin(fc_channels, out_channels),
     }
+    if multi_scale:
+        params["fc_mid"] = lin(c1, fc_channels)
+        params["out1"] = lin(fc_channels, out_channels)
+        params["fc_coarse"] = lin(c2, fc_channels)
+        params["out2"] = lin(fc_channels, out_channels)
+    return params
 
 
 def unet_apply(
@@ -92,17 +102,23 @@ def unet_apply(
     alpha: float = 0.1,
     variant: FacetConvVariant = FacetConvVariant.DEFAULT,
     adj_ts: Optional[Sequence[torch.Tensor]] = None,
-) -> torch.Tensor:
+    multi_scale: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Forward pass: ``x`` [N, C] → [N, out]. ``adjs`` are the per-level
     slot-major [K', N'] neighbour lists and ``mult_rows`` the [K'+1, N', 1]
     rows of :func:`facet_graph_convolution_torch.graph.convert.
     slot_major_arrays`, fine level first (1 or 3 levels); ``adj_ts`` their
-    transpose maps, which the backward needs (:func:`train_graph_tensors`)."""
+    transpose maps, which the backward needs (:func:`train_graph_tensors`).
+    ``multi_scale`` returns ``(y_fine, y_mid, y_coarse)``, one output per
+    pyramid level (3 levels needed)."""
 
     def conv(name, h, level):
         return facet_conv(params[name], h, adjs[level], mult_rows[level], variant=variant,
                           adj_t_sm=None if adj_ts is None else adj_ts[level])
 
+    if len(adjs) == 1 and multi_scale:
+        raise ValueError("multi_scale heads need the 3-level pyramid; got a single "
+                         "adjacency level (the reference hard-codes 3 levels, settings.py:32)")
     h1 = lrelu(conv("conv1", x, 0), alpha)
     if len(adjs) == 1:
         h = lrelu(linear(params["fc1"], h1), alpha)
@@ -121,7 +137,12 @@ def unet_apply(
     d1 = lrelu(conv("dconv1", torch.cat([u1, h1], dim=-1), 0), alpha)
 
     h = lrelu(linear(params["fc1"], d1), alpha)
-    return linear(params["out0"], h)
+    y_fine = linear(params["out0"], h)
+    if not multi_scale:
+        return y_fine
+    y_mid = linear(params["out1"], lrelu(linear(params["fc_mid"], d2), alpha))
+    y_coarse = linear(params["out2"], lrelu(linear(params["fc_coarse"], d3), alpha))
+    return y_fine, y_mid, y_coarse
 
 
 def _level_tables(adjs_raw: Sequence[np.ndarray]):

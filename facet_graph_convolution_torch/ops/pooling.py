@@ -1,4 +1,4 @@
-"""Binary-tree max pooling and repeat unpooling on ``[N, C]`` (torch
+"""Binary-tree pooling and repeat unpooling on ``[N, C]`` (torch
 counterparts of ``facet_graph_convolution_tpu/ops/pooling.py``; reference
 ``custom_binary_tree_pooling`` model.py:779-815, ``custom_upsampling``
 model.py:817-825).
@@ -11,11 +11,27 @@ from __future__ import annotations
 
 import torch
 
+from facet_graph_convolution_torch.ops import tree_pool_kernel
 
-def tree_pool(x: torch.Tensor, steps: int = 1) -> torch.Tensor:
-    """Max over sibling groups of 2^steps nodes: [N, C] → [N / 2^steps, C]."""
+
+def tree_pool(x: torch.Tensor, steps: int = 1, mode: str = "max") -> torch.Tensor:
+    """Pool sibling groups of 2^steps nodes: [N, C] → [N / 2^steps, C].
+
+    - ``max`` / ``avg``: a plain reduction (model.py:786-791);
+    - ``avg_ignore_zeros``: ``steps`` rounds of pairwise mean where an
+      all-zero sibling (a fake node) is replaced by its partner
+      (model.py:792-814), through K4
+      (:func:`facet_graph_convolution_torch.ops.tree_pool_kernel.
+      tree_pool_ignore_zeros`) on a CUDA tensor.
+    """
     n, c = x.shape
-    return torch.amax(x.reshape(-1, 2 ** steps, c), dim=1)
+    if mode == "max":
+        return torch.amax(x.reshape(-1, 2 ** steps, c), dim=1)
+    if mode == "avg":
+        return torch.mean(x.reshape(-1, 2 ** steps, c), dim=1)
+    if mode == "avg_ignore_zeros":
+        return tree_pool_kernel.tree_pool_ignore_zeros(x, steps)
+    raise ValueError(f"unknown pool mode {mode!r}")
 
 
 def tree_unpool(x: torch.Tensor, steps: int = 1) -> torch.Tensor:

@@ -1,15 +1,28 @@
-"""Edge-map vertex solver: Taubin linear anisotropic filtering (torch
-counterpart of ``facet_graph_convolution_tpu/ops/vertex_update.py::
-update_positions_edges``; reference ``update_position2``,
-train.py:1467-1557)."""
+"""Vertex solvers (torch counterparts of
+``facet_graph_convolution_tpu/ops/vertex_update.py``).
+
+- :func:`update_positions_edges`: Taubin linear anisotropic filtering over
+  the edge map (reference ``update_position2``, train.py:1467-1557);
+- :func:`update_positions_multiscale`: the coarse→fine projection solver
+  over the per-vertex face lists and the coarsening pyramid, face centres
+  recomputed from the moving vertices every iteration, their coarse levels
+  pooled by K4 on the card (reference ``update_position_MS`` and
+  ``updateFacesCenter``, train.py:1668-1798);
+- :func:`update_positions_multiscale_operator`: the same solver as a linear
+  operator over the static tables of :func:`build_solver_tables`.
+"""
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
+from facet_graph_convolution_torch.graph.convert import dedupe_klist, lane_tables
+from facet_graph_convolution_torch.ops.gather import gather_neighbors_lane
 from facet_graph_convolution_torch.ops.normalization import dot_last
+from facet_graph_convolution_torch.ops.pooling import tree_pool
 
 
 def update_positions_edges(
@@ -97,3 +110,215 @@ def update_positions_edges(
         r_pp, r_p = r_p, torch.sum(p * p)
         i += 1
     return x, i
+
+
+def _solver_step_sizes(v_faces: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Per-vertex step 1/|v_faces| (0 for a vertex without faces), [V]."""
+    num_f = (v_faces >= 0).sum(dim=-1).to(dtype)
+    return torch.where(num_f > 0, 1.0 / torch.clamp(num_f, min=1.0), torch.zeros_like(num_f))
+
+
+def face_centers_pyramid(
+    vertices: torch.Tensor,
+    faces: torch.Tensor,
+    coarsening_steps: int,
+    levels: int = 3,
+) -> List[torch.Tensor]:
+    """Face centroids at the first ``levels`` pyramid levels from the current
+    vertices (reference ``updateFacesCenter``, train.py:1768-1798). Fake
+    faces (vertex ids −1) gather a prepended zero vertex, so their centroid
+    is exactly 0; each coarser level is the zero-ignoring tree pool of the
+    one before (K4 on the card)."""
+    v_pad = torch.cat([vertices.new_zeros(1, 3), vertices], dim=0)
+    centers = v_pad[faces.long() + 1].mean(dim=1)                 # [F, 3]
+    out = [centers]
+    for _ in range(levels - 1):
+        out.append(tree_pool(out[-1], steps=coarsening_steps, mode="avg_ignore_zeros"))
+    return out
+
+
+def update_positions_multiscale(
+    x: torch.Tensor,
+    face_normals_list: Sequence[torch.Tensor],
+    faces: torch.Tensor,
+    v_faces: torch.Tensor,
+    coarsening_steps: int = 2,
+    iter_nums: Sequence[int] = (80, 20, 20),
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Coarse→fine vertex projection solver (reference
+    ``update_position_MS``, train.py:1668-1765).
+
+    ``face_normals_list`` holds the per-level normals, fine first; the
+    scales run coarsest first, ``iter_nums[s]`` iterations each. A vertex's
+    fine faces ``v_faces`` [V, K] (−1 padded) map to level-s nodes by floor
+    division by (2^steps)^s, so a −1 pad stays −1 and reads a prepended zero
+    normal. Each iteration recomputes the face centres of the current level
+    only (``cur_scale + 1`` pyramid levels: the finer pools would go unread)
+    and moves each vertex by ``1/|v_faces|`` × Σ_k n_k (⟨n_k, c_k⟩ − ⟨n_k,
+    x⟩). Returns the final x and the per-scale displacements, coarse first.
+    """
+    levels = len(face_normals_list)
+    lmbd = _solver_step_sizes(v_faces, x.dtype)[:, None]
+    v_faces = v_faces.long()
+    dx_list: List[torch.Tensor] = []
+    for s in range(levels):
+        cur_scale = levels - 1 - s
+        fn = face_normals_list[cur_scale].reshape(-1, 3)
+        fn_pad = torch.cat([fn.new_zeros(1, 3), fn], dim=0)
+        vf = torch.div(v_faces, (2 ** coarsening_steps) ** cur_scale,
+                       rounding_mode="floor") + 1
+        v_fn = fn_pad[vf]                                          # [V, K, 3]
+        x_init = x
+        for _ in range(int(iter_nums[s])):
+            fpos = face_centers_pyramid(x, faces, coarsening_steps, cur_scale + 1)[cur_scale]
+            t_pad = torch.cat([fn.new_zeros(1), torch.sum(fn * fpos, dim=-1)])
+            n_w = t_pad[vf] - dot_last(v_fn, x[:, None, :])       # [V, K]
+            x = x + lmbd * torch.sum(n_w[..., None] * v_fn, dim=1)
+        dx_list.append(x - x_init)
+    return x, dx_list
+
+
+def face_center_klists(faces, num_faces_per_level, num_vertices, coarsening_steps):
+    """Per-scale level-s-face → vertex K-lists of the face-centre operator
+    ``c_s = A_s·x``, equal to :func:`face_centers_pyramid`'s gather and
+    pool chain: ``(adj [F_s, K_s] one-indexed vertex ids, 0 = pad, wt [F_s,
+    K_s] float32)`` per scale.
+
+    A fine face's weight inside its level-s ancestor is the product over the
+    pool rounds of 1/2 where its sibling subtree holds a real face, else 1
+    (the zero-ignoring rule restated on the structure: a real face whose
+    centroid is exactly zero would differ), 0 for a fake face; it spreads
+    w/3 onto each of its vertices, and duplicate (face, vertex) pairs sum.
+    """
+    import scipy.sparse as sp
+
+    faces = np.asarray(faces)
+    f0 = faces.shape[0]
+    nz = faces[:, 0] >= 0                    # fake faces are all −1
+    w = nz.astype(np.float64)
+    out = []
+    sub = 1                                  # fine faces per current node
+    for s, f_s in enumerate(num_faces_per_level):
+        if s > 0:
+            for _ in range(coarsening_steps):
+                nzp = nz.reshape(-1, 2)
+                both = nzp[:, 0] & nzp[:, 1]
+                w = w * np.repeat(np.where(both, 0.5, 1.0), 2 * sub)
+                nz = nzp[:, 0] | nzp[:, 1]
+                sub *= 2
+        cf = np.repeat(np.arange(f0, dtype=np.int64) // sub, 3)
+        vid = faces.ravel().astype(np.int64)
+        wgt = np.repeat(w / 3.0, 3)
+        keep = (vid >= 0) & (wgt > 0)
+        mat = sp.coo_matrix((wgt[keep], (cf[keep], vid[keep])),
+                            shape=(int(f_s), int(num_vertices))).tocsr()
+        mat.sum_duplicates()
+        counts = np.diff(mat.indptr)
+        k_s = max(int(counts.max()) if counts.size else 0, 1)
+        adj = np.zeros((int(f_s), k_s), np.int32)
+        wt = np.zeros((int(f_s), k_s), np.float32)
+        rows = np.repeat(np.arange(int(f_s)), counts)
+        cols = (np.concatenate([np.arange(c) for c in counts]) if counts.size
+                else np.zeros((0,), np.int64))
+        adj[rows, cols] = mat.indices + 1    # one-indexed
+        wt[rows, cols] = mat.data
+        out.append((adj, wt))
+    return out
+
+
+def _face_center_tables(faces, num_faces_per_level, num_vertices, coarsening_steps):
+    """Per scale, the lane tables of :func:`face_center_klists` over the
+    vertex axis and their weights: ``(fadjT [K_s, F_s], fadjT_t [S, V],
+    fwT [K_s, F_s])``, NumPy."""
+    per_scale = []
+    for adj, wt in face_center_klists(faces, num_faces_per_level, num_vertices,
+                                      coarsening_steps):
+        fadjT, fadjT_t = lane_tables(adj, num_sources=int(num_vertices))
+        per_scale.append((fadjT, fadjT_t, np.ascontiguousarray(wt.T)))
+    return per_scale
+
+
+def build_solver_tables(
+    v_faces,
+    num_faces_per_level: Sequence[int],
+    num_vertices: int,
+    coarsening_steps: int = 2,
+    faces=None,
+    device: Union[str, torch.device] = "cpu",
+):
+    """Static tables of :func:`update_positions_multiscale_operator`, built
+    on the host and returned as tensors on ``device``.
+
+    Per scale s: each vertex's fine-face slots mapped to level-s nodes by
+    floor division (−1 pads → 0 after the one-index shift) and deduped, as
+    lane tables and multiplicities ``(adjT [K_u, V], adjT_t [S, F_s], multT
+    [K_u, V])``; with ``faces``, also the face-centre operator's tables of
+    :func:`_face_center_tables`, ``(fadjT, fadjT_t, fwT)``, which replace the
+    per-iteration centre pyramid. The transpose maps (``adjT_t``,
+    ``fadjT_t``) serve a scatter-free backward and are not read by the
+    serving solver.
+    """
+    v_faces = np.asarray(v_faces)
+    group = 2 ** coarsening_steps
+    fc = (_face_center_tables(faces, num_faces_per_level, num_vertices, coarsening_steps)
+          if faces is not None else None)
+    per_scale = []
+    for s, f_s in enumerate(num_faces_per_level):
+        vf1 = np.where(v_faces < 0, 0, (v_faces // group ** s) + 1)
+        vf_u, mult = dedupe_klist(vf1.astype(np.int32))
+        adjT, adjT_t = lane_tables(vf_u, num_sources=int(f_s))
+        arrays = (adjT, adjT_t, np.ascontiguousarray(mult.T)) + (fc[s] if fc is not None else ())
+        per_scale.append(tuple(torch.as_tensor(a, device=device) for a in arrays))
+    return tuple(per_scale)
+
+
+def update_positions_multiscale_operator(
+    x: torch.Tensor,
+    face_normals_list: Sequence[torch.Tensor],
+    faces: Optional[torch.Tensor],
+    v_faces: torch.Tensor,
+    tables,
+    coarsening_steps: int = 2,
+    iter_nums: Sequence[int] = (80, 20, 20),
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """:func:`update_positions_multiscale` as a linear operator over the
+    deduped tables of :func:`build_solver_tables` (equal up to float
+    reassociation). For fixed normals each iteration is linear in x:
+
+        update_v = Σ_u mult_vu·t[f_u]·n_vu − P_v x_v,
+        P_v = Σ_u mult_vu n_vu n_vuᵀ   (hoisted out of the loop)
+
+    with t = ⟨n_f, c_f⟩ per level-s face. With face tables, c = A_s·x is one
+    lane gather and a weighted sum with the normals folded into the weights;
+    without them (``faces`` is then read) the centre pyramid is rebuilt every
+    iteration, as in the naive solver. Works node-minor ([3, V]); returns x
+    [V, 3] and the per-scale displacements, coarse first."""
+    levels = len(face_normals_list)
+    lmbd = _solver_step_sizes(v_faces, x.dtype)[None, :]
+    x_t = x.T.contiguous()                                         # [3, V]
+    dx_list: List[torch.Tensor] = []
+    for s in range(levels):
+        cur_scale = levels - 1 - s
+        tab = tables[cur_scale]
+        adjT, multT = tab[0], tab[2]
+        fn = face_normals_list[cur_scale].reshape(-1, 3)
+        fn_t = fn.T.contiguous()                                   # [3, F_s]
+        n_vu = gather_neighbors_lane(fn_t, adjT)                   # [3, K_u, V]
+        p_t = torch.einsum("akv,bkv,kv->abv", n_vu, n_vu, multT)  # [3, 3, V]
+        if len(tab) >= 6:
+            fadjT, fwT = tab[3], tab[5]
+            nw = fwT[None] * fn_t[:, None, :]                      # [3, K_s, F_s]
+        x_init_t = x_t
+        for _ in range(int(iter_nums[s])):
+            if len(tab) >= 6:
+                t = torch.sum(nw * gather_neighbors_lane(x_t, fadjT), dim=(0, 1))
+            else:
+                fpos = face_centers_pyramid(
+                    x_t.T, faces, coarsening_steps, cur_scale + 1)[cur_scale]
+                t = torch.sum(fn * fpos, dim=-1)                   # [F_s]
+            t_vu = gather_neighbors_lane(t[None], adjT)[0]         # [K_u, V]
+            term1 = torch.sum((multT * t_vu)[None] * n_vu, dim=1)  # [3, V]
+            px = torch.einsum("abv,bv->av", p_t, x_t)
+            x_t = x_t + lmbd * (term1 - px)
+        dx_list.append((x_t - x_init_t).T)
+    return x_t.T, dx_list

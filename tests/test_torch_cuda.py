@@ -9,9 +9,11 @@ without one; run them on the card with
 running only the port may not have.)
 
 Tolerances, float32 with TF32 off: K1 and K2 atol 1e-5 + rtol 1e-5 (the same
-sums in another order); the U-Net forward and inference atol 1e-4; a train
-step's loss atol 1e-4 degrees and its gradients atol 1e-4 on each gradient
-scaled to max 1 (the backward through 8 convs, summed in another order).
+sums in another order); K4 bit for bit (the same float operations in the
+same order); the U-Net forward and inference atol 1e-4; a train step's loss
+atol 1e-4 degrees and its gradients atol 1e-4 on each gradient scaled to max
+1 (the backward through 8 convs, summed in another order); a vertex request's
+normals and points atol 1e-4.
 """
 
 import numpy as np
@@ -26,9 +28,10 @@ from facet_graph_convolution_torch.graph.convert import (
     slot_major_arrays,
     split_self_klist,
 )
-from facet_graph_convolution_torch.inference.driver import infer_normals
+from facet_graph_convolution_torch.inference.driver import infer_normals, infer_with_vertices
 from facet_graph_convolution_torch.models.unet import init_unet
 from facet_graph_convolution_torch.ops import facet_conv as k1
+from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
 
 pytestmark = pytest.mark.cuda
 SMALL = dict(channels=(8, 16, 32), num_filters=4, fc_channels=32)
@@ -253,3 +256,76 @@ def test_train_step_on_card_matches_cpu(cuda):
     for a, b in zip(g_card, g_cpu):
         scale = b.abs().max().clamp_min(1e-30)
         torch.testing.assert_close(a / scale, b / scale, atol=1e-4, rtol=0)
+
+
+def _pool_input(rng, n, c):
+    """Rows with zeros, all-zero rows and groups, and −0.0 rows."""
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    x[rng.random(n) < 0.3] = 0.0
+    x[8:16] = 0.0
+    x[1] = -0.0
+    x[17, :] = 0.0
+    x[17, -1] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("steps", [0, 1, 2, 3, 5])
+@pytest.mark.parametrize("c", [1, 3, 8, 9, 40, 130])
+def test_tree_pool_kernel_matches_plain_bitwise(cuda, rng, c, steps):
+    x = torch.as_tensor(_pool_input(rng, 32 * 37, c), device=cuda)
+    before = k4.tree_pool_ignore_zeros.launches
+    out = k4.tree_pool_ignore_zeros(x, steps)
+    assert k4.tree_pool_ignore_zeros.launches == before + 1
+    ref = k4.tree_pool_ignore_zeros_plain(x, steps)
+    assert out.shape == ref.shape == (x.shape[0] >> steps, c)
+    assert torch.equal(out, ref)
+    assert torch.equal(torch.signbit(out), torch.signbit(ref))
+
+
+def test_tree_pool_kernel_takes_a_stack_beyond_48_kb(cuda, rng):
+    """(steps + 1)·C·4 bytes above 48 KB: the launch asks for more shared
+    memory."""
+    x = torch.as_tensor(_pool_input(rng, 64, 2100), device=cuda)
+    assert torch.equal(k4.tree_pool_ignore_zeros(x, 5), k4.tree_pool_ignore_zeros_plain(x, 5))
+
+
+def test_tree_pool_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.randn(16, 3, device=cuda)
+    with pytest.raises(TypeError):
+        k4.tree_pool_ignore_zeros(x.double(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.tree_pool_ignore_zeros(torch.randn(3, 16, device=cuda).T, 2)
+    with pytest.raises(ValueError, match="multiple"):
+        k4.tree_pool_ignore_zeros(x, 5)
+    with pytest.raises(ValueError, match="exceeds"):
+        k4.tree_pool_ignore_zeros(torch.randn(16, 30000, device=cuda), 1)
+
+
+def test_tree_pool_kernel_raises_under_grad(cuda):
+    """K4 has no backward: it refuses a tensor that needs a gradient rather
+    than cut the gradient; under no_grad it runs."""
+    x = torch.randn(16, 3, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k4.tree_pool_ignore_zeros(x, 2)
+    with torch.no_grad():
+        assert k4.tree_pool_ignore_zeros(x, 2).shape == (4, 3)
+
+
+@pytest.mark.parametrize("solver", ["operator", "naive"])
+def test_vertex_request_on_card_matches_cpu(cuda, solver):
+    v, f = icosphere(3)
+    mesh = InferenceMesh(max_patch_size=700, coarsening_steps=2, coarsening_levels=3,
+                         k_faces=23, seed=0)
+    mesh.add_mesh_with_vertices(add_vertex_noise(v, f, 0.2, np.random.default_rng(0)), f)
+    cfg = default_config().replace(eval={"vertex_solver": solver})
+    params = init_unet(0, device="cpu", multi_scale=True, **SMALL)
+    on_card = {layer: {k: t.to(cuda) for k, t in p.items()} for layer, p in params.items()}
+    before = (k1.facet_conv_fwd.launches, k4.tree_pool_ignore_zeros.launches)
+    out = infer_with_vertices(mesh, cfg, params=on_card)
+    patches = len(mesh.patches)
+    assert k1.facet_conv_fwd.launches == before[0] + 8 * patches
+    pools = 180 * patches if solver == "naive" else 0
+    assert k4.tree_pool_ignore_zeros.launches == before[1] + pools
+    ref = infer_with_vertices(mesh, cfg, params=params, device="cpu")
+    for key, value in ref.items():
+        np.testing.assert_allclose(out[key], value, atol=1e-4, err_msg=key)

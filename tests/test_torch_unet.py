@@ -32,8 +32,10 @@ from facet_graph_convolution_torch.ops.normalization import normalize_tensor
 SMALL = dict(channels=(8, 16, 32), num_filters=4, fc_channels=32)
 
 
-def test_params_round_trip(tmp_path):
-    tree = jax.tree.map(np.asarray, jax_init_unet(jax.random.PRNGKey(0), **SMALL))
+@pytest.mark.parametrize("multi_scale", [False, True])
+def test_params_round_trip(tmp_path, multi_scale):
+    tree = jax.tree.map(np.asarray, jax_init_unet(jax.random.PRNGKey(0), multi_scale=multi_scale,
+                                                  **SMALL))
     params = params_io.params_from_jax(tree, device="cpu")
     back = params_io.params_to_numpy(params)
     assert back.keys() == tree.keys()
@@ -50,9 +52,10 @@ def test_params_round_trip(tmp_path):
             assert torch.equal(loaded[layer][name], params[layer][name])
 
 
-def test_init_unet_layout_matches_jax():
-    ours = init_unet(0, device="cpu", **SMALL)
-    ref = jax_init_unet(jax.random.PRNGKey(0), **SMALL)
+@pytest.mark.parametrize("multi_scale", [False, True])
+def test_init_unet_layout_matches_jax(multi_scale):
+    ours = init_unet(0, device="cpu", multi_scale=multi_scale, **SMALL)
+    ref = jax_init_unet(jax.random.PRNGKey(0), multi_scale=multi_scale, **SMALL)
     assert ours.keys() == ref.keys()
     for layer in ref:
         assert ours[layer].keys() == ref[layer].keys()
