@@ -27,7 +27,18 @@ Phases, each fatal on failure:
    through ``infer_normals``; then times the train step on the whole
    subdivision-5 icosphere (one patch, as ``bench.py`` builds it) and
    profiles one step;
-6. vertex serving: ``infer_directory(with_vertices=True)`` answers the same 3
+6. rotation-invariant training: ``train_normals`` with
+   ``rotation_invariance=True`` on the training phase's set, at full width
+   for 50 steps; checks finite, falling losses, that the weighted
+   aggregation (K3) ran once a step (conv1) and K1 and K2 7 times a step,
+   that the checkpoint's conv1 has no ``v``, and that one step's gradients
+   through K3 match the same step through the plain K3; then times and
+   profiles the step on the whole subdivision-5 icosphere, as for the
+   default step;
+7. aggregate kernel: K3 against its plain version, bitwise repeatable, at
+   conv1 of that step (the inputs the path gave it) and at the JAX kernel
+   test's shape; prints its times, bound and ``torch.einsum``'s time;
+8. vertex serving: ``infer_directory(with_vertices=True)`` answers the same 3
    requests at full width with random multi-scale weights, once under the
    operator solver and once under the naive one; checks the 7 written meshes
    of each request, that K1 ran 8 times per patch and the zero-ignoring
@@ -36,7 +47,7 @@ Phases, each fatal on failure:
    K1, each patch's naive solve through K4 against the same solve through
    the plain K4 (bit for bit), and the operator points against the naive
    points on the same patches;
-7. pool kernel: K4 against its plain version, bit for bit, at the solver's
+9. pool kernel: K4 against its plain version, bit for bit, at the solver's
    two pools of the largest served patch, at C = 3 and N = 1,048,576, on
    rows of zeros, groups of zeros and -0.0 rows, and at steps 1, 2 and 3;
    prints its times and bound.
@@ -64,7 +75,7 @@ FORWARD_ATOL = 1e-4
 SOLVER_ATOL = 1e-4
 SEVEN_FILES = ("_denoised.obj", "_d_mid.obj", "_d_coarse.obj", "_fine_normals_s.obj",
                "_original_normals.obj", "_mid_normals_s.obj", "_coarse_normals_s.obj")
-# one step's gradients through K1/K2 against the plain versions, each
+# one step's gradients through the kernels against the plain versions, each
 # gradient scaled to max 1: float32 sums in another order through 8 convs
 GRAD_ATOL = 1e-4
 TRAIN_STEPS = 50
@@ -409,13 +420,13 @@ def count_edges(patch) -> int:
                for adj, convs in zip(patch.adjs, (3, 3, 2)))
 
 
-def gradient_check(state, cfg, tensors, dev):
-    """One step's parameter gradients through K1/K2 against the same step
-    through the plain versions (same rotation and samples); returns the
-    worst error of a gradient scaled to max 1."""
+def gradient_check(state, cfg, tensors, dev, swaps, label):
+    """One step's parameter gradients through the kernels against the same
+    step with each ``(module, wrapper name, plain version)`` of ``swaps``
+    swapped in (same rotation and samples); fails beyond GRAD_ATOL on a
+    gradient scaled to max 1."""
     import torch
 
-    from facet_graph_convolution_torch.ops import facet_conv as k1
     from facet_graph_convolution_torch.training.trainer import normals_loss
 
     rng = np.random.default_rng(3)
@@ -429,13 +440,15 @@ def gradient_check(state, cfg, tensors, dev):
         loss = normals_loss(state.params, cfg, *tensors, idx, rot)
         return float(loss.detach()), torch.autograd.grad(loss, leaves)
 
-    kernels = (k1.facet_conv_fwd, k1.facet_conv_bwd)
+    kernels = [getattr(module, name) for module, name, _ in swaps]
     loss, g = grads()
     try:
-        k1.facet_conv_fwd, k1.facet_conv_bwd = k1.facet_conv_fwd_plain, k1.facet_conv_bwd_plain
+        for module, name, plain in swaps:
+            setattr(module, name, plain)
         loss_ref, g_ref = grads()
     finally:
-        k1.facet_conv_fwd, k1.facet_conv_bwd = kernels
+        for (module, name, _), kernel in zip(swaps, kernels):
+            setattr(module, name, kernel)
     worst = 0.0
     for a, b in zip(g, g_ref):
         if not torch.isfinite(a).all():
@@ -445,7 +458,7 @@ def gradient_check(state, cfg, tensors, dev):
     if worst > GRAD_ATOL or abs(loss - loss_ref) > FORWARD_ATOL:
         raise AssertionError(f"kernel step differs from the plain step: gradient {worst}, "
                              f"loss {loss} vs {loss_ref}")
-    print(f"  one step through K1/K2 vs through the plain versions: loss {loss:.6f} vs "
+    print(f"  one step through {label} vs through the plain versions: loss {loss:.6f} vs "
           f"{loss_ref:.6f}, gradient max abs err {worst:.3e} scaled to max 1 "
           f"(atol {GRAD_ATOL})")
 
@@ -472,12 +485,7 @@ def training_phase(dev, workdir):
     from facet_graph_convolution_torch.geometry.obj_io import write_obj
     from facet_graph_convolution_torch.inference.driver import infer_normals
     from facet_graph_convolution_torch.ops import facet_conv as k1
-    from facet_graph_convolution_torch.training.trainer import (
-        create_train_state,
-        make_normals_train_step,
-        patch_tensors,
-        train_normals,
-    )
+    from facet_graph_convolution_torch.training.trainer import patch_tensors, train_normals
 
     base = os.path.join(workdir, "train_run")
     cfg = default_config(base).replace(train={
@@ -526,9 +534,12 @@ def training_phase(dev, workdir):
           f"{losses[-1]:.3f}, mean of the first 10 {first:.3f}, of the last 10 {last:.3f}; "
           f"K1 launches {launches['fwd']}, K2 launches {launches['bwd']}; saved {saved}")
 
-    gradient_check(state, cfg, patch_tensors(
+    first_patch = patch_tensors(
         pad_patch_to(train_set.patches[0], bucket_size(train_set.patches[0].num_nodes)),
-        str(dev)), dev)
+        str(dev))
+    gradient_check(state, cfg, first_patch, dev,
+                   [(k1, "facet_conv_fwd", k1.facet_conv_fwd_plain),
+                    (k1, "facet_conv_bwd", k1.facet_conv_bwd_plain)], "K1/K2")
 
     # the written params.pt serves a request
     v, f = shapes["chamfered_box"]
@@ -554,23 +565,164 @@ def training_phase(dev, workdir):
     patch = pad_patch_to(ds.patches[0], bucket_size(ds.patches[0].num_nodes, 1024))
     edges = count_edges(patch)
     tensors = patch_tensors(patch, str(dev))
+    time_train_step(cfg, tensors, dev, patch.num_nodes, edges, "default")
+    return launches, {"cfg": cfg, "train_set": train_set, "first_patch": first_patch,
+                      "bench_tensors": tensors, "bench_nodes": patch.num_nodes,
+                      "bench_edges": edges}
+
+
+def time_train_step(cfg, tensors, dev, nodes, edges, label):
+    """Median host time of the train step on one patch (20 steps after 5 of
+    warm-up, each ending in its loss on the host), then one profiled step."""
+    from facet_graph_convolution_torch.training.trainer import (
+        create_train_state,
+        make_normals_train_step,
+    )
+
     bench = create_train_state(cfg, num_steps=100, device=str(dev))
     step = make_normals_train_step(cfg)
     times = []
-    for i in range(25):
+    for _ in range(25):
         t0 = time.perf_counter()
         bench, loss = step(bench, *tensors)
         float(loss)                     # waits for the step, as train_normals does
         times.append(time.perf_counter() - t0)
     times = sorted(times[5:])
     median = times[len(times) // 2]
-    print(f"  train step, whole subdivision-5 icosphere ({patch.num_nodes} nodes, {edges} "
+    print(f"  {label} train step, whole subdivision-5 icosphere ({nodes} nodes, {edges} "
           f"conv-edges): median {1e3 * median:.3f} ms over {len(times)} steps "
           f"(min {1e3 * times[0]:.3f}, max {1e3 * times[-1]:.3f}), "
           f"{edges / median:.4e} conv-edges/s")
     device_profile(lambda: float(step(bench, *tensors)[1]),
-                   f"one train step of the {patch.num_nodes}-node patch")
-    return launches
+                   f"one {label} train step of the {nodes}-node patch")
+    return bench
+
+
+def rotinv_training_phase(dev, trained):
+    """``train_normals`` with ``rotation_invariance=True`` on the training
+    phase's set: conv1 through K3, the other 7 convs through K1/K2. Returns
+    (K3 launches, K3's inputs at conv1 of the whole-icosphere step)."""
+    import torch
+
+    from facet_graph_convolution_torch import params as params_io
+    from facet_graph_convolution_torch.ops import aggregate as k3
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.training.trainer import normals_loss, train_normals
+
+    cfg = trained["cfg"].replace(model={"rotation_invariance": True},
+                                 train={"net_name": "smoke_rotinv"})
+    k1.facet_conv_fwd.launches = 0
+    k1.facet_conv_bwd.launches = 0
+    k3.weighted_aggregate.launches = 0
+    t0 = time.perf_counter()
+    state, hist = train_normals(cfg, trained["train_set"], num_iterations=TRAIN_STEPS,
+                                device=str(dev))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {"K1": k1.facet_conv_fwd.launches, "K2": k1.facet_conv_bwd.launches,
+                "K3": k3.weighted_aggregate.launches}
+
+    losses = hist[:, 0]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"rotation-invariant training: bad loss history {losses}")
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    if not last < first:
+        raise AssertionError(f"rotation-invariant loss did not fall: first 10 {first}, "
+                             f"last 10 {last}")
+    want = {"K1": 7 * TRAIN_STEPS, "K2": 7 * TRAIN_STEPS, "K3": TRAIN_STEPS}
+    if launches != want or state.step != TRAIN_STEPS:
+        raise AssertionError(f"rotation-invariant training: launches {launches}, want {want}; "
+                             f"{state.step} updates in {TRAIN_STEPS} steps")
+    saved = params_io.load(params_io.checkpoint_path(cfg.train.network_path, cfg.train.net_name),
+                           device="cpu")
+    if "v" in saved["conv1"] or "v" not in saved["conv2"]:
+        raise AssertionError("the rotation-invariant params.pt has a v in conv1 or none in conv2")
+    print(f"rotation-invariant training phase: {TRAIN_STEPS} steps over "
+          f"{len(trained['train_set'].patches)} patches in {train_s:.2f} s: loss "
+          f"{losses[0]:.3f} → {losses[-1]:.3f}, mean of the first 10 {first:.3f}, of the last "
+          f"10 {last:.3f}; launches {launches}; params.pt without v in conv1")
+
+    gradient_check(state, cfg, trained["first_patch"], dev,
+                   [(k3, "weighted_aggregate", k3.weighted_aggregate_plain)], "K3")
+    bench = time_train_step(cfg, trained["bench_tensors"], dev, trained["bench_nodes"],
+                            trained["bench_edges"], "rotation-invariant")
+
+    # K3's inputs as the path gives them: conv1 of one step on the whole icosphere
+    captured, kernel = [], k3.weighted_aggregate
+
+    def record(q, x_slots):
+        captured.append((q, x_slots))
+        return kernel(q, x_slots)
+
+    record.launches = 0             # the wrapper counts its launch on what stands in its name
+    try:
+        k3.weighted_aggregate = record
+        idx = torch.arange(cfg.train.loss_samples, device=dev)
+        with torch.no_grad():
+            normals_loss(bench.params, cfg, *trained["bench_tensors"], idx)
+    finally:
+        k3.weighted_aggregate = kernel
+    if len(captured) != 1:
+        raise AssertionError(f"one forward called K3 {len(captured)} times")
+    return launches["K3"], tuple(t.detach() for t in captured[0])
+
+
+def aggregate_bound_ms(q, x_slots, z):
+    """Least time for K3's work on this card: q and x_slots read once and z
+    written once at the HBM rate, against its 2·S·N·M·C operations (a
+    multiply and an add per product; the contraction is dense, pad slots
+    included) at the f32 rate; the larger of the two."""
+    s, n, m = q.shape
+    nbytes = (q.numel() + x_slots.numel() + z.numel()) * 4
+    ops = 2 * s * n * m * x_slots.shape[2]
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def aggregate_kernel_phase(dev, path_inputs):
+    """K3 against its plain version at conv1 of the whole-icosphere train
+    step (its inputs as the path gave them) and at the JAX kernel test's
+    shape (N = 512, K = 23, M = 9, C = 64); also bitwise repeatable. Times
+    the path's shape beside ``torch.einsum``, the one PyTorch call that
+    computes the same function (a yardstick: the port never calls it).
+    Returns (worst error, {ms, plain_ms, bound_ms, library_ms}, bound kind)."""
+    import torch
+
+    from facet_graph_convolution_torch.ops import aggregate as k3
+
+    rng = np.random.default_rng(7)
+    jax_shape = tuple(torch.as_tensor(rng.normal(size=(23, 512, w)).astype(np.float32),
+                                      device=dev) for w in (9, 64))
+    print("aggregate kernel phase: K3 vs plain, atol=rtol=%g, bitwise repeatable; "
+          "library: torch.einsum(\"knm,knc->nmc\")" % KERNEL_ATOL)
+    print("  %-22s %3s %6s %3s %4s %10s %9s %9s %9s %10s %9s %s" % (
+        "case", "S", "N", "M", "C", "max_err", "ms", "wall_ms", "plain_ms", "library_ms",
+        "bound_ms", "bound_by"))
+    worst, path = 0.0, None
+    for label, (q, x_slots) in (("conv1, train step", path_inputs),
+                                ("JAX kernel test shape", jax_shape)):
+        z = k3.weighted_aggregate(q, x_slots)
+        again = k3.weighted_aggregate(q, x_slots)
+        torch.cuda.synchronize()
+        ref = k3.weighted_aggregate_plain(q, x_slots)
+        err = float((z - ref).abs().max())
+        if not torch.allclose(z, ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
+            raise AssertionError(f"K3 disagrees with its plain version at {label}: {err}")
+        if not torch.equal(z, again):
+            raise AssertionError(f"K3 gave different bits on the same inputs at {label}")
+        worst = max(worst, err)
+        ms, wall_ms, _ = cuda_ms(lambda: k3.weighted_aggregate(q, x_slots), 50)
+        plain_ms, _, _ = cuda_ms(lambda: k3.weighted_aggregate_plain(q, x_slots), 50)
+        library_ms, _, _ = cuda_ms(lambda: torch.einsum("knm,knc->nmc", q, x_slots), 50)
+        b_ms, b_by = aggregate_bound_ms(q, x_slots, z)
+        s, n, m = q.shape
+        print("  %-22s %3d %6d %3d %4d %10.3e %9.5f %9.5f %9.5f %10.5f %9.5f %s" % (
+            label, s, n, m, x_slots.shape[2], err, ms, wall_ms, plain_ms, library_ms, b_ms,
+            b_by))
+        if path is None:
+            path = ({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "library_ms": library_ms}, b_by)
+    return worst, path[0], path[1]
 
 
 def request_shapes():
@@ -810,7 +962,9 @@ def main() -> int:
     err2, totals2, bound_by2 = backward_kernel_phase(dev, patch)
     with tempfile.TemporaryDirectory() as workdir:
         launches, _ = serving_phase(dev, workdir)
-        train_launches = training_phase(dev, workdir)
+        train_launches, trained = training_phase(dev, workdir)
+        k3_launches, k3_inputs = rotinv_training_phase(dev, trained)
+        err3, totals3, bound_by3 = aggregate_kernel_phase(dev, k3_inputs)
         pool_launches, vertex_records = vertex_serving_phase(dev, workdir)
         err4, totals4, bound_by4 = pool_kernel_phase(
             dev, vertex_records, default_config().eval.ms_solver_iterations)
@@ -844,6 +998,20 @@ def main() -> int:
         "bound_by": bound_by2,
         # no single PyTorch call computes this backward
         "library_ms": None,
+    }, {
+        "name": "weighted_aggregate",
+        "route": "cuda",
+        "source": "facet_graph_convolution_torch/csrc/weighted_aggregate.cu",
+        "replaces": "facet_graph_convolution_tpu/ops/pallas_kernels.py:43",
+        "launches": k3_launches,
+        "max_abs_err": err3,
+        # per train step under rotation invariance: its one launch, at conv1
+        # of the whole subdivision-5 icosphere
+        "ms": totals3["ms"],
+        "plain_ms": totals3["plain_ms"],
+        "bound_ms": totals3["bound_ms"],
+        "bound_by": bound_by3,
+        "library_ms": totals3["library_ms"],
     }, {
         "name": "tree_pool_ignore_zeros",
         "route": "cuda",

@@ -77,6 +77,14 @@ def _require_heads(params) -> None:
             "--include_vertices)")
 
 
+def _require_default_conv1(params) -> None:
+    if "v" not in params["conv1"]:
+        raise ValueError(
+            "these parameters hold a rotation-invariant conv1 (no 'v'): serving a "
+            "rotation-invariant network is not supported, here or in the JAX package, "
+            "whose inference drivers run the default variant")
+
+
 def forward_patch(params, patch, cfg: Config, device: torch.device, multi_scale: bool = False):
     """Normalized U-Net output of one patch, [N, 3] on ``device``, tree
     order (fake nodes included); with ``multi_scale``, the three heads
@@ -262,6 +270,7 @@ def infer_directory(
         with_vertices = cfg.model.include_vertices
     dev = resolve_device(device)
     params = params if params is not None else _restore_params(cfg, dev)
+    _require_default_conv1(params)
     if with_vertices:
         _require_heads(params)
     results = cfg.eval.results_path

@@ -10,14 +10,20 @@
     L0: unpool → upconv1 → concat skip → dconv1 → lrelu → fc1 → lrelu → out0
 
 :func:`unet_apply` is the counterpart of
-``facet_graph_convolution_tpu/models/unet.py::unet_apply_pallas``, the
-repo's kernel configuration of the forward. Parameters are a plain dict of
-tensors with the JAX package's keys and layouts (:mod:`..params`).
+``facet_graph_convolution_tpu/models/unet.py::unet_apply_pallas`` (the
+repo's kernel configuration of the forward) for the default and
+translation-invariant variants, and of ``unet_apply_nminor`` for the
+rotation-invariant one: conv1 rotation-invariant (through K3), the other 7
+convs default (through K1 and K2), per :func:`..ops.conv.per_conv_variants`.
+:func:`unet_apply_rowmajor` is the JAX package's row-major ``unet_apply``
+over raw one-indexed K-lists, in plain PyTorch: the port's own oracle.
+Parameters are a plain dict of tensors with the JAX package's keys and
+layouts (:mod:`..params`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,9 +33,17 @@ from facet_graph_convolution_torch.graph.convert import (
     slot_major_arrays,
     split_self_klist,
 )
-from facet_graph_convolution_torch.ops.conv import FacetConvVariant, facet_conv, linear
+from facet_graph_convolution_torch.ops.conv import (
+    FacetConvVariant,
+    facet_conv,
+    facet_conv_rowmajor,
+    linear,
+    per_conv_variants,
+)
 from facet_graph_convolution_torch.ops.normalization import lrelu
 from facet_graph_convolution_torch.ops.pooling import tree_pool, tree_unpool
+
+Output = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
 def init_unet(
@@ -48,25 +62,26 @@ def init_unet(
     """Random parameters from a numpy seed (reference init: N(0, 0.05)
     weights, N(0, 0.01) biases, model.py:31-44); ``multi_scale`` adds the
     mid and coarse heads (``fc_mid``, ``out1``, ``fc_coarse``, ``out2``).
-    The numbers differ from the JAX package's ``init_unet`` for the same
-    seed; the keys and layouts are the same."""
-    if variant == FacetConvVariant.ROTATION_INVARIANT:
-        raise NotImplementedError("init_unet: the rotation-invariant variant is not ported yet")
+    A conv has ``v`` where its variant (:func:`per_conv_variants`) is the
+    default: under rotation invariance every conv but conv1. The numbers
+    differ from the JAX package's ``init_unet`` for the same seed; the keys
+    and layouts are the same."""
     rng = np.random.default_rng(seed)
     c0, c1, c2 = channels
+    v_first, v_rest = per_conv_variants(variant)
 
     def normal(shape, std):
         return torch.as_tensor(rng.normal(size=shape).astype(np.float32) * np.float32(std),
                                device=device)
 
-    def conv(cin, cout):
+    def conv(cin, cout, var=v_rest):
         p = {
             "w": normal((num_filters, cout, cin), std_dev),
             "b": normal((cout,), std_dev_bias),
             "u": normal((num_filters, cin), std_dev),
             "c": normal((num_filters,), std_dev),
         }
-        if variant == FacetConvVariant.DEFAULT:
+        if var == FacetConvVariant.DEFAULT:
             p["v"] = normal((num_filters, cin), std_dev)
         return p
 
@@ -74,7 +89,7 @@ def init_unet(
         return {"w": normal((cin, cout), std_dev), "b": normal((cout,), std_dev_bias)}
 
     params = {
-        "conv1": conv(in_channels, c0),
+        "conv1": conv(in_channels, c0, v_first),
         "conv2": conv(c0, c1),
         "conv3": conv(c1, c2),
         "dconv3": conv(c2, c2),
@@ -93,34 +108,14 @@ def init_unet(
     return params
 
 
-def unet_apply(
-    params: Dict,
-    x: torch.Tensor,
-    adjs: Sequence[torch.Tensor],
-    mult_rows: Sequence[torch.Tensor],
-    coarsening_steps: int = 2,
-    alpha: float = 0.1,
-    variant: FacetConvVariant = FacetConvVariant.DEFAULT,
-    adj_ts: Optional[Sequence[torch.Tensor]] = None,
-    multi_scale: bool = False,
-) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """Forward pass: ``x`` [N, C] → [N, out]. ``adjs`` are the per-level
-    slot-major [K', N'] neighbour lists and ``mult_rows`` the [K'+1, N', 1]
-    rows of :func:`facet_graph_convolution_torch.graph.convert.
-    slot_major_arrays`, fine level first (1 or 3 levels); ``adj_ts`` their
-    transpose maps, which the backward needs (:func:`train_graph_tensors`).
-    ``multi_scale`` returns ``(y_fine, y_mid, y_coarse)``, one output per
-    pyramid level (3 levels needed)."""
-
-    def conv(name, h, level):
-        return facet_conv(params[name], h, adjs[level], mult_rows[level], variant=variant,
-                          adj_t_sm=None if adj_ts is None else adj_ts[level])
-
-    if len(adjs) == 1 and multi_scale:
+def _network(params: Dict, x: torch.Tensor, conv: Callable, levels: int,
+             coarsening_steps: int, alpha: float, multi_scale: bool) -> Output:
+    """The U-Net of the module docstring around ``conv(name, h, level)``."""
+    if levels == 1 and multi_scale:
         raise ValueError("multi_scale heads need the 3-level pyramid; got a single "
                          "adjacency level (the reference hard-codes 3 levels, settings.py:32)")
     h1 = lrelu(conv("conv1", x, 0), alpha)
-    if len(adjs) == 1:
+    if levels == 1:
         h = lrelu(linear(params["fc1"], h1), alpha)
         return linear(params["out0"], h)
 
@@ -143,6 +138,56 @@ def unet_apply(
     y_mid = linear(params["out1"], lrelu(linear(params["fc_mid"], d2), alpha))
     y_coarse = linear(params["out2"], lrelu(linear(params["fc_coarse"], d3), alpha))
     return y_fine, y_mid, y_coarse
+
+
+def unet_apply(
+    params: Dict,
+    x: torch.Tensor,
+    adjs: Sequence[torch.Tensor],
+    mult_rows: Sequence[torch.Tensor],
+    coarsening_steps: int = 2,
+    alpha: float = 0.1,
+    variant: FacetConvVariant = FacetConvVariant.DEFAULT,
+    adj_ts: Optional[Sequence[torch.Tensor]] = None,
+    multi_scale: bool = False,
+) -> Output:
+    """Forward pass: ``x`` [N, C] → [N, out]. ``adjs`` are the per-level
+    slot-major [K', N'] neighbour lists and ``mult_rows`` the [K'+1, N', 1]
+    rows of :func:`facet_graph_convolution_torch.graph.convert.
+    slot_major_arrays`, fine level first (1 or 3 levels); ``adj_ts`` their
+    transpose maps, which the backward needs (:func:`train_graph_tensors`).
+    ``multi_scale`` returns ``(y_fine, y_mid, y_coarse)``, one output per
+    pyramid level (3 levels needed)."""
+    v_first, v_rest = per_conv_variants(variant)
+
+    def conv(name, h, level):
+        return facet_conv(params[name], h, adjs[level], mult_rows[level],
+                          variant=v_first if name == "conv1" else v_rest,
+                          adj_t_sm=None if adj_ts is None else adj_ts[level])
+
+    return _network(params, x, conv, len(adjs), coarsening_steps, alpha, multi_scale)
+
+
+def unet_apply_rowmajor(
+    params: Dict,
+    x: torch.Tensor,
+    adjs: Sequence[torch.Tensor],
+    coarsening_steps: int = 2,
+    alpha: float = 0.1,
+    variant: FacetConvVariant = FacetConvVariant.DEFAULT,
+    multi_scale: bool = False,
+) -> Output:
+    """The same network over raw one-indexed K-lists ``adjs`` [N, K] per
+    level (slot 0 = self, 0 = pad; 1 or 3 levels), every conv the plain
+    :func:`..ops.conv.facet_conv_rowmajor` (the JAX package's row-major
+    ``unet_apply``, ``models/unet.py:91-179``). No kernel runs."""
+    v_first, v_rest = per_conv_variants(variant)
+
+    def conv(name, h, level):
+        return facet_conv_rowmajor(params[name], h, adjs[level],
+                                   variant=v_first if name == "conv1" else v_rest)
+
+    return _network(params, x, conv, len(adjs), coarsening_steps, alpha, multi_scale)
 
 
 def _level_tables(adjs_raw: Sequence[np.ndarray]):

@@ -34,15 +34,13 @@ import ctypes
 import torch
 
 from facet_graph_convolution_torch.ops import cuda_library
+from facet_graph_convolution_torch.ops.gather import gather_neighbors
 
 
 def _slots(cat, adj_sm):
     """[K'+1, N, C+M]: each node's own row, then its gathered neighbour rows
     (zero rows for pads)."""
-    k_nbr, n = adj_sm.shape
-    padded = torch.cat([cat.new_zeros(1, cat.shape[1]), cat], dim=0)
-    gathered = padded.index_select(0, adj_sm.reshape(-1).long()).reshape(k_nbr, n, -1)
-    return torch.cat([cat[None], gathered], dim=0)
+    return torch.cat([cat[None], gather_neighbors(cat, adj_sm)], dim=0)
 
 
 def facet_conv_fwd_plain(cat, ux, adj_sm, mult_rows, c):

@@ -1,21 +1,112 @@
-"""Node-minor (lane-axis) neighbour gather, forward (torch counterpart of
-``facet_graph_convolution_tpu/ops/gather.py::gather_neighbors_lane``, its
-zero-column form; reference ``get_slices``, model.py:380-405)."""
+"""Neighbour gathers over one-indexed K-lists (torch counterparts of
+``facet_graph_convolution_tpu/ops/gather.py``; reference ``get_slices``,
+model.py:380-405): a zero row is gathered for the 0 pads, so padded slots
+vanish from sums and stay finite where features are normalized.
+
+- :func:`gather_neighbors`: row-major, ``[N, C]`` over ``adj`` [N, K];
+- :func:`gather_slots`: slot-major, ``[N, C]`` over ``adj_sm`` [K', N]
+  (the rotation-invariant conv's gather);
+- :func:`gather_neighbors_lane`: node-minor, ``[C, N]`` over ``adjT``
+  [K, N] (the vertex solvers').
+
+Given a transpose map, the last two are autograd Functions whose backward
+is the JAX package's scatter-free one (``_gather_lane_bwd``, :75-95): each
+source row sums the cotangents of the slots that read it, listed in the
+map, masked where the map pads. No ``index_add_``, no scatter, no atomics:
+the same inputs give the same bits.
+"""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 
-def gather_neighbors_lane(x_t: torch.Tensor, adjT: torch.Tensor) -> torch.Tensor:
+def gather_neighbors(x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+    """``x`` [N, C], ``adj`` [N, K] one-indexed (0 = pad) → [N, K, C]
+    (``gather_neighbors`` without a transpose map: autograd's backward);
+    any one-indexed table ``adj`` [A, B] gives [A, B, C]."""
+    padded = torch.cat([x.new_zeros(1, x.shape[1]), x], dim=0)
+    return padded.index_select(0, adj.reshape(-1).long()).reshape(*adj.shape, x.shape[1])
+
+
+def neighbor_counts(adj: torch.Tensor) -> torch.Tensor:
+    """Non-zero entries per row, self slot included (reference
+    ``tf.count_nonzero(adj, 2)``, model.py:436)."""
+    return torch.count_nonzero(adj, dim=-1)
+
+
+def _transpose_sum(g_flat: torch.Tensor, adj_t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Σ over the map's slots of ``g_flat``'s rows (``dim`` 0) or columns
+    (``dim`` 1) at the one-indexed flat slots ``adj_t`` lists, 0 = pad:
+    clamped and masked, as ``_gather_lane_bwd`` does."""
+    idx = (adj_t.long() - 1).clamp_min(0)
+    valid = (adj_t > 0).to(g_flat.dtype)
+    if dim == 0:                                   # adj_t [N, K_t] → [N, C]
+        picked = g_flat.index_select(0, idx.reshape(-1)).reshape(*adj_t.shape, -1)
+        return (picked * valid[..., None]).sum(dim=1)
+    # adj_t [K_t, N] → [C, N]
+    picked = g_flat.index_select(1, idx.reshape(-1)).reshape(g_flat.shape[0], *adj_t.shape)
+    return (picked * valid[None]).sum(dim=1)
+
+
+class _GatherSlots(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, adj_sm, adj_t_sm):
+        ctx.save_for_backward(adj_t_sm)
+        return gather_neighbors(x, adj_sm)
+
+    @staticmethod
+    def backward(ctx, g):
+        (adj_t_sm,) = ctx.saved_tensors
+        if adj_t_sm is None:
+            raise RuntimeError(
+                "gather_slots: the backward needs the transpose map adj_t_sm "
+                "(models.unet.train_graph_tensors builds it)")
+        return _transpose_sum(g.reshape(-1, g.shape[-1]), adj_t_sm, 0), None, None
+
+
+def gather_slots(x: torch.Tensor, adj_sm: torch.Tensor,
+                 adj_t_sm: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x`` [N, C] over the slot-major one-indexed neighbour list
+    ``adj_sm`` [K', N] (0 = pad) → [K', N, C], zeros for pads: the
+    neighbour slots of ``ops/facet_conv.py::_slots`` without the self row.
+    ``adj_t_sm`` [N, K_t] lists the one-indexed flat slots ``k·N + i`` that
+    read each row (``graph.convert.slot_major_arrays``); the backward sums
+    them. It may be None where no gradient reaches ``x``."""
+    if adj_t_sm is not None and adj_t_sm.shape[0] != x.shape[0]:
+        raise ValueError(f"gather_slots: adj_t_sm has {adj_t_sm.shape[0]} rows, x {x.shape[0]}")
+    return _GatherSlots.apply(x, adj_sm, adj_t_sm)
+
+
+def _take_lane(x_t: torch.Tensor, adjT: torch.Tensor) -> torch.Tensor:
+    pad = torch.cat([x_t.new_zeros(x_t.shape[0], 1), x_t], dim=1)
+    return pad.index_select(1, adjT.reshape(-1).long()).reshape(x_t.shape[0], *adjT.shape)
+
+
+class _GatherLane(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_t, adjT, adjT_t):
+        ctx.save_for_backward(adjT_t)
+        return _take_lane(x_t, adjT)
+
+    @staticmethod
+    def backward(ctx, g):
+        (adjT_t,) = ctx.saved_tensors
+        return _transpose_sum(g.reshape(g.shape[0], -1), adjT_t, 1), None, None
+
+
+def gather_neighbors_lane(x_t: torch.Tensor, adjT: torch.Tensor,
+                          adjT_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x_t`` [C, N] node-minor features and ``adjT`` [K, N] a one-indexed
     transposed K-list (0 = pad) → [C, K, N]: ``out[c, k, n] = x_t[c,
     adjT[k, n] - 1]``, and 0 for pad slots (a zero column is prepended).
 
-    The serving solvers call it under ``torch.no_grad()``. Under autograd its
-    backward is ``index_select``'s scatter, not the JAX package's
-    scatter-free transpose gather over ``adjT_t``, which is not ported yet.
-    """
-    c = x_t.shape[0]
-    pad = torch.cat([x_t.new_zeros(c, 1), x_t], dim=1)
-    return pad.index_select(1, adjT.reshape(-1).long()).reshape(c, *adjT.shape)
+    With ``adjT_t`` [K_t, N_src], the transpose map over the flat slots
+    ``k·N + n`` (``graph.convert.lane_tables``), the backward is the
+    scatter-free transpose gather-sum; without it, ``index_select``'s own
+    (the serving solvers call it under ``torch.no_grad()``)."""
+    if adjT_t is not None:
+        return _GatherLane.apply(x_t, adjT, adjT_t)
+    return _take_lane(x_t, adjT)

@@ -1,10 +1,13 @@
 """Normalization and activation (torch counterparts of
 ``facet_graph_convolution_tpu/ops/normalization.py``; reference
 ``normalizeTensor`` utils.py:1700-1715, ``tensorDotProduct`` utils.py:37-41,
-``lrelu`` model.py:828-830)."""
+``lrelu`` model.py:828-830, ``batch_norm`` model.py:408-424)."""
 
 from __future__ import annotations
 
+from typing import Dict
+
+import numpy as np
 import torch
 
 
@@ -28,3 +31,23 @@ def normalize_tensor(x: torch.Tensor, epsilon: float = 1e-5) -> torch.Tensor:
 def lrelu(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
     """Leaky ReLU written like the reference: relu(x) − α·relu(−x)."""
     return torch.relu(x) - alpha * torch.relu(-x)
+
+
+def init_moments_norm(channels: int, seed: int = 0, std_dev: float = 0.05,
+                      device: str = "cuda") -> Dict[str, torch.Tensor]:
+    """``gamma`` and ``beta`` [channels] ~ N(0, std_dev) from a numpy seed
+    (the JAX package's keys and layouts)."""
+    rng = np.random.default_rng(seed)
+    return {name: torch.as_tensor(rng.normal(size=(channels,)).astype(np.float32)
+                                  * np.float32(std_dev), device=device)
+            for name in ("gamma", "beta")}
+
+
+def moments_norm(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                 epsilon: float = 1e-6) -> torch.Tensor:
+    """Moment normalization over the node axis with a learned scale and
+    shift (reference ``batch_norm`` fullNorm path, model.py:408-416; not
+    used by the default model): the population variance, as ``jnp.var``."""
+    mean = torch.mean(x, dim=0)
+    var = torch.var(x, dim=0, unbiased=False)
+    return (x - mean) * torch.rsqrt(var + epsilon) * params["gamma"] + params["beta"]

@@ -5,16 +5,17 @@
 train.py:380-632).
 
 One train step: rotation augmentation, the U-Net forward over the kernel
-tables (K1 in every conv), ``normalize_tensor``, ``face_normals_loss`` on
-``loss_samples`` sampled faces, the backward (K2 in every conv), Adam. The
+tables (K1 in every conv; under ``rotation_invariance`` K3 in conv1 and K1
+in the other 7), ``normalize_tensor``, ``face_normals_loss`` on
+``loss_samples`` sampled faces, the backward (K2 in every K1 conv), Adam. The
 random rotation and the loss samples come from a ``torch.Generator`` on the
 host; their numbers differ from the JAX package's for the same seed, so the
 tests inject the JAX package's values. The patch sequence comes from
 ``np.random.default_rng(seed)`` and is the JAX package's.
 
 Not ported yet (each raises): ``steps_per_call > 1`` (a CUDA graph around
-the step, ROADMAP queue 1, item 4), bf16 compute, the rotation-invariant
-conv, the multi-scale heads, the vertex pipeline.
+the step, ROADMAP queue 1, item 4), bf16 compute, the multi-scale heads,
+the vertex pipeline.
 """
 
 from __future__ import annotations
@@ -76,7 +77,7 @@ def _config_variant(cfg: Config) -> FacetConvVariant:
     """The conv variant of the config's invariance flags (reference
     bTransInvariant/bRotInvariant, model.py:841-842)."""
     if cfg.model.rotation_invariance:
-        raise NotImplementedError("training: the rotation-invariant conv is not ported yet")
+        return FacetConvVariant.ROTATION_INVARIANT
     if cfg.model.translation_invariance:
         return FacetConvVariant.TRANSLATION_INVARIANT
     return FacetConvVariant.DEFAULT

@@ -108,7 +108,14 @@ def test_kernel_wrapper_refuses_other_devices():
 
 
 def test_facet_conv_rejects_unported_variant():
-    with pytest.raises(NotImplementedError):
-        facet_conv({"u": None, "c": None, "w": None, "b": None}, torch.zeros(2, 3),
-                   torch.zeros(1, 8, dtype=torch.int32), torch.zeros(2, 8, 1),
-                   variant=FacetConvVariant.ROTATION_INVARIANT)
+    """Every variant of the JAX package is ported: what the conv refuses is
+    a variant that does not exist, and a rotation-invariant conv1 on inputs
+    other than the reference's 3, 4 or 6 channels (model.py:452-460)."""
+    params = {"u": torch.zeros(4, 5), "c": torch.zeros(4), "w": torch.zeros(4, 8, 5),
+              "b": torch.zeros(8)}
+    args = (params, torch.zeros(2, 5), torch.zeros(1, 8, dtype=torch.int32),
+            torch.zeros(2, 8, 1))
+    with pytest.raises(ValueError, match="variant"):
+        facet_conv(*args, variant="scale_invariant")
+    with pytest.raises(ValueError, match="3/4/6"):
+        facet_conv(*args, variant=FacetConvVariant.ROTATION_INVARIANT)

@@ -8,8 +8,8 @@ without one; run them on the card with
 (``--noconftest``: the suite's conftest imports JAX, which a card machine
 running only the port may not have.)
 
-Tolerances, float32 with TF32 off: K1 and K2 atol 1e-5 + rtol 1e-5 (the same
-sums in another order); K4 bit for bit (the same float operations in the
+Tolerances, float32 with TF32 off: K1, K2 and K3 atol 1e-5 + rtol 1e-5 (the
+same sums in another order); K4 bit for bit (the same float operations in the
 same order); the U-Net forward and inference atol 1e-4; a train step's loss
 atol 1e-4 degrees and its gradients atol 1e-4 on each gradient scaled to max
 1 (the backward through 8 convs, summed in another order); a vertex request's
@@ -30,6 +30,7 @@ from facet_graph_convolution_torch.graph.convert import (
 )
 from facet_graph_convolution_torch.inference.driver import infer_normals, infer_with_vertices
 from facet_graph_convolution_torch.models.unet import init_unet
+from facet_graph_convolution_torch.ops import aggregate as k3
 from facet_graph_convolution_torch.ops import facet_conv as k1
 from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
 
@@ -211,12 +212,13 @@ def test_conv_on_card_keeps_its_gradient(cuda, rng):
         torch.testing.assert_close(g_card, g_cpu, atol=1e-4, rtol=1e-4)
 
 
-def test_train_step_on_card_matches_cpu(cuda):
+def _train_step_on_card_matches_cpu(cuda, model, launches):
     """One train step on the card against the same step on the CPU, with the
     same rotation and loss samples: its loss, its gradients (each scaled to
-    max 1) and K1/K2's 8 launches each. The updated parameters are not
-    compared: Adam's first update is ±lr for a gradient of any size, so a
-    near-zero gradient summed in another order may flip it."""
+    max 1) and the kernels' ``launches`` ({wrapper: count a step}). The
+    updated parameters are not compared: Adam's first update is ±lr for a
+    gradient of any size, so a near-zero gradient summed in another order
+    may flip it."""
     from facet_graph_convolution_torch.data.dataset import TrainingSet
     from facet_graph_convolution_torch.training.trainer import (
         create_train_state,
@@ -230,7 +232,7 @@ def test_train_step_on_card_matches_cpu(cuda):
                      k_faces=23, seed=0)
     ds.add_mesh(add_vertex_noise(v, f, 0.2, np.random.default_rng(0)), f, gt_vertices=v)
     cfg = default_config().replace(
-        model={"channels": SMALL["channels"], "num_filters": 4, "fc_channels": 32},
+        model={"channels": SMALL["channels"], "num_filters": 4, "fc_channels": 32, **model},
         train={"loss_samples": 512})
     patch = ds.patches[0]
     rng = np.random.default_rng(1)
@@ -244,18 +246,96 @@ def test_train_step_on_card_matches_cpu(cuda):
         loss = normals_loss(state.params, cfg, *tensors, idx.to(dev), rot.to(dev))
         grads = torch.autograd.grad(loss, [state.params[a][b] for a, b in names])
         out.append((float(loss.detach()), [g.cpu() for g in grads]))
-        fwd, bwd = k1.facet_conv_fwd.launches, k1.facet_conv_bwd.launches
+        before = {fn: fn.launches for fn in launches}
         state, step_loss = make_normals_train_step(cfg)(state, *tensors, rot=rot,
                                                          sample_idx=idx)
         assert abs(float(step_loss) - float(loss.detach())) <= 1e-6 and state.step == 1
         if dev != "cpu":
-            assert k1.facet_conv_fwd.launches == fwd + 8
-            assert k1.facet_conv_bwd.launches == bwd + 8
+            assert {fn: fn.launches - before[fn] for fn in launches} == launches
     (loss_cpu, g_cpu), (loss_card, g_card) = out
     assert abs(loss_cpu - loss_card) < 1e-4
     for a, b in zip(g_card, g_cpu):
         scale = b.abs().max().clamp_min(1e-30)
         torch.testing.assert_close(a / scale, b / scale, atol=1e-4, rtol=0)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    _train_step_on_card_matches_cpu(cuda, {}, {k1.facet_conv_fwd: 8, k1.facet_conv_bwd: 8})
+
+
+def test_rotinv_train_step_on_card_matches_cpu(cuda):
+    """Under rotation invariance: conv1 through K3 once a step, the other 7
+    convs through K1 and K2."""
+    _train_step_on_card_matches_cpu(
+        cuda, {"rotation_invariance": True},
+        {k1.facet_conv_fwd: 7, k1.facet_conv_bwd: 7, k3.weighted_aggregate: 1})
+
+
+# the train step's conv1 (a subdivision-5 icosphere bucketed to 25,600 nodes),
+# the JAX kernel test's shape (tests/test_pallas.py), and whole and partial
+# chunks of the kernel's 8 channels a thread
+@pytest.mark.parametrize("s,n,m,c", [
+    (13, 25600, 9, 6), (23, 512, 9, 64), (13, 700, 16, 37), (5, 300, 4, 130),
+    (1, 77, 1, 1), (9, 1000, 9, 16), (2, 333, 3, 33)])
+def test_aggregate_kernel_matches_plain(cuda, rng, s, n, m, c):
+    q = torch.as_tensor(rng.normal(size=(s, n, m)).astype(np.float32), device=cuda)
+    x = torch.as_tensor(rng.normal(size=(s, n, c)).astype(np.float32), device=cuda)
+    before = k3.weighted_aggregate.launches
+    z = k3.weighted_aggregate(q, x)
+    assert k3.weighted_aggregate.launches == before + 1
+    torch.testing.assert_close(z, k3.weighted_aggregate_plain(q, x), atol=1e-5, rtol=1e-5)
+    assert torch.equal(z, k3.weighted_aggregate(q, x))          # no atomics
+
+
+def test_aggregate_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.randn(3, 16, 4, device=cuda)
+    x = torch.randn(3, 16, 6, device=cuda)
+    with pytest.raises(TypeError):
+        k3.weighted_aggregate(q.double(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.weighted_aggregate(q, torch.randn(6, 16, 3, device=cuda).permute(2, 1, 0))
+    with pytest.raises(ValueError, match="differ"):
+        k3.weighted_aggregate(q, x[:, :15])
+    with pytest.raises(ValueError, match="device|on"):
+        k3.weighted_aggregate(q, x.cpu())
+    with pytest.raises(ValueError, match="exceed"):
+        k3.weighted_aggregate(torch.randn(3, 16, 5000, device=cuda), x)
+    with pytest.raises(ValueError, match="exceed"):
+        k3.weighted_aggregate(q, torch.randn(3, 16, 5000, device=cuda))
+    before = k3.weighted_aggregate.launches
+    empty = k3.weighted_aggregate(q[:, :0].contiguous(), x[:, :0].contiguous())
+    assert empty.shape == (0, 24) and k3.weighted_aggregate.launches == before
+
+
+def test_rotinv_conv_on_card_keeps_its_gradient(cuda, rng):
+    """The rotation-invariant conv on the card launches K3 once through
+    ``WeightedAggregate``; its gradients reach u and c (and w, b, x) and
+    match the CPU's."""
+    from facet_graph_convolution_torch.ops.conv import FacetConvVariant, facet_conv
+
+    adj_sm, adj_t_sm, rows = _all_tables(rng, 500, 12)
+    x = rng.normal(size=(500, 6)).astype(np.float32)
+    x[:, :3] /= np.linalg.norm(x[:, :3], axis=1, keepdims=True)
+    layer = init_unet(3, device="cpu", variant=FacetConvVariant.ROTATION_INVARIANT,
+                      **SMALL)["conv1"]
+    assert "v" not in layer
+    grads = []
+    for dev in ("cpu", cuda):
+        p = {k: t.to(dev).requires_grad_() for k, t in layer.items()}
+        xt = torch.as_tensor(x, device=dev).requires_grad_()
+        before = k3.weighted_aggregate.launches
+        y = facet_conv(p, xt, torch.as_tensor(adj_sm, device=dev),
+                       torch.as_tensor(rows[:, :, None], device=dev),
+                       variant=FacetConvVariant.ROTATION_INVARIANT,
+                       adj_t_sm=torch.as_tensor(adj_t_sm, device=dev))
+        assert y.grad_fn is not None
+        assert k3.weighted_aggregate.launches == before + (dev != "cpu")
+        names = sorted(p)
+        g = torch.autograd.grad((y * y).sum(), [p[k] for k in names] + [xt])
+        assert all(float(g[names.index(k)].abs().max()) > 0 for k in ("u", "c"))
+        grads.append([t.cpu() for t in g])
+    for g_cpu, g_card in zip(*grads):
+        torch.testing.assert_close(g_card, g_cpu, atol=1e-4, rtol=1e-4)
 
 
 def _pool_input(rng, n, c):
