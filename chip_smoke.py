@@ -10,10 +10,13 @@ Phases, each fatal on failure:
    version on the card, at the 8 conv shapes of the largest patch of a
    noisy subdivision-5 icosphere (20,480 faces, two patches), on the real
    slot tables (pad slots, padded nodes, zero fake rows); prints each
-   launch's error, kernel and plain times and bound;
+   launch's error, kernel and plain times and bound; then, untimed, at
+   widths beyond the model's (C = 256, M = 9 and C = 64, M = 32);
 3. backward kernel: the same for the facet-conv backward kernel (K2), on the
-   same shapes with the transpose maps; also checks that two launches on
-   the same inputs give the same bits (no atomics);
+   same shapes with the transpose maps, with its two passes' times and the
+   floor of its two-pass design (the bound plus the scratch's round trip);
+   also checks that two launches on the same inputs give the same bits (no
+   atomics), and the same wide shapes;
 4. serving: ``infer_directory`` answers 3 requests (subdivision-5 icosphere,
    torus, chamfered box, with noise) at the full model width (channels
    32/64/128, M = 9, fc 1024, random weights from a seed); checks the written
@@ -79,6 +82,9 @@ SEVEN_FILES = ("_denoised.obj", "_d_mid.obj", "_d_coarse.obj", "_fine_normals_s.
 # gradient scaled to max 1: float32 sums in another order through 8 convs
 GRAD_ATOL = 1e-4
 TRAIN_STEPS = 50
+# (C, M) wider than the model's convs (C <= 128, M = 9), checked untimed at
+# level 1 of the served patch
+WIDE = ((256, 9), (64, 32))
 CONVS = (  # name, level, input channels (out channels follow the model)
     ("conv1", 0, 6), ("conv2", 1, 32), ("conv3", 2, 64), ("dconv3", 2, 128),
     ("upconv2", 1, 128), ("dconv2", 1, 128), ("upconv1", 0, 64), ("dconv1", 0, 64),
@@ -232,6 +238,21 @@ def kernel_phase(dev, patch):
         bound_kinds.add(b_by)
         print("  %-8s %6d %4d %3d %3d %10.3e %9.5f %9.5f %9.5f %9.5f %s" % (
             name, n_pad, c_in, m, k_nbr, err, ms, wall_ms, plain_ms, b_ms, b_by))
+    for c_in, m_wide in WIDE:
+        adj_sm, rows = adjs[1], mult_rows[1][:, :, 0].contiguous()
+        k_nbr, n_pad = adj_sm.shape
+        cat, ux, c = conv_inputs(patch, 1, c_in, m_wide, n_pad, rng, dev)
+        args = (cat, ux, adj_sm, rows, c)
+        z = k1.facet_conv_fwd(*args)
+        torch.cuda.synchronize()
+        z_ref = k1.facet_conv_fwd_plain(*args)
+        err = float((z - z_ref).abs().max())
+        if not torch.allclose(z, z_ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
+            raise AssertionError(f"K1 disagrees with its plain version at C={c_in}, "
+                                 f"M={m_wide}: {err}")
+        worst = max(worst, err)
+        print("  %-8s %6d %4d %3d %3d %10.3e (untimed)" % ("wide", n_pad, c_in, m_wide,
+                                                         k_nbr, err))
     return worst, totals, ("bytes" if bound_kinds == {"bytes"} else "operations")
 
 
@@ -259,6 +280,37 @@ def bwd_bound_ms(args, dcat, dux):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def dg_round_trip_ms(args):
+    """Least time for K2's scratch: each live neighbour slot's row of
+    C+M floats written by pass A and read by pass B, at the HBM rate. With
+    the bound it is the floor of the two-pass design."""
+    import torch
+
+    _, ux, adj_sm, _, rows, _, dz = args
+    n = adj_sm.shape[1]
+    width = dz.shape[1] // ux.shape[1] + ux.shape[1]
+    live = (rows[1:] != 0) & (adj_sm > 0) & (adj_sm <= n)
+    return 1e3 * 2 * int(torch.count_nonzero(live)) * width * 4 / H100_BYTES_PER_S
+
+
+def bwd_check(k1, args, label):
+    """K2 on ``args`` against its plain version and against itself (two
+    launches, the same bits); returns (dcat, dux, max abs error)."""
+    import torch
+
+    dcat, dux = k1.facet_conv_bwd(*args)
+    again = k1.facet_conv_bwd(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(dcat, again[0]) and torch.equal(dux, again[1])):
+        raise AssertionError(f"K2 gave different bits on the same inputs at {label}")
+    ref = k1.facet_conv_bwd_plain(*args)
+    err = max(float((a - b).abs().max()) for a, b in zip((dcat, dux), ref))
+    for got, want in zip((dcat, dux), ref):
+        if not torch.allclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
+            raise AssertionError(f"K2 disagrees with its plain version at {label}: {err}")
+    return dcat, dux, err
+
+
 def backward_kernel_phase(dev, patch):
     import torch
 
@@ -269,12 +321,14 @@ def backward_kernel_phase(dev, patch):
     rng = np.random.default_rng(2)
     m = 9
     bound_kinds, worst = set(), 0.0
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "dg_ms": 0.0}
     print("backward kernel phase: K2 vs plain, atol=rtol=%g, bitwise repeatable" % KERNEL_ATOL)
-    print("  device ms as in the kernel phase; A_ms, B_ms: its passes by torch.profiler")
-    print("  %-8s %6s %4s %3s %3s %3s %10s %9s %9s %9s %9s %9s %9s %6s %s" % (
+    print("  device ms as in the kernel phase; A_ms, B_ms: its passes by torch.profiler;")
+    print("  dg_ms: the scratch's round trip at the HBM rate (bound_ms + dg_ms: the floor "
+          "of the two-pass design)")
+    print("  %-8s %6s %4s %3s %3s %3s %10s %9s %9s %9s %9s %9s %9s %9s %6s %s" % (
         "conv", "N'", "C", "M", "K'", "K_t", "max_err", "ms", "A_ms", "B_ms", "wall_ms",
-        "plain_ms", "bound_ms", "events", "bound_by"))
+        "plain_ms", "bound_ms", "dg_ms", "events", "bound_by"))
     for name, level, c_in in CONVS:
         adj_sm, adj_t_sm = adjs[level], adj_ts[level]
         rows = mult_rows[level][:, :, 0].contiguous()
@@ -282,16 +336,7 @@ def backward_kernel_phase(dev, patch):
         cat, ux, c = conv_inputs(patch, level, c_in, m, n_pad, rng, dev)
         dz = torch.as_tensor(rng.normal(size=(n_pad, m * c_in)).astype(np.float32), device=dev)
         args = (cat, ux, adj_sm, adj_t_sm, rows, c, dz)
-        dcat, dux = k1.facet_conv_bwd(*args)
-        again = k1.facet_conv_bwd(*args)
-        torch.cuda.synchronize()
-        if not (torch.equal(dcat, again[0]) and torch.equal(dux, again[1])):
-            raise AssertionError(f"K2 gave different bits on the same inputs at {name}")
-        ref = k1.facet_conv_bwd_plain(*args)
-        err = max(float((a - b).abs().max()) for a, b in zip((dcat, dux), ref))
-        for got, want in zip((dcat, dux), ref):
-            if not torch.allclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
-                raise AssertionError(f"K2 disagrees with its plain version at {name}: {err}")
+        dcat, dux, err = bwd_check(k1, args, name)
         ms, wall_ms, by_kernel = cuda_ms(lambda: k1.facet_conv_bwd(*args), 50)
         plain_ms, _, _ = cuda_ms(lambda: k1.facet_conv_bwd_plain(*args), 10)
         # the kernel's two passes as the profiler saw them, and its launches
@@ -300,14 +345,31 @@ def backward_kernel_phase(dev, patch):
                    for tag in ("slot_cotangents", "transpose_sum")]
         events = sum(c_ for _, c_ in by_kernel.values())
         b_ms, b_by = bwd_bound_ms(args, dcat, dux)
+        dg_ms = dg_round_trip_ms(args)
         worst = max(worst, err)
         totals["ms"] += ms
         totals["plain_ms"] += plain_ms
         totals["bound_ms"] += b_ms
+        totals["dg_ms"] += dg_ms
         bound_kinds.add(b_by)
-        print("  %-8s %6d %4d %3d %3d %3d %10.3e %9.5f %9.5f %9.5f %9.5f %9.5f %9.5f %6.2f %s" % (
-            name, n_pad, c_in, m, k_nbr, adj_t_sm.shape[1], err, ms, pass_ms[0], pass_ms[1],
-            wall_ms, plain_ms, b_ms, events, b_by))
+        print("  %-8s %6d %4d %3d %3d %3d %10.3e %9.5f %9.5f %9.5f %9.5f %9.5f %9.5f %9.5f "
+              "%6.2f %s" % (name, n_pad, c_in, m, k_nbr, adj_t_sm.shape[1], err, ms,
+                            pass_ms[0], pass_ms[1], wall_ms, plain_ms, b_ms, dg_ms, events,
+                            b_by))
+    print("  %-8s %53.5f %49.5f %9.5f" % ("step", totals["ms"], totals["bound_ms"],
+                                          totals["dg_ms"]))
+    for c_in, m_wide in WIDE:
+        adj_sm, adj_t_sm = adjs[1], adj_ts[1]
+        rows = mult_rows[1][:, :, 0].contiguous()
+        k_nbr, n_pad = adj_sm.shape
+        cat, ux, c = conv_inputs(patch, 1, c_in, m_wide, n_pad, rng, dev)
+        dz = torch.as_tensor(rng.normal(size=(n_pad, m_wide * c_in)).astype(np.float32),
+                             device=dev)
+        args = (cat, ux, adj_sm, adj_t_sm, rows, c, dz)
+        err = bwd_check(k1, args, f"C={c_in}, M={m_wide}")[2]
+        worst = max(worst, err)
+        print("  %-8s %6d %4d %3d %3d %3d %10.3e (untimed)" % (
+            "wide", n_pad, c_in, m_wide, k_nbr, adj_t_sm.shape[1], err))
     return worst, totals, ("bytes" if bound_kinds == {"bytes"} else "operations")
 
 

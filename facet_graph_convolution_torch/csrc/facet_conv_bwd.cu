@@ -18,227 +18,505 @@
 //
 // What bounds it on an H100: memory. Per node it reads M*C floats of dz and
 // writes C+M floats per live slot; dz alone is 57 MB at dconv1 (N' = 24,576,
-// C = 64, M = 9), against ~13 * 2 * M * C FMAs a node (~0.8 GFLOP, ~12 us at
-// the 67 TFLOP/s f32 rate). Reading dz once is what the split below is for.
+// C = 64, M = 9), against ~13 * 4 * M * C flops a node (~0.7 GFLOP, ~11 us at
+// the 67 TFLOP/s f32 rate). The two-pass split below adds the scratch dg,
+// written once and read once: its round trip, ~42 us at dconv1, is the floor
+// of this design beside the ~23 us bound. Measured (PERF.md, PR 6), pass A
+// stays ~2x above its own bytes: with its dz loads, x loads and stores all
+// removed it still takes half its time at dconv1, so per-slot instruction
+// issue and latency, not bytes, bound it now.
 //
-// Design, two passes, no atomics (deterministic):
-// - Pass A, destination-centric: one warp per node i, 8 nodes per block.
-//   The warp loads dz[i] into registers once (M x ceil(C/32) floats a lane),
-//   then its slot table as K1 does (one slot per lane, a ballot gives the
-//   live slots; mult 0 slots are skipped, their dx, dq and dlog are exactly
-//   0 in the TPU kernel too). Per live slot it loads the row of cat, lanes
-//   m < M hold the logits and compute s by warp shuffles, dx[ch] is formed
-//   per lane, and the M dot products dq are reduced across the warp by a
-//   transposing butterfly (V values in V-1 + log2(32/V) shuffles instead of
-//   5 per value). The self slot's row goes to dcat[i]; a neighbour slot's
-//   row goes, coalesced, to dg[(k-1)*N + i] (scratch [K'*N, C+M]). dux[i]
-//   is accumulated in registers.
-// - Pass B, source-centric: one warp per node j walks j's transpose map
-//   adj_t_sm[j] (one-indexed flat slots k*N + i, 0 = pad) and adds those rows
-//   of dg to dcat[j], in the map's order. A slot is read only when pass A
-//   wrote it (mult != 0 and adj_sm at that slot names j), so dg needs no
-//   clearing and a bad table cannot read unwritten memory.
-// dg at dconv1 is 86 MB and outlives L2 (50 MB); reading dz from the source
+// Design, two passes, no atomics, bitwise repeatable:
+// - Pass A, a team of T lanes per (node, slot), T = 1, 2, 4, 8 or 16 by width
+//   class (C <= 8, 32, 64, 128, more): a lane owns ~8-16 channels, and at
+//   C = 6 a thread owns a slot, so conv1 keeps every lane busy. A block
+//   takes NB consecutive nodes and all their slot teams (~500 threads). It
+//   copies the NB nodes' dz rows into shared memory (16-byte cp.async when
+//   they are one aligned range), so dz is read from HBM once. Each team
+//   computes its slot's softmax over its lanes (a lane holds M / T logits;
+//   max and sum are log2(T) shuffle rounds), walks the channels 4 * T at a
+//   time (the lane's 4 channels of x, coalesced over the team; the node's dz
+//   as float4 from the tile; dq partials and 4 channels of dx), writes dx as
+//   float4 stores the team coalesces, and reduces dq over the team in log2(T)
+//   rounds of M shuffles. (The earlier design, one warp per node, spent ~45
+//   shuffles a slot on warp-wide reductions and left 26 of 32 lanes idle at
+//   C = 6.) Every slot's row [dx | dlog | 0 pad] goes to dg[k*N + i], the self
+//   slot's included; rows are padded to 8 floats and written as whole float4s
+//   (the row's tail by the lanes in turn), so that whole 32-byte sectors are
+//   written. Dead slots write nothing. dux[i] sums i's dlog in slot order,
+//   from shared memory after a block barrier.
+//   At the model's shapes the blocks are persistent and pipelined
+//   (slot_cotangents_pipelined): each walks groups of NB nodes with the next
+//   group's dz rows copying into a second tile and its slots' indices, logits
+//   and first channels of x loading while the current group computes. Wider
+//   shapes take one block a group (slot_cotangents_kernel), in rounds of
+//   slot teams and tiles of channels as the block and the budget allow.
+// - Pass B, source-centric: a team of 8, 16 or 32 lanes per node j (the
+//   smallest that covers C+M, up to 32) starts from j's self row (if live)
+//   and adds the rows of dg that its transpose map adj_t_sm[j] lists (one-
+//   indexed flat slots k*N + i, 0 = pad: row N + that) in the map's order,
+//   four rows' loads in flight at a time, into dcat[j]. A slot is read only
+//   when pass A wrote it (mult != 0 and adj_sm at that slot names j), so dg
+//   needs no clearing and a bad table cannot read unwritten memory.
+// dg at dconv1 is ~100 MB and outlives L2 (50 MB); reading dz from the source
 // side instead would read it about K' times.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kWarps = 8;
+constexpr int kThreadsA = 512;   // pass A: the most threads a block takes
+constexpr int kThreadsB = 256;
+// dynamic shared memory a pass-A block may take (the SM has 227 KB)
+constexpr int kSmemBudget = 96 * 1024;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
-  return v;
+// Asynchronous copies global -> shared (cp.async, sm_80+): the copies of a
+// phase are all in flight at once and hold no registers. 4 bytes, zero-filled
+// when !valid, for a ragged tile; 16 bytes (L2 only) for a contiguous one.
+__device__ __forceinline__ void copy_async(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, off));
-  return v;
+__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src) : "memory");
 }
 
-// Warp sums of V values per lane (V a power of two, <= 32). Each split round
-// halves the values a lane holds: a lane keeps one half, sends the other to
-// its partner across lane bit OFF and adds what the partner sent of its own
-// half. After log2(V) such rounds lane l holds a partial of value
-// l / (32 / V); plain rounds over the remaining lane bits finish the sums.
-// The rounds are template recursion so that every index is a constant and
-// the values stay in registers.
-template <int V, int HALF, int OFF>
-struct SplitRounds {
-  static __device__ __forceinline__ void run(float (&v)[V], int lane) {
-    const bool upper = (lane & OFF) != 0;
-#pragma unroll
-    for (int i = 0; i < HALF; ++i) {
-      const float send = upper ? v[i] : v[i + HALF];
-      const float keep = upper ? v[i + HALF] : v[i];
-      v[i] = keep + __shfl_xor_sync(kFullMask, send, OFF);
-    }
-    SplitRounds<V, HALF / 2, OFF / 2>::run(v, lane);
+// waits for this thread's copies; a __syncthreads() must follow
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// dz[i0 .. i0+nb) columns [t0, t0+tcn) into the tile [nb][m][tc] (node
+// stride ns), zeros past C and past N
+__device__ __forceinline__ void load_tile(float* tile, const float* __restrict__ dz, int i0,
+                                          int nb, int n, int m, int c_in, int t0, int tcn,
+                                          int tc, int ns, int P, int tid) {
+  const int total = nb * m * tcn;
+  for (int e = tid; e < total; e += P) {
+    const int row = e / tcn, col = e - (e / tcn) * tcn;
+    const int nl = row / m, a = row - (row / m) * m;
+    const int ii = i0 + nl;
+    const bool ok = ii < n && t0 + col < c_in;
+    copy_async(tile + nl * ns + a * tc + col,
+               dz + ((size_t)min(ii, n - 1) * m + a) * c_in + (ok ? t0 + col : 0), ok);
   }
-};
-
-template <int V, int OFF>
-struct SplitRounds<V, 0, OFF> {
-  static __device__ __forceinline__ void run(float (&)[V], int) {}
-};
-
-// Returns the sum over the warp of value l / (32 / V) on lane l.
-template <int V>
-__device__ __forceinline__ float transpose_reduce(float (&v)[V], int lane) {
-  SplitRounds<V, V / 2, 16>::run(v, lane);
-  float r = v[0];
-#pragma unroll
-  for (int off = 16 / V; off > 0; off >>= 1) r += __shfl_xor_sync(kFullMask, r, off);
-  return r;
 }
 
-template <int CC, int MM, int V>
-__global__ void __launch_bounds__(kWarps * 32)
+// The block's dz rows when one tile holds all C channels unpadded: one
+// contiguous range of dz (nb * M * C floats), copied 16 bytes at a time
+// (4-byte copies cost ~40 cycles a warp instruction). Rows of nodes past N
+// are left unset: no live slot reads them.
+__device__ __forceinline__ void load_tile_contiguous(float* tile, const float* __restrict__ dz,
+                                                     int i0, int nb, int n, int m, int c_in,
+                                                     int ns, int P, int tid) {
+  const int row = m * c_in;   // floats a node, a multiple of 4
+  const int vecs = min(nb, n - i0) * row / 4;
+  const float* src = dz + (size_t)i0 * row;
+  for (int v = tid; v < vecs; v += P) {
+    const int e = 4 * v, nl = e / row;
+    copy_async16(tile + nl * ns + (e - nl * row), src + e);
+  }
+}
+
+// A slot's index: w = mult_rows[k, i] and its source row j, or w = 0, j = -1
+// for a dead slot (mult 0, a pad, or no slot at all).
+__device__ __forceinline__ void slot_index(const float* __restrict__ mult_rows,
+                                           const int* __restrict__ adj_sm, int n, int k, int i,
+                                           bool in, float& w, int& j) {
+  w = 0.f;
+  j = -1;
+  if (in) {
+    w = __ldg(mult_rows + (size_t)k * n + i);
+    j = k == 0 ? i : __ldg(adj_sm + (size_t)(k - 1) * n + i) - 1;
+  }
+  if (!(w != 0.f && (unsigned)j < (unsigned)n)) {
+    w = 0.f;
+    j = -1;
+  }
+}
+
+// The loads that depend on a live slot's row j: this lane's logit inputs
+// ux[i, a] + cat[j, C + a] + c[a], a = tl + T * u (-inf past M and for a
+// dead slot).
+template <int MM, int T>
+__device__ __forceinline__ void slot_logits(const float* __restrict__ cat,
+                                            const float* __restrict__ ux,
+                                            const float* __restrict__ cvec, int i, int j,
+                                            int width, int c_in, int m, int tl,
+                                            float (&lg)[(MM + T - 1) / T]) {
+  const float* vrow = cat + (size_t)(j >= 0 ? j : 0) * width + c_in;
+#pragma unroll
+  for (int u = 0; u < (MM + T - 1) / T; ++u) {
+    const int a = tl + T * u;
+    lg[u] = j >= 0 && a < m ? __ldg(ux + (size_t)i * m + a) + __ldg(vrow + a) + __ldg(cvec + a)
+                            : -INFINITY;
+  }
+}
+
+constexpr int kXS = 2;   // steps of 4 channels of x a lane loads ahead
+
+// The lane's first kXS steps of 4 channels of x from row j (0 for a dead
+// slot or past C).
+template <int T>
+__device__ __forceinline__ void slot_x(const float* __restrict__ cat, int j, int width,
+                                       int c_in, int tl, float (&xp)[kXS][4]) {
+  const float* xrow = cat + (size_t)(j >= 0 ? j : 0) * width;
+#pragma unroll
+  for (int st = 0; st < kXS; ++st)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ch = 4 * tl + 4 * T * st + e;
+      xp[st][e] = j >= 0 && ch < c_in ? __ldg(xrow + ch) : 0.f;
+    }
+}
+
+// softmax over the team's lanes (max and sum in log2(T) shuffle rounds),
+// then every lane gets all M values of s
+template <int MM, int T>
+__device__ __forceinline__ void slot_softmax(float (&lg)[(MM + T - 1) / T], bool live, int m,
+                                             int tl, float (&s)[MM]) {
+  constexpr int UA = (MM + T - 1) / T;
+  float mx = -INFINITY;
+#pragma unroll
+  for (int u = 0; u < UA; ++u) mx = fmaxf(mx, lg[u]);
+#pragma unroll
+  for (int off = T / 2; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, off, T));
+  float sum = 0.f;
+#pragma unroll
+  for (int u = 0; u < UA; ++u) {
+    lg[u] = live && tl + T * u < m ? expf(lg[u] - mx) : 0.f;
+    sum += lg[u];
+  }
+#pragma unroll
+  for (int off = T / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(kFullMask, sum, off, T);
+#pragma unroll
+  for (int u = 0; u < UA; ++u) lg[u] = live ? lg[u] / sum : 0.f;
+#pragma unroll
+  for (int a = 0; a < MM; ++a) s[a] = __shfl_sync(kFullMask, lg[a / T], a % T, T);
+}
+
+// A live slot's channels [t0, t0 + tcn) of one tile: the lane's 4 channels a
+// step (x from xp for the first kXS steps of the first tile), dq partials,
+// and dx written as float4 to the slot's row `out`; the 4 channels that
+// straddle C (C not a multiple of 4) stay in `tail` for slot_finish.
+template <int MM, int T>
+__device__ __forceinline__ void slot_channels(const float* tnode, int tc, int t0, int tcn,
+                                              const float* __restrict__ xrow, int c_in, int m,
+                                              int tl, float w, const float (&s)[MM],
+                                              const float (&xp)[kXS][4], float* out,
+                                              float (&dq)[MM], float (&tail)[4]) {
+  int step = 0;
+  for (int c0 = 4 * tl; c0 < tcn; c0 += 4 * T, ++step) {
+    const int ch = t0 + c0;
+    float4 x;
+    if (t0 == 0 && step == 0) {
+      x = make_float4(xp[0][0], xp[0][1], xp[0][2], xp[0][3]);
+    } else if (t0 == 0 && step == 1) {
+      x = make_float4(xp[1][0], xp[1][1], xp[1][2], xp[1][3]);
+    } else {
+      x.x = ch < c_in ? __ldg(xrow + ch) : 0.f;
+      x.y = ch + 1 < c_in ? __ldg(xrow + ch + 1) : 0.f;
+      x.z = ch + 2 < c_in ? __ldg(xrow + ch + 2) : 0.f;
+      x.w = ch + 3 < c_in ? __ldg(xrow + ch + 3) : 0.f;
+    }
+    float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int a = 0; a < MM; ++a) {
+      if (a >= m) break;
+      const float4 t = *reinterpret_cast<const float4*>(tnode + a * tc + c0);
+      dq[a] = fmaf(x.w, t.w, fmaf(x.z, t.z, fmaf(x.y, t.y, fmaf(x.x, t.x, dq[a]))));
+      const float ws = w * s[a];
+      d.x = fmaf(ws, t.x, d.x);
+      d.y = fmaf(ws, t.y, d.y);
+      d.z = fmaf(ws, t.z, d.z);
+      d.w = fmaf(ws, t.w, d.w);
+    }
+    if (ch + 3 < c_in) {
+      *reinterpret_cast<float4*>(out + ch) = d;
+    } else if (ch < c_in) {
+      tail[0] = d.x;
+      tail[1] = d.y;
+      tail[2] = d.z;
+      tail[3] = d.w;
+    }
+  }
+}
+
+// dq over the team's lanes, then dlog. The row's tail from the float4 that
+// holds channel C - 1 (or C itself) to the end of the padded row is written
+// as whole float4s, vector v by lane v mod T: the straddling channels from
+// `tail`, then dlog, then zeros in the pad, so that whole 32-byte sectors are
+// written. Lane tl also puts dlog[m] for m = tl + T * u into dl, the
+// block's dlog in shared memory.
+template <int MM, int T>
+__device__ __forceinline__ void slot_finish(float (&dq)[MM], const float (&s)[MM], float w,
+                                            bool live, bool in, int m, int c_in, int wp,
+                                            int tl, const float (&tail)[4], float* out,
+                                            float* dl_row) {
+#pragma unroll
+  for (int off = T / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int a = 0; a < MM; ++a) dq[a] += __shfl_xor_sync(kFullMask, dq[a], off, T);
+  float t = 0.f;
+#pragma unroll
+  for (int a = 0; a < MM; ++a) {
+    dq[a] *= w;
+    t = fmaf(dq[a], s[a], t);
+  }
+  // dq becomes dlog (0 past M: s is 0 there)
+#pragma unroll
+  for (int a = 0; a < MM; ++a) dq[a] = live ? s[a] * (dq[a] - t) : 0.f;
+#pragma unroll
+  for (int a = 0; a < MM; ++a)
+    if (a < m && a % T == tl && in) dl_row[a] = dq[a];
+  if (!live) return;
+  const int v0 = c_in / 4;
+  for (int v = v0 + (tl - v0 % T + T) % T; 4 * v < wp; v += T) {
+    float o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 4 * v + e;
+      float val = col < c_in ? tail[e] : 0.f;
+#pragma unroll
+      for (int a = 0; a < MM; ++a)
+        if (col - c_in == a) val = dq[a];
+      o[e] = val;
+    }
+    *reinterpret_cast<float4*>(out + 4 * v) = make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// dux[i] for the block's nodes: each (node, m) sums the node's dlog in slot
+// order
+__device__ __forceinline__ void block_dux(const float* dl, float* __restrict__ dux, int i0,
+                                          int nb, int ks, int n, int m, int ls, int P,
+                                          int tid) {
+  for (int o = tid; o < nb * m; o += P) {
+    const int nl = o / m, a = o - (o / m) * m;
+    if (i0 + nl >= n) continue;
+    float acc = 0.f;
+    for (int k = 0; k < ks; ++k) acc += dl[(nl * ks + k) * ls + a];
+    dux[(size_t)(i0 + nl) * m + a] = acc;
+  }
+}
+
+// Pass A for any shape: a block takes one group of NB nodes, in rounds of
+// slot teams when (K'+1) * T exceeds the block, and in tiles of TC channels
+// when the dz rows exceed the shared-memory budget. MM = 9, the model's filter
+// count, is instantiated for M = 9 alone, so that every division by M is by a
+// constant; the others take any M <= MM.
+template <int MM, int T>
+__global__ void __launch_bounds__(kThreadsA, 2)
 slot_cotangents_kernel(const float* __restrict__ cat, const float* __restrict__ ux,
                        const int* __restrict__ adj_sm,
                        const float* __restrict__ mult_rows,
                        const float* __restrict__ cvec, const float* __restrict__ dz,
-                       float* __restrict__ dg, float* __restrict__ dcat,
-                       float* __restrict__ dux, int n, int k_nbr, int c_in, int m) {
-  const int lane = threadIdx.x & 31;
-  const int node = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (node >= n) return;  // warp-uniform: the whole warp leaves together
+                       float* __restrict__ dg, float* __restrict__ dux, int n, int k_nbr,
+                       int c_in, int m_rt, int nb, int tc, int wp, int contiguous) {
+  constexpr int LS = MM | 1;
+  constexpr int UA = (MM + T - 1) / T;
+  const int m = MM == 9 ? 9 : m_rt;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int P = blockDim.x, tid = threadIdx.x;
+  const int ns = m * tc + 4;   // a node's tile stride; +4 puts the next node on other banks
+  float* tile = reinterpret_cast<float*>(smem_raw);                 // [nb][m][tc]
+  const int ks = k_nbr + 1;
+  const int np = nb * ks;
+  float* dl = tile + (size_t)nb * ns;                               // [np][LS] dlog
   const int width = c_in + m;
-  const bool logit_lane = lane < m;
-  const float base =
-      logit_lane ? __ldg(ux + (size_t)node * m + lane) + __ldg(cvec + lane) : 0.f;
+  const int i0 = blockIdx.x * nb;
+  const int tl = tid % T, team = tid / T;
+  const int teams = min(np, P / T);    // slot teams a round; the last warp may pad
+  const bool one_tile = tc >= c_in;
 
-  // dz[i] in registers: dzr[a][b] = dz[i, a*C + lane + 32*b]
-  float dzr[MM][CC];
-  const float* dzrow = dz + (size_t)node * m * c_in;
+  for (int g0 = 0; g0 < np; g0 += teams) {
+    const int pair = g0 + team;
+    const int node_l = pair / ks, k = pair - (pair / ks) * ks;
+    const int i = i0 + node_l;
+    const bool in = team < teams && pair < np && i < n;
+    float w;
+    int j;
+    slot_index(mult_rows, adj_sm, n, k, i, in, w, j);
+    const bool live = j >= 0;   // uniform over the team: its lanes share the slot
+    float lg[UA], xp[kXS][4], s[MM], dq[MM], tail[4] = {0.f, 0.f, 0.f, 0.f};
+    slot_logits<MM, T>(cat, ux, cvec, i, j, width, c_in, m, tl, lg);
+    slot_x<T>(cat, j, width, c_in, tl, xp);
+    slot_softmax<MM, T>(lg, live, m, tl, s);
 #pragma unroll
-  for (int a = 0; a < MM; ++a)
-#pragma unroll
-    for (int b = 0; b < CC; ++b) {
-      const int ch = lane + 32 * b;
-      dzr[a][b] = (a < m && ch < c_in) ? __ldg(dzrow + a * c_in + ch) : 0.f;
-    }
-
-  float dux_acc = 0.f;
-  float* self_row = dcat + (size_t)node * width;
-  for (int k0 = 0; k0 <= k_nbr; k0 += 32) {
-    const int k = k0 + lane;
-    float mult_l = 0.f;
-    int j_l = -1;
-    if (k <= k_nbr) {
-      mult_l = __ldg(mult_rows + (size_t)k * n + node);
-      j_l = k == 0 ? node : __ldg(adj_sm + (size_t)(k - 1) * n + node) - 1;
-    }
-    unsigned live =
-        __ballot_sync(kFullMask, mult_l != 0.f && (unsigned)j_l < (unsigned)n);
-    if (k0 == 0 && (live & 1u) == 0u) {
-      // a dead self slot (padded node) still owns its row of dcat
-      for (int ch = lane; ch < width; ch += 32) self_row[ch] = 0.f;
-    }
-    while (live != 0u) {
-      const int s = __ffs(live) - 1;
-      live &= live - 1u;
-      const float mult = __shfl_sync(kFullMask, mult_l, s);
-      const int j = __shfl_sync(kFullMask, j_l, s);
-      const float* row = cat + (size_t)j * width;
-      const float v = logit_lane ? __ldg(row + c_in + lane) : 0.f;
-      float x[CC];
-#pragma unroll
-      for (int b = 0; b < CC; ++b) {
-        const int ch = lane + 32 * b;
-        x[b] = ch < c_in ? __ldg(row + ch) : 0.f;
+    for (int a = 0; a < MM; ++a) dq[a] = 0.f;
+    float* out = dg + ((size_t)k * n + (live ? i : 0)) * wp;
+    for (int t0 = 0; t0 < c_in; t0 += tc) {
+      const int tcn = min(tc, (c_in - t0 + 4 * T - 1) / (4 * T) * (4 * T));
+      if (!one_tile || g0 == 0) {   // block-uniform
+        __syncthreads();   // the previous tile's readers are done
+        if (contiguous) load_tile_contiguous(tile, dz, i0, nb, n, m, c_in, ns, P, tid);
+        else load_tile(tile, dz, i0, nb, n, m, c_in, t0, tcn, tc, ns, P, tid);
+        copy_wait();
+        __syncthreads();
       }
-
-      // softmax over the M logit lanes (0 on the others)
-      const float logit = logit_lane ? base + v : -INFINITY;
-      const float mx = warp_max(logit);
-      const float e = logit_lane ? expf(logit - mx) : 0.f;
-      const float sm = e / warp_sum(e);
-
-      float dx[CC];
-#pragma unroll
-      for (int b = 0; b < CC; ++b) dx[b] = 0.f;
-      float part[V];
-#pragma unroll
-      for (int a = 0; a < V; ++a) part[a] = 0.f;
-#pragma unroll
-      for (int a = 0; a < MM; ++a) {
-        const float wa = __shfl_sync(kFullMask, sm, a) * mult;
-#pragma unroll
-        for (int b = 0; b < CC; ++b) {
-          dx[b] = fmaf(wa, dzr[a][b], dx[b]);
-          part[a] = fmaf(x[b], dzr[a][b], part[a]);
-        }
-      }
-      // dq[m] on lane m: value m sits on lane m * (32 / V) after the reduce
-      const float red = transpose_reduce<V>(part, lane);
-      const float dq = __shfl_sync(kFullMask, red, (lane * (32 / V)) & 31) * mult;
-      const float dq_m = logit_lane ? dq : 0.f;
-      const float dlog = sm * (dq_m - warp_sum(sm * dq_m));
-      dux_acc += dlog;
-
-      const int kk = k0 + s;
-      float* out = kk == 0 ? self_row : dg + ((size_t)(kk - 1) * n + node) * width;
-#pragma unroll
-      for (int b = 0; b < CC; ++b) {
-        const int ch = lane + 32 * b;
-        if (ch < c_in) out[ch] = dx[b];
-      }
-      if (logit_lane) out[c_in + lane] = dlog;
+      if (live)
+        slot_channels<MM, T>(tile + node_l * ns, tc, t0, tcn, cat + (size_t)j * width, c_in,
+                             m, tl, w, s, xp, out, dq, tail);
     }
+    slot_finish<MM, T>(dq, s, w, live, in, m, c_in, wp, tl, tail, out, dl + pair * LS);
   }
-  if (logit_lane) dux[(size_t)node * m + lane] = dux_acc;
+  __syncthreads();
+  block_dux(dl, dux, i0, nb, ks, n, m, LS, P, tid);
 }
 
-template <int WB>
-__global__ void __launch_bounds__(kWarps * 32)
+// Pass A when a block's slot teams and its dz rows fit at once (the model's
+// convs): persistent blocks walk the groups of NB nodes, and each round's
+// loads are in flight behind the previous round's work. At the top of a
+// round the next group's dz rows start to copy into the other of two tiles
+// (cp.async) and its slots' indices load; at the end of the round its logit
+// inputs and first channels of x load.
+template <int MM, int T>
+__global__ void __launch_bounds__(kThreadsA, 2)
+slot_cotangents_pipelined(const float* __restrict__ cat, const float* __restrict__ ux,
+                          const int* __restrict__ adj_sm,
+                          const float* __restrict__ mult_rows,
+                          const float* __restrict__ cvec, const float* __restrict__ dz,
+                          float* __restrict__ dg, float* __restrict__ dux, int n, int k_nbr,
+                          int c_in, int m_rt, int nb, int tc, int wp, int contiguous,
+                          int groups) {
+  constexpr int LS = MM | 1;
+  constexpr int UA = (MM + T - 1) / T;
+  const int m = MM == 9 ? 9 : m_rt;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int P = blockDim.x, tid = threadIdx.x;
+  const int ns = m * tc + 4;
+  float* tiles = reinterpret_cast<float*>(smem_raw);                // [2][nb][m][tc]
+  const int ks = k_nbr + 1;
+  const int np = nb * ks;
+  float* dl = tiles + 2 * (size_t)nb * ns;                          // [np][LS] dlog
+  const int width = c_in + m;
+  const int tl = tid % T, team = tid / T;
+  const bool member = team < np;
+  const int node_l = team / ks, k = team - (team / ks) * ks;
+
+  // the first group: its tile in flight, its indices, then its rows
+  int g = blockIdx.x;
+  if (contiguous) load_tile_contiguous(tiles, dz, g * nb, nb, n, m, c_in, ns, P, tid);
+  else load_tile(tiles, dz, g * nb, nb, n, m, c_in, 0, tc, tc, ns, P, tid);
+  float w, lg[UA], xp[kXS][4];
+  int j;
+  slot_index(mult_rows, adj_sm, n, k, g * nb + node_l, member && g * nb + node_l < n, w, j);
+  slot_logits<MM, T>(cat, ux, cvec, g * nb + node_l, j, width, c_in, m, tl, lg);
+  slot_x<T>(cat, j, width, c_in, tl, xp);
+
+  for (int r = 0; g < groups; ++r) {
+    float* tile = tiles + (size_t)(r & 1) * nb * ns;
+    const int i0 = g * nb, i = i0 + node_l;
+    const bool in = member && i < n;
+    const int gn = g + gridDim.x;
+    copy_wait();
+    __syncthreads();   // this group's tile is in; the last round's readers are done
+    if (gn < groups) {
+      float* next = tiles + (size_t)((r + 1) & 1) * nb * ns;
+      if (contiguous) load_tile_contiguous(next, dz, gn * nb, nb, n, m, c_in, ns, P, tid);
+      else load_tile(next, dz, gn * nb, nb, n, m, c_in, 0, tc, tc, ns, P, tid);
+    }
+    float wn;
+    int jn;
+    slot_index(mult_rows, adj_sm, n, k, gn * nb + node_l,
+               member && gn < groups && gn * nb + node_l < n, wn, jn);
+
+    const bool live = j >= 0;   // uniform over the team: its lanes share the slot
+    float s[MM], dq[MM], tail[4] = {0.f, 0.f, 0.f, 0.f};
+    slot_softmax<MM, T>(lg, live, m, tl, s);
+#pragma unroll
+    for (int a = 0; a < MM; ++a) dq[a] = 0.f;
+    float* out = dg + ((size_t)k * n + (live ? i : 0)) * wp;
+    if (live)
+      slot_channels<MM, T>(tile + node_l * ns, tc, 0, tc, cat + (size_t)j * width, c_in, m,
+                           tl, w, s, xp, out, dq, tail);
+    slot_finish<MM, T>(dq, s, w, live, in, m, c_in, wp, tl, tail, out, dl + team * LS);
+    __syncthreads();
+    block_dux(dl, dux, i0, nb, ks, n, m, LS, P, tid);
+
+    w = wn;
+    j = jn;
+    slot_logits<MM, T>(cat, ux, cvec, gn * nb + node_l, j, width, c_in, m, tl, lg);
+    slot_x<T>(cat, j, width, c_in, tl, xp);
+    g = gn;
+  }
+}
+
+template <int TB, int WB>
+__global__ void __launch_bounds__(kThreadsB)
 transpose_sum_kernel(const float* __restrict__ dg, const int* __restrict__ adj_t,
                      const int* __restrict__ adj_sm,
                      const float* __restrict__ mult_rows, float* __restrict__ dcat,
-                     int n, int k_nbr, int k_t, int width) {
+                     int n, int k_nbr, int k_t, int width, int wp) {
   const int lane = threadIdx.x & 31;
-  const int node = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (node >= n) return;
-  float* row = dcat + (size_t)node * width;
-  float acc[WB];
-#pragma unroll
-  for (int b = 0; b < WB; ++b) {
-    const int ch = lane + 32 * b;
-    acc[b] = ch < width ? row[ch] : 0.f;
-  }
+  const int t = lane % TB;
+  const unsigned team = (TB == 32 ? kFullMask : ((1u << TB) - 1u)) << (lane - t);
+  const int node = (blockIdx.x * blockDim.x + threadIdx.x) / TB;
+  const bool valid = node < n;
+  float* row = dcat + (size_t)(valid ? node : 0) * width;
+  // the self slot's row, written by pass A when the slot is live
+  const float* self = dg + (size_t)(valid ? node : 0) * wp;
+  const bool self_live = valid && __ldg(mult_rows + node) != 0.f;
   const long long total = (long long)k_nbr * n;
-  for (int t0 = 0; t0 < k_t; t0 += 32) {
-    const int t = t0 + lane;
-    int slot = -1;
-    if (t < k_t) {
-      const int sl = __ldg(adj_t + (size_t)node * k_t + t) - 1;
-      // read only a slot that pass A wrote: live, and naming this node
-      if (sl >= 0 && sl < total && __ldg(mult_rows + (size_t)n + sl) != 0.f &&
-          __ldg(adj_sm + sl) == node + 1)
-        slot = sl;
-    }
-    unsigned live = __ballot_sync(kFullMask, slot >= 0);
-    while (live != 0u) {
-      const int s = __ffs(live) - 1;
-      live &= live - 1u;
-      const float* g = dg + (size_t)__shfl_sync(kFullMask, slot, s) * width;
+  for (int b0 = 0; b0 < width; b0 += TB * WB) {   // one block of columns up to 32 * WB
+    float acc[WB];
 #pragma unroll
-      for (int b = 0; b < WB; ++b) {
-        const int ch = lane + 32 * b;
-        if (ch < width) acc[b] += g[ch];
+    for (int b = 0; b < WB; ++b) {
+      const int ch = b0 + t + TB * b;
+      acc[b] = self_live && ch < width ? __ldg(self + ch) : 0.f;
+    }
+    for (int t0 = 0; t0 < k_t; t0 += TB) {
+      int slot = -1;
+      if (valid && t0 + t < k_t) {
+        const int sl = __ldg(adj_t + (size_t)node * k_t + t0 + t) - 1;
+        // read only a slot that pass A wrote: live, and naming this node
+        if (sl >= 0 && sl < total && __ldg(mult_rows + (size_t)n + sl) != 0.f &&
+            __ldg(adj_sm + sl) == node + 1)
+          slot = sl;
+      }
+      unsigned live = __ballot_sync(kFullMask, slot >= 0) & team;
+      while (__any_sync(kFullMask, live != 0u)) {
+        // up to four of the team's slots, in map order, loads in flight together
+        int src[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          src[u] = live != 0u ? __ffs(live) - 1 : lane;
+          const bool has = live != 0u;
+          live &= live - 1u;
+          const int sl = __shfl_sync(kFullMask, slot, src[u]);
+          src[u] = has ? sl : -1;
+        }
+        float v[4][WB];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int b = 0; b < WB; ++b) {
+            const int ch = b0 + t + TB * b;
+            // flat slot sl is row N + sl of dg (rows 0..N-1: the self slots)
+            v[u][b] = src[u] >= 0 && ch < width
+                          ? __ldg(dg + ((size_t)src[u] + n) * wp + ch) : 0.f;
+          }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (src[u] >= 0) {
+#pragma unroll
+            for (int b = 0; b < WB; ++b) acc[b] += v[u][b];
+          }
       }
     }
-  }
 #pragma unroll
-  for (int b = 0; b < WB; ++b) {
-    const int ch = lane + 32 * b;
-    if (ch < width) row[ch] = acc[b];
+    for (int b = 0; b < WB; ++b) {
+      const int ch = b0 + t + TB * b;
+      if (valid && ch < width) row[ch] = acc[b];
+    }
   }
 }
 
@@ -253,36 +531,103 @@ struct Args {
   float* dg;
   float* dcat;
   float* dux;
-  int n, k_nbr, k_t, c_in, m;
+  int n, k_nbr, k_t, c_in, m, wp;
   cudaStream_t stream;
 };
 
-unsigned blocks(int n) { return (unsigned)((n + kWarps - 1) / kWarps); }
+int round_up(int v, int to) { return (v + to - 1) / to * to; }
 
-template <int CC, int MM, int V>
+// The dynamic shared memory a kernel may take, raised past the 48 KB default
+// where a launch needs it.
+template <typename K>
+int allow_smem(K kernel, size_t smem, size_t& raised) {
+  if (smem <= raised) return 0;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  raised = smem;
+  return 0;
+}
+
+// Pass A's block: NB nodes and their (K'+1) slot teams of T lanes, within
+// kThreadsA threads. When the teams fit one round and two tiles of all C
+// channels (rounded up to 4T) fit the shared-memory budget, persistent
+// pipelined blocks; otherwise one block a group, with a tile of TC channels
+// (a multiple of 4T) within the budget.
+template <int MM, int T>
 int launch_a(const Args& a) {
-  slot_cotangents_kernel<CC, MM, V><<<blocks(a.n), kWarps * 32, 0, a.stream>>>(
-      a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.dz, a.dg, a.dcat, a.dux, a.n,
-      a.k_nbr, a.c_in, a.m);
+  constexpr int LS = MM | 1;
+  const int ks = a.k_nbr + 1;
+  const int step = 4 * T;
+  const int c_pad = round_up(a.c_in, step);
+  int nb = kThreadsA / (ks * T);
+  if (nb < 1) nb = 1;
+  const size_t dl = (size_t)nb * ks * LS * sizeof(float);
+  const size_t tile = (size_t)nb * (a.m * c_pad + 4) * sizeof(float);
+  const int teams = nb * ks < kThreadsA / T ? nb * ks : kThreadsA / T;
+  const int threads = round_up(teams * T, 32);
+  const int groups = (a.n + nb - 1) / nb;
+  // one tile of all channels, unpadded, 16-byte aligned: dz's rows of a
+  // group are one contiguous range
+  const int contiguous = c_pad == a.c_in && reinterpret_cast<uintptr_t>(a.dz) % 16 == 0;
+  if (teams == nb * ks && dl + 2 * tile <= (size_t)kSmemBudget) {
+    const size_t smem = dl + 2 * tile;
+    static size_t raised = 48 * 1024;
+    int err = allow_smem(slot_cotangents_pipelined<MM, T>, smem, raised);
+    if (err != 0) return err;
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = (int)cudaGetDevice(&dev)) != 0) return err;
+    if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0)
+      return err;
+    if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, slot_cotangents_pipelined<MM, T>, threads, smem)) != 0)
+      return err;
+    const int grid = groups < per_sm * sms ? groups : per_sm * sms;
+    slot_cotangents_pipelined<MM, T><<<grid > 0 ? grid : 1, threads, smem, a.stream>>>(
+        a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.dz, a.dg, a.dux, a.n, a.k_nbr, a.c_in,
+        a.m, nb, c_pad, a.wp, contiguous, groups);
+    return (int)cudaGetLastError();
+  }
+  int tc = 0;
+  size_t smem = 0;
+  for (;; nb /= 2) {
+    if (nb == 0) return (int)cudaErrorInvalidValue;
+    const size_t dl_nb = (size_t)nb * ks * LS * sizeof(float);
+    const size_t per_step = (size_t)nb * a.m * step * sizeof(float);
+    const size_t pad = (size_t)nb * 4 * sizeof(float);
+    if (dl_nb + pad + per_step > kSmemBudget) continue;
+    const int fit = (int)((kSmemBudget - dl_nb - pad) / per_step) * step;
+    tc = fit < c_pad ? fit : c_pad;
+    smem = dl_nb + pad + (size_t)nb * a.m * tc * sizeof(float);
+    break;
+  }
+  static size_t raised = 48 * 1024;
+  const int err = allow_smem(slot_cotangents_kernel<MM, T>, smem, raised);
+  if (err != 0) return err;
+  const int threads_g = round_up((nb * ks < kThreadsA / T ? nb * ks : kThreadsA / T) * T, 32);
+  slot_cotangents_kernel<MM, T><<<(a.n + nb - 1) / nb, threads_g, smem, a.stream>>>(
+      a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.dz, a.dg, a.dux, a.n, a.k_nbr, a.c_in,
+      a.m, nb, tc, a.wp, tc == a.c_in && contiguous);
   return (int)cudaGetLastError();
 }
 
-template <int MM, int V>
-int dispatch_c(const Args& a) {
-  switch ((a.c_in + 31) / 32) {
-    case 1: return launch_a<1, MM, V>(a);
-    case 2: return launch_a<2, MM, V>(a);
-    case 3: return launch_a<3, MM, V>(a);
-    case 4: return launch_a<4, MM, V>(a);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// T lanes a slot by width class: each lane owns ~16 channels
+template <int MM>
+int dispatch_t(const Args& a) {
+  if (a.c_in <= 8) return launch_a<MM, 1>(a);
+  if (a.c_in <= 32) return launch_a<MM, 2>(a);
+  if (a.c_in <= 64) return launch_a<MM, 4>(a);
+  if (a.c_in <= 128) return launch_a<MM, 8>(a);
+  return launch_a<MM, 16>(a);
 }
 
-template <int WB>
+template <int TB, int WB>
 int launch_b(const Args& a) {
-  transpose_sum_kernel<WB><<<blocks(a.n), kWarps * 32, 0, a.stream>>>(
+  const long long threads = (long long)a.n * TB;
+  const unsigned blocks = (unsigned)((threads + kThreadsB - 1) / kThreadsB);
+  transpose_sum_kernel<TB, WB><<<blocks, kThreadsB, 0, a.stream>>>(
       a.dg, a.adj_t, a.adj_sm, a.mult_rows, a.dcat, a.n, a.k_nbr, a.k_t,
-      a.c_in + a.m);
+      a.c_in + a.m, a.wp);
   return (int)cudaGetLastError();
 }
 
@@ -290,40 +635,43 @@ int launch_b(const Args& a) {
 
 extern "C" {
 
-// Largest channel count and filter count the kernel is instantiated for.
-int facet_conv_bwd_max_c(void) { return 128; }
-int facet_conv_bwd_max_m(void) { return 16; }
+// Largest filter count the kernel is instantiated for; any channel count runs.
+int facet_conv_bwd_max_m(void) { return 32; }
 
 // cat [n, c_in + m], ux [n, m], adj_sm [k_nbr, n] (one-indexed, 0 = pad),
 // adj_t [n, k_t] (one-indexed flat slots k*n + i, 0 = pad), mult_rows
 // [k_nbr + 1, n], c [m], dz [n, m * c_in] -> dcat [n, c_in + m], dux [n, m],
-// with dg [k_nbr * n, c_in + m] as scratch; all f32 but the int32 tables,
-// contiguous, on the current device. Launches both passes on `stream` and
-// returns cudaGetLastError() after the first that fails (0 when both were
-// accepted).
+// with dg [(k_nbr + 1) * n, wp] as scratch (wp: c_in + m rounded up to 8,
+// 16-byte aligned); all f32 but the int32 tables, contiguous, on the current
+// device. Launches both passes on `stream` and returns cudaGetLastError()
+// after the first that fails (0 when both were accepted).
 int facet_conv_bwd_f32(const float* cat, const float* ux, const int* adj_sm,
                        const int* adj_t, const float* mult_rows, const float* c,
                        const float* dz, float* dg, float* dcat, float* dux, int n,
                        int k_nbr, int k_t, int c_in, int m, void* stream) {
   if (n <= 0) return 0;
-  if (c_in < 1 || m < 1 || k_nbr < 0 || k_t < 0) return (int)cudaErrorInvalidValue;
+  if (c_in < 1 || m < 1 || k_nbr < 0 || k_t < 0 ||
+      reinterpret_cast<uintptr_t>(dg) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   const Args a{cat, ux, adj_sm, adj_t, mult_rows, c, dz, dg, dcat, dux,
-               n, k_nbr, k_t, c_in, m, (cudaStream_t)stream};
+               n, k_nbr, k_t, c_in, m, round_up(c_in + m, 8), (cudaStream_t)stream};
   int err;
-  // M = 9 is the model's filter count: its own width keeps registers low
-  if (m <= 4) err = dispatch_c<4, 4>(a);
-  else if (m <= 8) err = dispatch_c<8, 8>(a);
-  else if (m == 9) err = dispatch_c<9, 16>(a);
-  else if (m <= 16) err = dispatch_c<16, 16>(a);
+  if (m <= 4) err = dispatch_t<4>(a);
+  else if (m <= 8) err = dispatch_t<8>(a);
+  else if (m == 9) err = dispatch_t<9>(a);
+  else if (m <= 16) err = dispatch_t<16>(a);
+  else if (m <= 32) err = dispatch_t<32>(a);
   else err = (int)cudaErrorInvalidValue;
   if (err != 0) return err;
-  switch ((c_in + m + 31) / 32) {
-    case 1: return launch_b<1>(a);
-    case 2: return launch_b<2>(a);
-    case 3: return launch_b<3>(a);
-    case 4: return launch_b<4>(a);
-    case 5: return launch_b<5>(a);
-    default: return (int)cudaErrorInvalidValue;
+  const int width = c_in + m;
+  if (width <= 8) return launch_b<8, 1>(a);
+  if (width <= 16) return launch_b<16, 1>(a);
+  switch ((width + 31) / 32) {
+    case 1: return launch_b<32, 1>(a);
+    case 2: return launch_b<32, 2>(a);
+    case 3: return launch_b<32, 3>(a);
+    case 4: return launch_b<32, 4>(a);
+    default: return launch_b<32, 5>(a);   // 160 columns at a time
   }
 }
 

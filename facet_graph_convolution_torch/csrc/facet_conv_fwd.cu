@@ -29,6 +29,11 @@
 // the softmax max and sum and broadcast q[m]. Each lane keeps
 // M x ceil(C/32) f32 accumulators in registers; a gathered row of x is read
 // once, coalesced across lanes, and z is written once, coalesced per m.
+//
+// Widths: one launch takes C <= 128 for M <= 16 and C <= 64 for M <= 32 (the
+// accumulators of M = 32 at C = 128 would spill); the wrapper
+// (ops/facet_conv.py) runs wider convs as channel chunks [x[:, c0:c1] | vx],
+// since the softmax reads only the vx columns.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -164,26 +169,35 @@ int launch(const float* cat, const float* ux, const int* adj_sm,
   return (int)cudaGetLastError();
 }
 
-template <int MM>
+// CC_MAX: the widest chunk of 32-channel columns instantiated for MM
+template <int MM, int CC_MAX = (MM <= 16 ? 4 : 2)>
 int dispatch_c(const float* cat, const float* ux, const int* adj_sm,
                const float* mult_rows, const float* c, float* z, int n,
                int k_nbr, int c_in, int m, cudaStream_t stream) {
   switch ((c_in + 31) / 32) {
     case 1: return launch<1, MM>(cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, stream);
     case 2: return launch<2, MM>(cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, stream);
-    case 3: return launch<3, MM>(cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, stream);
-    case 4: return launch<4, MM>(cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, stream);
-    default: return (int)cudaErrorInvalidValue;
+    case 3:
+      if constexpr (CC_MAX >= 3)
+        return launch<3, MM>(cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, stream);
+      break;
+    case 4:
+      if constexpr (CC_MAX >= 4)
+        return launch<4, MM>(cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, stream);
+      break;
+    default: break;
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest channel count and filter count the kernel is instantiated for.
-int facet_conv_fwd_max_c(void) { return 128; }
-int facet_conv_fwd_max_m(void) { return 16; }
+// Largest channel count one launch takes at filter count m, and the largest
+// filter count the kernel is instantiated for.
+int facet_conv_fwd_max_c(int m) { return m <= 16 ? 128 : 64; }
+int facet_conv_fwd_max_m(void) { return 32; }
 
 // cat [n, c_in + m], ux [n, m], adj_sm [k_nbr, n] (one-indexed, 0 = pad),
 // mult_rows [k_nbr + 1, n], c [m] -> z [n, m * c_in]; all f32 but adj_sm
@@ -200,6 +214,7 @@ int facet_conv_fwd_f32(const float* cat, const float* ux, const int* adj_sm,
   if (m <= 8) return dispatch_c<8>(cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, s);
   if (m == 9) return dispatch_c<9>(cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, s);
   if (m <= 16) return dispatch_c<16>(cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, s);
+  if (m <= 32) return dispatch_c<32>(cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, s);
   return (int)cudaErrorInvalidValue;
 }
 

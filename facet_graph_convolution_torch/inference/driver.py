@@ -78,6 +78,17 @@ def _require_heads(params) -> None:
 
 
 def _require_default_conv1(params) -> None:
+    """Raises unless every conv is the default variant, naming the variant
+    from the keys: a translation-invariant network has no ``v`` in any conv
+    (v = -u there), a rotation-invariant one none in conv1 only. Neither
+    package serves either: the JAX package's inference drivers run the
+    default variant."""
+    convs = [layer for layer, p in params.items() if "u" in p]
+    if all("v" not in params[layer] for layer in convs):
+        raise ValueError(
+            "these parameters hold a translation-invariant network (no 'v' in any conv): "
+            "serving a translation-invariant network is not supported, here or in the JAX "
+            "package, whose inference drivers run the default variant")
     if "v" not in params["conv1"]:
         raise ValueError(
             "these parameters hold a rotation-invariant conv1 (no 'v'): serving a "

@@ -7,7 +7,10 @@
 ``csrc/facet_conv_bwd.cu``; it replaces ``_epilogue_bwd_kernel`` (launched by
 ``_conv_epilogue_bwd``) together with the gather's transpose ``_gsm_bwd``.
 Each source's head note says what bounds it on an H100 (bytes, for both) and
-how its design answers that. :func:`facet_conv_fwd_plain` and
+how its design answers that. Both take any channel count C and M <= 32: K2
+walks wide rows inside the kernel, and :func:`facet_conv_fwd` runs a conv
+wider than one K1 launch takes as channel chunks (:func:`fwd_in_chunks`).
+:func:`facet_conv_fwd_plain` and
 :func:`facet_conv_bwd_plain` are the same functions in plain PyTorch: the
 wrappers take them for CPU tensors, and the tests and ``chip_smoke.py`` hold
 the kernels against them.
@@ -30,6 +33,7 @@ in the backward, as the TPU kernel does.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -93,8 +97,10 @@ def _library(name: str) -> ctypes.CDLL:
         entry.argtypes = ([p] * 6 + [i] * 4 + [p] if name == "facet_conv_fwd"
                           else [p] * 10 + [i] * 5 + [p])
         entry.restype = ctypes.c_int
-        getattr(lib, name + "_max_c").restype = ctypes.c_int
-        getattr(lib, name + "_max_m").restype = ctypes.c_int
+        if name == "facet_conv_fwd":
+            lib.facet_conv_fwd_max_c.argtypes = [i]
+            lib.facet_conv_fwd_max_c.restype = i
+        getattr(lib, name + "_max_m").restype = i
     return lib
 
 
@@ -122,23 +128,35 @@ def _check(kernel, cat, ux, adj_sm, mult_rows, c, **extra):
         raise ValueError(f"{kernel}: cat width {cat.shape[1]} leaves no channels for M={m}")
     if n * max(k_nbr, 1) >= 2**31:
         raise ValueError(f"{kernel}: N={n}, K'={k_nbr} overflow the kernel's int32 slot index")
-    c_in = cat.shape[1] - m
     lib = _library(kernel)
-    max_c, max_m = getattr(lib, kernel + "_max_c")(), getattr(lib, kernel + "_max_m")()
-    if c_in > max_c or m > max_m:
-        raise ValueError(f"{kernel}: C={c_in}, M={m} exceed the kernel's C<={max_c}, M<={max_m}")
+    max_m = getattr(lib, kernel + "_max_m")()
+    if m > max_m:
+        raise ValueError(f"{kernel}: M={m} filters exceed the kernel's M<={max_m} "
+                         "(its softmax holds M logits a thread in registers)")
     return lib
 
 
-def facet_conv_fwd(cat, ux, adj_sm, mult_rows, c):
-    """K1 on ``cat``'s device: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Raises on any other device, and on shapes,
-    dtypes or layouts the kernel does not take."""
-    if cat.device.type == "cpu":
-        return facet_conv_fwd_plain(cat, ux, adj_sm, mult_rows, c)
-    if cat.device.type != "cuda":
-        raise ValueError(f"facet_conv_fwd: no kernel for device {cat.device}")
-    lib = _check("facet_conv_fwd", cat, ux, adj_sm, mult_rows, c)
+def fwd_in_chunks(fwd, cat, ux, adj_sm, mult_rows, c, max_c):
+    """K1 through ``fwd`` on channel chunks of at most ``max_c``. The softmax
+    reads only the ``vx`` columns of ``cat``, so the chunk
+    ``[x[:, c0:c1] | vx]`` gives z's channels c0..c1 for every m; they
+    interleave back into z's m-major layout [N, M, C]. One call of ``fwd``
+    when C <= ``max_c``."""
+    n, m = ux.shape
+    c_in = cat.shape[1] - m
+    if c_in <= max_c:
+        return fwd(cat, ux, adj_sm, mult_rows, c)
+    vx = cat[:, c_in:]
+    z = cat.new_empty((n, m, c_in))
+    for c0 in range(0, c_in, max_c):
+        c1 = min(c0 + max_c, c_in)
+        part = fwd(torch.cat([cat[:, c0:c1], vx], dim=1), ux, adj_sm, mult_rows, c)
+        z[:, :, c0:c1] = part.view(n, m, c1 - c0)
+    return z.view(n, m * c_in)
+
+
+def _launch_fwd(lib, cat, ux, adj_sm, mult_rows, c):
+    """One K1 launch on inputs that :func:`_check` has passed."""
     k_nbr, n = adj_sm.shape
     m = ux.shape[1]
     c_in = cat.shape[1] - m
@@ -152,6 +170,20 @@ def facet_conv_fwd(cat, ux, adj_sm, mult_rows, c):
         raise RuntimeError(f"facet_conv_fwd: kernel launch failed (cudaError {err})")
     facet_conv_fwd.launches += 1
     return z
+
+
+def facet_conv_fwd(cat, ux, adj_sm, mult_rows, c):
+    """K1 on ``cat``'s device: the CUDA kernel for CUDA tensors (one launch
+    per channel chunk of at most 128, or 64 when M > 16: one launch at the
+    model's widths), the plain version for CPU tensors. Raises on any other
+    device, and on shapes, dtypes or layouts the kernel does not take."""
+    if cat.device.type == "cpu":
+        return facet_conv_fwd_plain(cat, ux, adj_sm, mult_rows, c)
+    if cat.device.type != "cuda":
+        raise ValueError(f"facet_conv_fwd: no kernel for device {cat.device}")
+    lib = _check("facet_conv_fwd", cat, ux, adj_sm, mult_rows, c)
+    return fwd_in_chunks(functools.partial(_launch_fwd, lib), cat, ux, adj_sm, mult_rows, c,
+                         lib.facet_conv_fwd_max_c(ux.shape[1]))
 
 
 facet_conv_fwd.launches = 0
@@ -175,9 +207,12 @@ def facet_conv_bwd(cat, ux, adj_sm, adj_t_sm, mult_rows, c, dz):
     lib = _check("facet_conv_bwd", cat, ux, adj_sm, mult_rows, c,
                  adj_t_sm=(adj_t_sm, torch.int32, (n, k_t)),
                  dz=(dz, torch.float32, (n, m * c_in)))
-    # dg holds the neighbour slots' rows between the kernel's two passes;
-    # the rows of dead slots are never written nor read
-    dg = torch.empty((k_nbr * n, width), device=cat.device, dtype=torch.float32)
+    # dg holds every live slot's row [dx | dlog] between the kernel's two
+    # passes (row k*N + i, the self slots first), padded to 8 floats so that
+    # the kernel writes whole 32-byte sectors; the rows of dead slots are
+    # never written nor read
+    dg = torch.empty(((k_nbr + 1) * n, -(-width // 8) * 8), device=cat.device,
+                     dtype=torch.float32)
     dcat = torch.empty((n, width), device=cat.device, dtype=torch.float32)
     dux = torch.empty((n, m), device=cat.device, dtype=torch.float32)
     with torch.cuda.device(cat.device):

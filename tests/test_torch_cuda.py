@@ -67,8 +67,8 @@ def _tables(rng, n, k):
     return adj_sm, rows
 
 
-@pytest.mark.parametrize("c_in", [6, 32, 37, 64, 128])
-@pytest.mark.parametrize("m", [4, 9, 16])
+@pytest.mark.parametrize("c_in", [6, 32, 37, 64, 128, 256])
+@pytest.mark.parametrize("m", [4, 9, 16, 32])
 def test_kernel_matches_plain(cuda, rng, c_in, m):
     adj_sm, rows = _tables(rng, 700, 14)
     n = adj_sm.shape[1]
@@ -78,7 +78,8 @@ def test_kernel_matches_plain(cuda, rng, c_in, m):
         rng.normal(size=(m,)).astype(np.float32))]
     before = k1.facet_conv_fwd.launches
     z = k1.facet_conv_fwd(*args)
-    assert k1.facet_conv_fwd.launches == before + 1
+    # one launch per channel chunk of 128 (64 when M > 16)
+    assert k1.facet_conv_fwd.launches == before + -(-c_in // (128 if m <= 16 else 64))
     torch.testing.assert_close(z, k1.facet_conv_fwd_plain(*args), atol=1e-5, rtol=1e-5)
 
 
@@ -107,8 +108,10 @@ def test_kernel_refuses_what_it_does_not_take(cuda, rng):
         k1.facet_conv_fwd(cat.double(), ux, adj, r, c)
     with pytest.raises(ValueError, match="contiguous"):
         k1.facet_conv_fwd(cat, torch.randn(4, n, device=cuda).T, adj, r, c)
-    with pytest.raises(ValueError, match="exceed"):
-        k1.facet_conv_fwd(torch.randn(n, 133, device=cuda), ux, adj, r, c)
+    m = 33
+    with pytest.raises(ValueError, match="exceed the kernel's M<=32"):
+        k1.facet_conv_fwd(torch.randn(n, 9 + m, device=cuda), torch.randn(n, m, device=cuda),
+                          adj, r, torch.randn(m, device=cuda))
 
 
 def test_inference_on_card_matches_cpu(cuda):
@@ -138,8 +141,8 @@ def _bwd_args(cuda, rng, n, k, c_in, m):
         rng.normal(size=(n_pad, m * c_in)).astype(np.float32))]
 
 
-@pytest.mark.parametrize("c_in", [6, 32, 37, 64, 128])
-@pytest.mark.parametrize("m", [4, 9, 16])
+@pytest.mark.parametrize("c_in", [6, 32, 37, 64, 128, 256])
+@pytest.mark.parametrize("m", [4, 9, 16, 32])
 def test_backward_kernel_matches_plain(cuda, rng, c_in, m):
     args = _bwd_args(cuda, rng, 700, 14, c_in, m)
     before = k1.facet_conv_bwd.launches
@@ -150,18 +153,21 @@ def test_backward_kernel_matches_plain(cuda, rng, c_in, m):
     torch.testing.assert_close(dux, ref_dux, atol=1e-5, rtol=1e-5)
 
 
-def test_backward_kernel_walks_more_than_32_slots(cuda, rng):
-    """K'+1 > 32 and transpose maps wider than 32: both passes walk their
-    tables in chunks of 32."""
-    args = _bwd_args(cuda, rng, 300, 45, 41, 9)
+@pytest.mark.parametrize("c_in,k", [(41, 45), (6, 45), (6, 300)])
+def test_backward_kernel_walks_more_than_32_slots(cuda, rng, c_in, k):
+    """K'+1 > 32 and transpose maps wider than 32 (pass B walks them 8, 16
+    or 32 entries at a time); at K = 300 the slots of one node outnumber a
+    block's threads, so pass A walks them in rounds."""
+    args = _bwd_args(cuda, rng, 300, k, c_in, 9)
     assert args[2].shape[0] + 1 > 32 and args[3].shape[1] > 32
     for got, ref in zip(k1.facet_conv_bwd(*args), k1.facet_conv_bwd_plain(*args)):
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
 
-def test_backward_kernel_is_deterministic(cuda, rng):
+@pytest.mark.parametrize("c_in", [6, 64, 128])
+def test_backward_kernel_is_deterministic(cuda, rng, c_in):
     """No atomics: two launches on the same inputs give the same bits."""
-    args = _bwd_args(cuda, rng, 2000, 23, 64, 9)
+    args = _bwd_args(cuda, rng, 2000, 23, c_in, 9)
     first = k1.facet_conv_bwd(*args)
     second = k1.facet_conv_bwd(*args)
     for a, b in zip(first, second):
@@ -179,14 +185,51 @@ def test_backward_kernel_refuses_what_it_does_not_take(cuda, rng):
     with pytest.raises(ValueError, match="shape"):
         k1.facet_conv_bwd(cat, ux, adj, adj_t[:-1], rows, c, dz)
     n = cat.shape[0]
-    with pytest.raises(ValueError, match="exceed"):
-        k1.facet_conv_bwd(torch.randn(n, 133, device=cuda), ux, adj, adj_t, rows, c,
-                          torch.randn(n, 4 * 129, device=cuda))
-    m = 17
-    with pytest.raises(ValueError, match="exceed"):
+    m = 33
+    with pytest.raises(ValueError, match="exceed the kernel's M<=32"):
         k1.facet_conv_bwd(torch.randn(n, 9 + m, device=cuda), torch.randn(n, m, device=cuda),
                           adj, adj_t, rows, torch.randn(m, device=cuda),
                           torch.randn(n, 9 * m, device=cuda))
+
+
+@pytest.fixture(scope="module")
+def served_patch():
+    """The larger patch of a noisy subdivision-5 icosphere, as served (the
+    kernel phases of chip_smoke.py use it too)."""
+    v, f = icosphere(5)
+    mesh = InferenceMesh(max_patch_size=20000, coarsening_steps=2, coarsening_levels=3,
+                         k_faces=23, seed=0)
+    mesh.add_mesh(add_vertex_noise(v, f, 0.2, np.random.default_rng(0)), f)
+    return max(mesh.patches, key=lambda p: p.num_nodes)
+
+
+# the 8 convs of the model at the served patch: name, level, input channels
+CONVS = (("conv1", 0, 6), ("conv2", 1, 32), ("conv3", 2, 64), ("dconv3", 2, 128),
+         ("upconv2", 1, 128), ("dconv2", 1, 128), ("upconv1", 0, 64), ("dconv1", 0, 64))
+
+
+@pytest.mark.parametrize("name,level,c_in", CONVS)
+def test_backward_kernel_at_the_path_shapes(cuda, rng, served_patch, name, level, c_in):
+    """K2 at each conv of a default train step's shapes (the served patch's
+    slot tables, M = 9), against its plain version and bitwise repeatable."""
+    from facet_graph_convolution_torch.models.unet import train_graph_tensors
+
+    adjs, adj_ts, mult_rows = train_graph_tensors(served_patch.adjs, cuda)
+    adj_sm, adj_t_sm = adjs[level], adj_ts[level]
+    rows = mult_rows[level][:, :, 0].contiguous()
+    n_pad = adj_sm.shape[1]
+    m = 9
+    cat = rng.normal(size=(n_pad, c_in + m)).astype(np.float32)
+    cat[served_patch.adjs[level].shape[0]:] = 0.0
+    args = [torch.as_tensor(cat, device=cuda), torch.as_tensor(
+        rng.normal(size=(n_pad, m)).astype(np.float32), device=cuda), adj_sm, adj_t_sm, rows,
+        torch.as_tensor(rng.normal(size=(m,)).astype(np.float32), device=cuda),
+        torch.as_tensor(rng.normal(size=(n_pad, m * c_in)).astype(np.float32), device=cuda)]
+    got = k1.facet_conv_bwd(*args)
+    again = k1.facet_conv_bwd(*args)
+    for a, b, ref in zip(got, again, k1.facet_conv_bwd_plain(*args)):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, ref, atol=1e-5, rtol=1e-5)
 
 
 def test_conv_on_card_keeps_its_gradient(cuda, rng):
