@@ -9,9 +9,11 @@ Phases, each fatal on failure:
 2. kernel: the facet-conv forward kernel (K1) against its plain PyTorch
    version on the card, at the 8 conv shapes of the largest patch of a
    noisy subdivision-5 icosphere (20,480 faces, two patches), on the real
-   slot tables (pad slots, padded nodes, zero fake rows); prints each
-   launch's error, kernel and plain times and bound; then, untimed, at
-   widths beyond the model's (C = 256, M = 9 and C = 64, M = 32);
+   slot tables (pad slots, padded nodes, zero fake rows), and two launches
+   on the same inputs giving the same bits; prints each launch's error,
+   kernel and plain times and bound (its phase split comes from
+   ``tools/k1_phase_probe.py``); then, untimed, at widths beyond the
+   model's (``WIDE``: C = 256 at M = 9, and M = 32, 33, 64 and 100);
 3. backward kernel: the same for the facet-conv backward kernel (K2), on the
    same shapes with the transpose maps, with its two passes' times and the
    floor of its two-pass design (the bound plus the scratch's round trip);
@@ -83,8 +85,8 @@ SEVEN_FILES = ("_denoised.obj", "_d_mid.obj", "_d_coarse.obj", "_fine_normals_s.
 GRAD_ATOL = 1e-4
 TRAIN_STEPS = 50
 # (C, M) wider than the model's convs (C <= 128, M = 9), checked untimed at
-# level 1 of the served patch
-WIDE = ((256, 9), (64, 32))
+# level 1 of the served patch; past M = 32 K2 takes its general pass A
+WIDE = ((256, 9), (64, 32), (6, 33), (64, 64), (128, 100))
 CONVS = (  # name, level, input channels (out channels follow the model)
     ("conv1", 0, 6), ("conv2", 1, 32), ("conv3", 2, 64), ("dconv3", 2, 128),
     ("upconv2", 1, 128), ("dconv2", 1, 128), ("upconv1", 0, 64), ("dconv1", 0, 64),
@@ -200,6 +202,23 @@ def conv_inputs(patch, level, c_in, m, n_pad, rng, dev):
             torch.as_tensor(rng.normal(size=(m,)).astype(np.float32), device=dev))
 
 
+def fwd_check(k1, args, label):
+    """K1 on ``args`` against its plain version and against itself (two
+    launches, the same bits); returns (z, max abs error)."""
+    import torch
+
+    z = k1.facet_conv_fwd(*args)
+    again = k1.facet_conv_fwd(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(z, again):
+        raise AssertionError(f"K1 gave different bits on the same inputs at {label}")
+    z_ref = k1.facet_conv_fwd_plain(*args)
+    err = float((z - z_ref).abs().max())
+    if not torch.allclose(z, z_ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
+        raise AssertionError(f"K1 disagrees with its plain version at {label}: {err}")
+    return z, err
+
+
 def kernel_phase(dev, patch):
     import torch
 
@@ -211,8 +230,9 @@ def kernel_phase(dev, patch):
     m = 9
     bound_kinds, worst = set(), 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    print("kernel phase: K1 vs plain, atol=rtol=%g, patch levels %s" % (
+    print("kernel phase: K1 vs plain, atol=rtol=%g, bitwise repeatable, patch levels %s" % (
         KERNEL_ATOL, [a.shape[0] for a in patch.adjs]))
+    print("  its phases: python3 tools/k1_phase_probe.py")
     print("  device ms: 50 calls replayed from one CUDA graph; wall ms: 50 eager calls")
     print("  %-8s %6s %4s %3s %3s %10s %9s %9s %9s %9s %s" % (
         "conv", "N'", "C", "M", "K'", "max_err", "ms", "wall_ms", "plain_ms", "bound_ms",
@@ -222,12 +242,7 @@ def kernel_phase(dev, patch):
         k_nbr, n_pad = adj_sm.shape
         cat, ux, c = conv_inputs(patch, level, c_in, m, n_pad, rng, dev)
         args = (cat, ux, adj_sm, rows, c)
-        z = k1.facet_conv_fwd(*args)
-        torch.cuda.synchronize()
-        z_ref = k1.facet_conv_fwd_plain(*args)
-        err = float((z - z_ref).abs().max())
-        if not torch.allclose(z, z_ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
-            raise AssertionError(f"K1 disagrees with its plain version at {name}: {err}")
+        z, err = fwd_check(k1, args, name)
         ms, wall_ms, _ = cuda_ms(lambda: k1.facet_conv_fwd(*args), 50)
         plain_ms, _, _ = cuda_ms(lambda: k1.facet_conv_fwd_plain(*args), 10)
         b_ms, b_by = bound_ms(cat, ux, adj_sm, rows, c, z)
@@ -242,14 +257,7 @@ def kernel_phase(dev, patch):
         adj_sm, rows = adjs[1], mult_rows[1][:, :, 0].contiguous()
         k_nbr, n_pad = adj_sm.shape
         cat, ux, c = conv_inputs(patch, 1, c_in, m_wide, n_pad, rng, dev)
-        args = (cat, ux, adj_sm, rows, c)
-        z = k1.facet_conv_fwd(*args)
-        torch.cuda.synchronize()
-        z_ref = k1.facet_conv_fwd_plain(*args)
-        err = float((z - z_ref).abs().max())
-        if not torch.allclose(z, z_ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
-            raise AssertionError(f"K1 disagrees with its plain version at C={c_in}, "
-                                 f"M={m_wide}: {err}")
+        err = fwd_check(k1, (cat, ux, adj_sm, rows, c), f"C={c_in}, M={m_wide}")[1]
         worst = max(worst, err)
         print("  %-8s %6d %4d %3d %3d %10.3e (untimed)" % ("wide", n_pad, c_in, m_wide,
                                                          k_nbr, err))

@@ -51,6 +51,8 @@
 //   and first channels of x loading while the current group computes. Wider
 //   shapes take one block a group (slot_cotangents_kernel), in rounds of
 //   slot teams and tiles of channels as the block and the budget allow.
+//   M > 32 takes one general kernel (slot_cotangents_any_m): a warp a node,
+//   its slot's s and dq in shared memory rather than registers.
 // - Pass B, source-centric: a team of 8, 16 or 32 lanes per node j (the
 //   smallest that covers C+M, up to 32) starts from j's self row (if live)
 //   and adds the rows of dg that its transpose map adj_t_sm[j] lists (one-
@@ -71,6 +73,8 @@ namespace {
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kThreadsA = 512;   // pass A: the most threads a block takes
 constexpr int kThreadsB = 256;
+constexpr int kThreadsAnyM = 128;   // pass A for M > 32: 4 warps, a node each
+constexpr int kSmemMax = 232448;    // the most a block can use (227 KB)
 // dynamic shared memory a pass-A block may take (the SM has 227 KB)
 constexpr int kSmemBudget = 96 * 1024;
 
@@ -450,6 +454,88 @@ slot_cotangents_pipelined(const float* __restrict__ cat, const float* __restrict
   }
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, off));
+  return v;
+}
+
+// Pass A for M > 32, any M and C: a warp a node walks its live slots in
+// order, with the slot's s and dq and the node's dux sum (3 * M floats a
+// warp) in shared memory in place of registers. Lanes take the M filters
+// for the softmax and dlog and the C channels for dx; dq[m] is a warp sum
+// over the channels. One general path, not tuned: the model's M = 9 runs
+// the kernels above.
+__global__ void __launch_bounds__(kThreadsAnyM)
+slot_cotangents_any_m(const float* __restrict__ cat, const float* __restrict__ ux,
+                      const int* __restrict__ adj_sm, const float* __restrict__ mult_rows,
+                      const float* __restrict__ cvec, const float* __restrict__ dz,
+                      float* __restrict__ dg, float* __restrict__ dux, int n, int k_nbr,
+                      int c_in, int m, int wp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (i >= n) return;   // warp-uniform; no block barrier follows
+  float* s = reinterpret_cast<float*>(smem_raw) + (size_t)warp * 3 * m;
+  float* dq = s + m;
+  float* du = dq + m;
+  const int width = c_in + m;
+  const float* dzi = dz + (size_t)i * m * c_in;
+  for (int a = lane; a < m; a += 32) du[a] = 0.f;
+  for (int k = 0; k <= k_nbr; ++k) {
+    const float w = __ldg(mult_rows + (size_t)k * n + i);
+    const int j = k == 0 ? i : __ldg(adj_sm + (size_t)(k - 1) * n + i) - 1;
+    if (!(w != 0.f && (unsigned)j < (unsigned)n)) continue;   // warp-uniform
+    const float* row = cat + (size_t)j * width;
+    float mx = -INFINITY;
+    for (int a = lane; a < m; a += 32) {
+      const float l = __ldg(ux + (size_t)i * m + a) + __ldg(row + c_in + a) + __ldg(cvec + a);
+      s[a] = l;
+      mx = fmaxf(mx, l);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int a = lane; a < m; a += 32) {
+      const float e = expf(s[a] - mx);
+      s[a] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int a = lane; a < m; a += 32) s[a] = s[a] / sum;
+    __syncwarp();
+    float* out = dg + ((size_t)k * n + i) * wp;
+    for (int ch = lane; ch < c_in; ch += 32) {
+      float d = 0.f;
+      for (int a = 0; a < m; ++a) d = fmaf(w * s[a], __ldg(dzi + (size_t)a * c_in + ch), d);
+      out[ch] = d;
+    }
+    for (int a = 0; a < m; ++a) {
+      float p = 0.f;
+      for (int ch = lane; ch < c_in; ch += 32)
+        p = fmaf(__ldg(row + ch), __ldg(dzi + (size_t)a * c_in + ch), p);
+      p = warp_sum(p);
+      if (lane == 0) dq[a] = p * w;
+    }
+    __syncwarp();
+    float t = 0.f;
+    for (int a = lane; a < m; a += 32) t = fmaf(dq[a], s[a], t);
+    t = warp_sum(t);
+    for (int a = lane; a < m; a += 32) {
+      const float dl = s[a] * (dq[a] - t);
+      out[c_in + a] = dl;
+      du[a] += dl;
+    }
+    __syncwarp();   // s and dq are rewritten by the next slot
+  }
+  for (int a = lane; a < m; a += 32) dux[(size_t)i * m + a] = du[a];
+}
+
 template <int TB, int WB>
 __global__ void __launch_bounds__(kThreadsB)
 transpose_sum_kernel(const float* __restrict__ dg, const int* __restrict__ adj_t,
@@ -621,6 +707,20 @@ int dispatch_t(const Args& a) {
   return launch_a<MM, 16>(a);
 }
 
+constexpr int kWarpsAnyM = kThreadsAnyM / 32;
+
+int launch_a_any_m(const Args& a) {
+  const size_t smem = (size_t)kWarpsAnyM * 3 * a.m * sizeof(float);
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  static size_t raised = 48 * 1024;
+  const int err = allow_smem(slot_cotangents_any_m, smem, raised);
+  if (err != 0) return err;
+  slot_cotangents_any_m<<<(a.n + kWarpsAnyM - 1) / kWarpsAnyM, kThreadsAnyM, smem, a.stream>>>(
+      a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.dz, a.dg, a.dux, a.n, a.k_nbr, a.c_in, a.m,
+      a.wp);
+  return (int)cudaGetLastError();
+}
+
 template <int TB, int WB>
 int launch_b(const Args& a) {
   const long long threads = (long long)a.n * TB;
@@ -635,8 +735,9 @@ int launch_b(const Args& a) {
 
 extern "C" {
 
-// Largest filter count the kernel is instantiated for; any channel count runs.
-int facet_conv_bwd_max_m(void) { return 32; }
+// Largest filter count the kernel takes (past M = 32, pass A keeps 3 * M
+// floats a warp in shared memory); any channel count runs.
+int facet_conv_bwd_max_m(void) { return kSmemMax / (kWarpsAnyM * 3 * (int)sizeof(float)); }
 
 // cat [n, c_in + m], ux [n, m], adj_sm [k_nbr, n] (one-indexed, 0 = pad),
 // adj_t [n, k_t] (one-indexed flat slots k*n + i, 0 = pad), mult_rows
@@ -661,7 +762,7 @@ int facet_conv_bwd_f32(const float* cat, const float* ux, const int* adj_sm,
   else if (m == 9) err = dispatch_t<9>(a);
   else if (m <= 16) err = dispatch_t<16>(a);
   else if (m <= 32) err = dispatch_t<32>(a);
-  else err = (int)cudaErrorInvalidValue;
+  else err = launch_a_any_m(a);
   if (err != 0) return err;
   const int width = c_in + m;
   if (width <= 8) return launch_b<8, 1>(a);

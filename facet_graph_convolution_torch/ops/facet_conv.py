@@ -7,9 +7,11 @@
 ``csrc/facet_conv_bwd.cu``; it replaces ``_epilogue_bwd_kernel`` (launched by
 ``_conv_epilogue_bwd``) together with the gather's transpose ``_gsm_bwd``.
 Each source's head note says what bounds it on an H100 (bytes, for both) and
-how its design answers that. Both take any channel count C and M <= 32: K2
-walks wide rows inside the kernel, and :func:`facet_conv_fwd` runs a conv
-wider than one K1 launch takes as channel chunks (:func:`fwd_in_chunks`).
+how its design answers that. Both take any channel count C and any M whose
+softmax rows fit a block's shared memory (thousands; :func:`_check` names
+the limit): K2 walks wide rows inside the kernel, and :func:`facet_conv_fwd`
+runs a conv wider than one K1 launch takes (1024 channels) as channel chunks
+(:func:`fwd_in_chunks`).
 :func:`facet_conv_fwd_plain` and
 :func:`facet_conv_bwd_plain` are the same functions in plain PyTorch: the
 wrappers take them for CPU tensors, and the tests and ``chip_smoke.py`` hold
@@ -98,10 +100,22 @@ def _library(name: str) -> ctypes.CDLL:
                           else [p] * 10 + [i] * 5 + [p])
         entry.restype = ctypes.c_int
         if name == "facet_conv_fwd":
-            lib.facet_conv_fwd_max_c.argtypes = [i]
             lib.facet_conv_fwd_max_c.restype = i
+            lib.facet_conv_fwd_max_m.argtypes = [i, i]
         getattr(lib, name + "_max_m").restype = i
     return lib
+
+
+def _max_m(kernel, lib, k_nbr, c_in):
+    """The largest M one launch of ``kernel`` takes: K1's q tile of a node's
+    K'+1 slots (and, at C <= 16, its staged z row) must fit a block's shared
+    memory, for every channel chunk; K2 past M = 32 keeps 3·M floats a warp
+    there."""
+    if kernel == "facet_conv_bwd":
+        return lib.facet_conv_bwd_max_m()
+    max_c = lib.facet_conv_fwd_max_c()
+    widths = {min(c_in, max_c), c_in % max_c or max_c}
+    return min(lib.facet_conv_fwd_max_m(k_nbr, w) for w in widths)
 
 
 def _check(kernel, cat, ux, adj_sm, mult_rows, c, **extra):
@@ -129,10 +143,10 @@ def _check(kernel, cat, ux, adj_sm, mult_rows, c, **extra):
     if n * max(k_nbr, 1) >= 2**31:
         raise ValueError(f"{kernel}: N={n}, K'={k_nbr} overflow the kernel's int32 slot index")
     lib = _library(kernel)
-    max_m = getattr(lib, kernel + "_max_m")()
+    max_m = _max_m(kernel, lib, k_nbr, cat.shape[1] - m)
     if m > max_m:
-        raise ValueError(f"{kernel}: M={m} filters exceed the kernel's M<={max_m} "
-                         "(its softmax holds M logits a thread in registers)")
+        raise ValueError(f"{kernel}: M={m} filters need more shared memory for their softmax "
+                         f"rows than the 227 KB a block can use; at most M={max_m} fit here")
     return lib
 
 
@@ -174,8 +188,8 @@ def _launch_fwd(lib, cat, ux, adj_sm, mult_rows, c):
 
 def facet_conv_fwd(cat, ux, adj_sm, mult_rows, c):
     """K1 on ``cat``'s device: the CUDA kernel for CUDA tensors (one launch
-    per channel chunk of at most 128, or 64 when M > 16: one launch at the
-    model's widths), the plain version for CPU tensors. Raises on any other
+    per channel chunk of at most 1024: one launch a conv at any width the
+    model uses), the plain version for CPU tensors. Raises on any other
     device, and on shapes, dtypes or layouts the kernel does not take."""
     if cat.device.type == "cpu":
         return facet_conv_fwd_plain(cat, ux, adj_sm, mult_rows, c)
@@ -183,7 +197,7 @@ def facet_conv_fwd(cat, ux, adj_sm, mult_rows, c):
         raise ValueError(f"facet_conv_fwd: no kernel for device {cat.device}")
     lib = _check("facet_conv_fwd", cat, ux, adj_sm, mult_rows, c)
     return fwd_in_chunks(functools.partial(_launch_fwd, lib), cat, ux, adj_sm, mult_rows, c,
-                         lib.facet_conv_fwd_max_c(ux.shape[1]))
+                         lib.facet_conv_fwd_max_c())
 
 
 facet_conv_fwd.launches = 0

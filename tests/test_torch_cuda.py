@@ -78,9 +78,37 @@ def test_kernel_matches_plain(cuda, rng, c_in, m):
         rng.normal(size=(m,)).astype(np.float32))]
     before = k1.facet_conv_fwd.launches
     z = k1.facet_conv_fwd(*args)
-    # one launch per channel chunk of 128 (64 when M > 16)
-    assert k1.facet_conv_fwd.launches == before + -(-c_in // (128 if m <= 16 else 64))
+    # one launch per channel chunk of 1024
+    assert k1.facet_conv_fwd.launches == before + -(-c_in // 1024)
     torch.testing.assert_close(z, k1.facet_conv_fwd_plain(*args), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("c_in", [6, 64, 256])
+@pytest.mark.parametrize("m", [33, 64, 100])
+def test_kernels_take_any_m(cuda, rng, c_in, m):
+    """M past 32 (the JAX epilogue takes any M): K1 in M-groups of 16 over one
+    q tile, K2 through its general pass A, against their plain versions."""
+    args = _bwd_args(cuda, rng, 300, 14, c_in, m)
+    fwd_args = [args[i] for i in (0, 1, 2, 4, 5)]
+    before = k1.facet_conv_fwd.launches
+    z = k1.facet_conv_fwd(*fwd_args)
+    assert k1.facet_conv_fwd.launches == before + 1
+    torch.testing.assert_close(z, k1.facet_conv_fwd_plain(*fwd_args), atol=1e-5, rtol=1e-5)
+    for got, ref in zip(k1.facet_conv_bwd(*args), k1.facet_conv_bwd_plain(*args)):
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("c_in", [6, 64, 128])
+def test_kernel_is_deterministic(cuda, rng, c_in):
+    """No atomics, slots summed in a fixed order: two K1 launches on the same
+    inputs give the same bits."""
+    adj_sm, rows = _tables(rng, 2000, 23)
+    n = adj_sm.shape[1]
+    args = [torch.as_tensor(a, device=cuda) for a in (
+        rng.normal(size=(n, c_in + 9)).astype(np.float32),
+        rng.normal(size=(n, 9)).astype(np.float32), adj_sm, rows,
+        rng.normal(size=(9,)).astype(np.float32))]
+    assert torch.equal(k1.facet_conv_fwd(*args), k1.facet_conv_fwd(*args))
 
 
 def test_kernel_walks_more_than_32_slots(cuda, rng):
@@ -108,8 +136,17 @@ def test_kernel_refuses_what_it_does_not_take(cuda, rng):
         k1.facet_conv_fwd(cat.double(), ux, adj, r, c)
     with pytest.raises(ValueError, match="contiguous"):
         k1.facet_conv_fwd(cat, torch.randn(4, n, device=cuda).T, adj, r, c)
-    m = 33
-    with pytest.raises(ValueError, match="exceed the kernel's M<=32"):
+    # the largest M whose q tile fits a block's shared memory runs; one more
+    # is refused, naming the cause and that M
+    lib = k1._library("facet_conv_fwd")
+    max_m = k1._max_m("facet_conv_fwd", lib, adj.shape[0], 9)
+    assert max_m > 1000
+    args = [torch.randn(n, 9 + max_m, device=cuda), torch.randn(n, max_m, device=cuda), adj, r,
+            torch.randn(max_m, device=cuda)]
+    torch.testing.assert_close(k1.facet_conv_fwd(*args), k1.facet_conv_fwd_plain(*args),
+                               atol=1e-5, rtol=1e-5)
+    m = max_m + 1
+    with pytest.raises(ValueError, match=f"shared memory .* at most M={max_m} fit"):
         k1.facet_conv_fwd(torch.randn(n, 9 + m, device=cuda), torch.randn(n, m, device=cuda),
                           adj, r, torch.randn(m, device=cuda))
 
@@ -185,8 +222,10 @@ def test_backward_kernel_refuses_what_it_does_not_take(cuda, rng):
     with pytest.raises(ValueError, match="shape"):
         k1.facet_conv_bwd(cat, ux, adj, adj_t[:-1], rows, c, dz)
     n = cat.shape[0]
-    m = 33
-    with pytest.raises(ValueError, match="exceed the kernel's M<=32"):
+    max_m = k1._library("facet_conv_bwd").facet_conv_bwd_max_m()
+    assert max_m > 1000
+    m = max_m + 1
+    with pytest.raises(ValueError, match=f"shared memory .* at most M={max_m} fit"):
         k1.facet_conv_bwd(torch.randn(n, 9 + m, device=cuda), torch.randn(n, m, device=cuda),
                           adj, adj_t, rows, torch.randn(m, device=cuda),
                           torch.randn(n, 9 * m, device=cuda))
@@ -206,6 +245,28 @@ def served_patch():
 # the 8 convs of the model at the served patch: name, level, input channels
 CONVS = (("conv1", 0, 6), ("conv2", 1, 32), ("conv3", 2, 64), ("dconv3", 2, 128),
          ("upconv2", 1, 128), ("dconv2", 1, 128), ("upconv1", 0, 64), ("dconv1", 0, 64))
+
+
+@pytest.mark.parametrize("name,level,c_in", CONVS)
+def test_kernel_at_the_path_shapes(cuda, rng, served_patch, name, level, c_in):
+    """K1 at each conv of a served patch's forward (its slot tables with pad
+    slots and padded nodes, M = 9), against its plain version and bitwise
+    repeatable, one launch a conv."""
+    from facet_graph_convolution_torch.models.unet import graph_tensors
+
+    adjs, mult_rows = graph_tensors(served_patch.adjs, cuda)
+    adj_sm, rows = adjs[level], mult_rows[level][:, :, 0].contiguous()
+    n_pad = adj_sm.shape[1]
+    cat = rng.normal(size=(n_pad, c_in + 9)).astype(np.float32)
+    cat[served_patch.adjs[level].shape[0]:] = 0.0
+    args = [torch.as_tensor(cat, device=cuda),
+            torch.as_tensor(rng.normal(size=(n_pad, 9)).astype(np.float32), device=cuda),
+            adj_sm, rows, torch.as_tensor(rng.normal(size=(9,)).astype(np.float32), device=cuda)]
+    before = k1.facet_conv_fwd.launches
+    z = k1.facet_conv_fwd(*args)
+    assert k1.facet_conv_fwd.launches == before + 1
+    assert torch.equal(z, k1.facet_conv_fwd(*args))
+    torch.testing.assert_close(z, k1.facet_conv_fwd_plain(*args), atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("name,level,c_in", CONVS)

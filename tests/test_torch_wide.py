@@ -1,11 +1,12 @@
-"""Wide convs (C = 256, M = 32) in the port, on the CPU, and the serving
+"""Wide convs (C = 256, M = 32 to 64) in the port, on the CPU, and the serving
 refusal of networks the drivers do not run.
 
 K1 takes a conv wider than one launch as channel chunks in its wrapper
 (``fwd_in_chunks``); here the chunk logic runs with the plain K1 as the
-per-chunk function and is held against the plain K1 on the whole width. The
-conv at C = 256, M = 32 through ``FacetConvEpilogue`` (plain K1/K2 on CPU
-tensors) is held against ``facet_conv_pallas(interpret=True)`` of the JAX
+per-chunk function and is held against the plain K1 on the whole width, and
+the wrapper's M limit is taken over every chunk. The conv at C = 256 and
+M = 9 or 32, and at M = 33 and 64, through ``FacetConvEpilogue`` (plain
+K1/K2 on CPU tensors) is held against ``facet_conv_pallas(interpret=True)`` of the JAX
 package, values and gradients. Tolerance atol 1e-5 (float32 sums in another
 order; the chunked K1 computes each channel exactly as the whole one does).
 """
@@ -86,7 +87,7 @@ def test_fwd_in_chunks_is_one_call_at_the_model_widths(rng, c_in):
     assert len(calls) == 1 and calls[0] is args[0]
 
 
-@pytest.mark.parametrize("c_in,m", [(256, 32), (256, 9), (64, 32)])
+@pytest.mark.parametrize("c_in,m", [(256, 32), (256, 9), (64, 32), (64, 33), (32, 64)])
 def test_wide_conv_matches_jax_pallas(rng, c_in, m):
     """The conv at wide C and M through FacetConvEpilogue on the CPU (plain
     K1 forward, plain K2 backward) against jax.grad of facet_conv_pallas in
@@ -119,6 +120,36 @@ def test_wide_conv_matches_jax_pallas(rng, c_in, m):
         np.testing.assert_allclose(params[name].grad.numpy(), np.asarray(g_p[name]),
                                    atol=ATOL, err_msg=name)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(g_x), atol=ATOL)
+
+
+class _FakeLibrary:
+    """K1's library as the wrapper sees it: its limits, with the channel
+    widths it was asked about recorded."""
+
+    def __init__(self):
+        self.asked = []
+
+    def facet_conv_fwd_max_c(self):
+        return 1024
+
+    def facet_conv_fwd_max_m(self, k_nbr, c_in):
+        self.asked.append((k_nbr, c_in))
+        return 5000 - c_in
+
+    def facet_conv_bwd_max_m(self):
+        return 4842
+
+
+@pytest.mark.parametrize("c_in,widths", [
+    (6, {6}), (64, {64}), (1024, {1024}), (1030, {1024, 6}), (2048, {1024})])
+def test_max_m_holds_for_every_channel_chunk(c_in, widths):
+    """The largest M the wrapper lets through is the smallest over the channel
+    widths K1 is launched at (the whole C, or its chunks of 1024 and the
+    remainder); K2's does not depend on the shape."""
+    lib = _FakeLibrary()
+    assert k1._max_m("facet_conv_fwd", lib, 12, c_in) == 5000 - max(widths)
+    assert {w for _, w in lib.asked} == widths and {k for k, _ in lib.asked} == {12}
+    assert k1._max_m("facet_conv_bwd", lib, 12, c_in) == 4842
 
 
 @pytest.mark.parametrize("variant,cause", [
