@@ -46,16 +46,26 @@ Phases, each fatal on failure:
 8. vertex serving: ``infer_directory(with_vertices=True)`` answers the same 3
    requests at full width with random multi-scale weights, once under the
    operator solver and once under the naive one; checks the 7 written meshes
-   of each request, that K1 ran 8 times per patch and the zero-ignoring
-   tree pool (K4) 180 times per patch under the naive solver and never under
-   the operator one, each patch's three heads through K1 against the plain
-   K1, each patch's naive solve through K4 against the same solve through
-   the plain K4 (bit for bit), and the operator points against the naive
-   points on the same patches;
-9. pool kernel: K4 against its plain version, bit for bit, at the solver's
+   of each request, that K1 ran 8 times per patch, that the naive solver's
+   scale kernel (``csrc/ms_solver_naive.cu``, K4 redesigned) ran 3 times per
+   patch under the naive solver and never under the operator one, and the
+   standalone zero-ignoring tree pool (K4) never; each patch's three heads
+   through K1 against the plain K1, each patch's naive solve through the
+   scale kernel against the plain solve (atol 1e-5) and against itself (the
+   same bits), and the operator points against the naive points on the same
+   patches;
+9. solver kernel: the scale kernel against its plain version at the three
+   launches of the largest served patch's solve (the inputs the path gave
+   it), with its times per scale and per patch at the default grid and at
+   one block an SM, the plain loop's times (pure PyTorch, and with the
+   standalone K4 as before the redesign), the cost of one grid barrier, and
+   its bound;
+10. pool kernel: K4 against its plain version, bit for bit, at the solver's
    two pools of the largest served patch, at C = 3 and N = 1,048,576, on
    rows of zeros, groups of zeros and -0.0 rows, and at steps 1, 2 and 3;
-   prints its times and bound.
+   prints its times and bound; the scale kernel's phase A alone at the
+   largest patch's two coarse levels, bit for bit against the plain K4 of
+   its own level-0 centroids (those within 1e-6 of the plain gather-mean).
 
 Then it prints the kernels' JSON line, the card's ``nvidia-smi`` name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -78,6 +88,10 @@ FORWARD_ATOL = 1e-4
 # the operator and naive solvers on the same patches, in the patches' frame
 # (bounding-box diagonal 1): the same sums reassociated over 120 iterations
 SOLVER_ATOL = 1e-4
+# the naive solve through the scale kernel against the plain solve, patch
+# frame: the same operations with the slot sums in another order
+NAIVE_ATOL = 1e-5
+CENTROID_ATOL = 1e-6
 SEVEN_FILES = ("_denoised.obj", "_d_mid.obj", "_d_coarse.obj", "_fine_normals_s.obj",
                "_original_normals.obj", "_mid_normals_s.obj", "_coarse_normals_s.obj")
 # one step's gradients through the kernels against the plain versions, each
@@ -802,9 +816,25 @@ def request_shapes():
             "chamfered_box": chamfered_box(24)}
 
 
+def plain_solve(fn):
+    """``fn()`` with the naive solver's scale kernel and the standalone K4
+    both replaced by their plain versions: the solve in plain PyTorch."""
+    from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
+    from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
+
+    kernels = (ms.naive_scale, k4.tree_pool_ignore_zeros)
+    try:
+        ms.naive_scale = ms.naive_scale_plain
+        k4.tree_pool_ignore_zeros = k4.tree_pool_ignore_zeros_plain
+        return fn()
+    finally:
+        ms.naive_scale, k4.tree_pool_ignore_zeros = kernels
+
+
 def vertex_serving_phase(dev, workdir):
     """The 3 requests through the vertex pipeline under both solvers;
-    returns (K4 launches of the naive run, the naive run's records)."""
+    returns (the naive run's launches, its records, its config, the
+    weights)."""
     import torch
 
     from facet_graph_convolution_torch.config import default_config
@@ -819,6 +849,7 @@ def vertex_serving_phase(dev, workdir):
     )
     from facet_graph_convolution_torch.models.unet import init_unet
     from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
     from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
 
     t_phase = time.perf_counter()
@@ -839,14 +870,17 @@ def vertex_serving_phase(dev, workdir):
         k1.facet_conv_fwd.launches = 0
         k1.facet_conv_bwd.launches = 0
         k4.tree_pool_ignore_zeros.launches = 0
+        ms.naive_scale.launches = 0
         records = infer_directory(in_dir, cfg, with_vertices=True, params=params,
                                   device=str(dev))
         launches = {"K1": k1.facet_conv_fwd.launches, "K2": k1.facet_conv_bwd.launches,
-                    "K4": k4.tree_pool_ignore_zeros.launches}
+                    "K4": k4.tree_pool_ignore_zeros.launches,
+                    "solver": ms.naive_scale.launches}
         if len(records) != 3:
             raise AssertionError(f"{solver}: served {len(records)} of 3 requests")
         patches = sum(r["patches"] for r in records)
-        want = {"K1": 8 * patches, "K2": 0, "K4": 180 * patches if solver == "naive" else 0}
+        want = {"K1": 8 * patches, "K2": 0, "K4": 0,
+                "solver": 3 * patches if solver == "naive" else 0}
         if launches != want:
             raise AssertionError(f"{solver}: launches {launches} for {patches} patches, "
                                  f"want {want}")
@@ -872,7 +906,7 @@ def vertex_serving_phase(dev, workdir):
     cfg_operator = runs["operator"][1]
     heads_err = solve_err = points_err = 0.0
     identical = True
-    kernels = (k1.facet_conv_fwd, k4.tree_pool_ignore_zeros)
+    kernel = k1.facet_conv_fwd
     for r in records:
         for patch in r["mesh"].patches:
             with torch.no_grad():
@@ -881,19 +915,19 @@ def vertex_serving_phase(dev, workdir):
                     k1.facet_conv_fwd = k1.facet_conv_fwd_plain
                     heads_ref = forward_patch(params, patch, cfg, dev, multi_scale=True)
                 finally:
-                    k1.facet_conv_fwd = kernels[0]
+                    k1.facet_conv_fwd = kernel
             for h, h_ref in zip(heads, heads_ref):
                 if not torch.isfinite(h).all():
                     raise AssertionError(f"{r['name']}: non-finite head")
                 heads_err = max(heads_err, float((h - h_ref).abs().max()))
             solved = solve_patch(patch, cfg, heads, dev)
-            try:
-                k4.tree_pool_ignore_zeros = k4.tree_pool_ignore_zeros_plain
-                solved_ref = solve_patch(patch, cfg, heads, dev)
-            finally:
-                k4.tree_pool_ignore_zeros = kernels[1]
-            for a, b in zip([solved[0], *solved[1]], [solved_ref[0], *solved_ref[1]]):
-                identical = identical and torch.equal(a, b)
+            again = solve_patch(patch, cfg, heads, dev)
+            solved_ref = plain_solve(lambda: solve_patch(patch, cfg, heads, dev))
+            for a, b, c in zip([solved[0], *solved[1]], [solved_ref[0], *solved_ref[1]],
+                               [again[0], *again[1]]):
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"{r['name']}: non-finite naive solve")
+                identical = identical and torch.equal(a, c)
                 solve_err = max(solve_err, float((a - b).abs().max()))
         # the operator solver on the same patches as the naive run
         out_op = infer_with_vertices(r["mesh"], cfg_operator, params=params, device=str(dev))
@@ -902,19 +936,21 @@ def vertex_serving_phase(dev, workdir):
     if heads_err > FORWARD_ATOL:
         raise AssertionError(f"the heads through K1 differ from the plain K1's by {heads_err}")
     if not identical:
-        raise AssertionError(f"the naive solve through K4 differs from the plain K4's by "
-                             f"{solve_err}")
+        raise AssertionError("two naive solves through the scale kernel gave different bits")
+    if solve_err > NAIVE_ATOL:
+        raise AssertionError(f"the naive solve through the scale kernel differs from the plain "
+                             f"solve by {solve_err}")
     if points_err > SOLVER_ATOL:
         raise AssertionError(f"operator and naive points differ by {points_err}")
     print(f"  three heads through K1 vs through plain K1: max abs err {heads_err:.3e} "
           f"(atol {FORWARD_ATOL})")
-    print(f"  naive solve through K4 vs through plain K4: max abs err {solve_err:.3e} "
-          f"(bit for bit)")
+    print(f"  naive solve through the scale kernel vs the plain solve: max abs err "
+          f"{solve_err:.3e} (atol {NAIVE_ATOL}, patch frame); two solves, the same bits")
     print(f"  operator vs naive points, same patches: max abs err {points_err:.3e} "
           f"(atol {SOLVER_ATOL}, patch frame)")
 
     # where a solve's time goes, on the largest patch
-    largest = max((p for r in records for p in r["mesh"].patches), key=lambda p: p.num_nodes)
+    largest = largest_patch(records)
     with torch.no_grad():
         heads = forward_patch(params, largest, cfg, dev, multi_scale=True)
     t0 = time.perf_counter()
@@ -926,7 +962,121 @@ def vertex_serving_phase(dev, workdir):
         device_profile(lambda: solve_patch(largest, solver_cfg, heads, dev),
                        f"one {solver} solve of the {largest.num_nodes}-face patch")
     print(f"  vertex serving phase: {time.perf_counter() - t_phase:.1f} s")
-    return launches["K4"], records
+    return launches, records, cfg, params
+
+
+def largest_patch(records):
+    return max((p for r in records for p in r["mesh"].patches), key=lambda p: p.num_nodes)
+
+
+def solver_bound_ms(calls):
+    """Least time for the scale kernel's work on this card, summed over a
+    solve's launches: each input read once and x written once at the HBM
+    rate, against the operations this data needs at the f32 rate (per
+    iteration: a centroid of 9 ops a fine face, 4 ops a pooled value, 5 ops
+    for t a node, 12 ops a real slot for the dot, n_w and the sum, 7 a
+    vertex for λ and the move); the larger of the two."""
+    import torch
+
+    nbytes = ops = 0
+    for x, faces, v_faces, fn, scale, steps, iters in calls:
+        shift = steps * scale
+        nbytes += 4 * (2 * x.numel() + faces.numel() + v_faces.numel() + fn.numel())
+        f0 = faces.shape[0]
+        pool = sum(4 * 3 * (f0 >> r) for r in range(1, shift + 1))
+        slots = int(torch.count_nonzero(v_faces >= 0))
+        ops += iters * (9 * f0 + pool + 5 * fn.shape[0] + 12 * slots + 7 * x.shape[0])
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def solver_kernel_phase(dev, records, cfg, params):
+    """The scale kernel against its plain version at the three launches of
+    the largest served patch's naive solve (their inputs as the path gave
+    them); times per scale and per patch, the plain loop's, a grid
+    barrier's, and the bound. Returns (worst error, per patch {ms, plain_ms,
+    bound_ms}, bound kind)."""
+    import torch
+
+    from facet_graph_convolution_torch.inference.driver import forward_patch, solve_patch
+    from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
+
+    largest = largest_patch(records)
+    calls, kernel = [], ms.naive_scale
+
+    def record(x, faces, v_faces, fn, scale, steps, iters):
+        calls.append((x, faces, v_faces, fn, scale, steps, iters))
+        return kernel(x, faces, v_faces, fn, scale, steps, iters)
+
+    record.launches = 0             # the wrapper counts its launch on what stands in its name
+    with torch.no_grad():
+        heads = forward_patch(params, largest, cfg, dev, multi_scale=True)
+        try:
+            ms.naive_scale = record
+            solve_patch(largest, cfg, heads, dev)
+        finally:
+            ms.naive_scale = kernel
+    if len(calls) != 3:
+        raise AssertionError(f"one naive solve called the scale kernel {len(calls)} times")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    full = ms.max_grid(dev)
+    print(f"solver kernel phase: the scale kernel vs plain (atol {NAIVE_ATOL}), bitwise "
+          f"repeatable, at the {largest.num_nodes}-face patch's solve "
+          f"({largest.vertices.shape[0]} vertices, K = {largest.v_faces.shape[1]})")
+    print(f"  device ms by CUDA-graph replay: ms at the default grid, ms_1/SM at {sms} blocks, "
+          f"ms_full at full occupancy ({full} blocks); plain_ms the plain loop in PyTorch, "
+          f"plain+K4 the same with the standalone K4 (the naive solver before this kernel)")
+    print("  %-5s %6s %5s %5s %10s %9s %9s %9s %9s %9s %9s" % (
+        "scale", "nodes", "iters", "grid", "max_err", "ms", "ms_1/SM", "ms_full", "plain_ms",
+        "plain+K4", "bound_ms"))
+    worst = 0.0
+    totals = {"ms": 0.0, "ms_1/SM": 0.0, "ms_full": 0.0, "plain_ms": 0.0, "plain+K4": 0.0}
+    with torch.no_grad():
+        for x, faces, v_faces, fn, scale, steps, iters in calls:
+            args = (x, faces, v_faces, fn, scale, steps, iters)
+            out = ms.naive_scale(*args)
+            again = ms.naive_scale(*args)
+            ref = plain_solve(lambda: ms.naive_scale_plain(*args))
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            if not torch.equal(out, again):
+                raise AssertionError(f"the scale kernel gave different bits at scale {scale}")
+            if err > NAIVE_ATOL:
+                raise AssertionError(f"the scale kernel differs from plain at scale {scale}: "
+                                     f"{err}")
+            worst = max(worst, err)
+            grid = ms.default_grid(dev, x.shape[0], fn.shape[0], steps * scale)
+            row = {"ms": cuda_ms(lambda: ms.naive_scale(*args), 20)[0],
+                   "ms_1/SM": cuda_ms(lambda: ms.naive_scale(*args, grid=sms), 20)[0],
+                   "ms_full": cuda_ms(lambda: ms.naive_scale(*args, grid=full), 20)[0],
+                   "plain_ms": cuda_ms(lambda: plain_solve(lambda: ms.naive_scale_plain(*args)),
+                                       2)[0],
+                   "plain+K4": cuda_ms(lambda: ms.naive_scale_plain(*args), 2)[0]}
+            for key in totals:
+                totals[key] += row[key]
+            b_ms = solver_bound_ms([args])[0]
+            print("  %-5d %6d %5d %5d %10.3e %9.5f %9.5f %9.5f %9.5f %9.5f %9.6f" % (
+                scale, fn.shape[0], iters, grid, err, row["ms"], row["ms_1/SM"],
+                row["ms_full"], row["plain_ms"], row["plain+K4"], b_ms))
+        b_ms, b_by = solver_bound_ms(calls)
+        print("  %-5s %6s %5s %5s %10s %9.5f %9.5f %9.5f %9.5f %9.5f %9.6f %s" % (
+            "patch", "", "", "", "", totals["ms"], totals["ms_1/SM"], totals["ms_full"],
+            totals["plain_ms"], totals["plain+K4"], b_ms, b_by))
+        # one grid barrier: a node of 16 faces on one vertex, 80 iterations
+        # against 1 (158 barriers apart), at the largest grid of the solve
+        grid = max(ms.default_grid(dev, c[0].shape[0], c[3].shape[0], c[5] * c[4])
+                   for c in calls)
+        tx = calls[0][0][:1].contiguous()
+        tf = torch.zeros((16, 3), dtype=torch.int32, device=dev)
+        tv = torch.full((1, 25), -1, dtype=torch.int32, device=dev)
+        tv[0, 0] = 0
+        tfn = calls[0][3][:1].contiguous()
+        for g in sorted({1, grid, sms, full}):
+            t80 = cuda_ms(lambda: ms.naive_scale(tx, tf, tv, tfn, 2, 2, 80, grid=g), 20)[0]
+            t1 = cuda_ms(lambda: ms.naive_scale(tx, tf, tv, tfn, 2, 2, 1, grid=g), 20)[0]
+            print(f"  one grid barrier at {g} blocks: {1e3 * (t80 - t1) / 158:.4f} us "
+                  f"(a 1-iteration launch {1e3 * t1:.3f} us)")
+    return worst, {k: totals[k] for k in ("ms", "plain_ms")} | {"bound_ms": b_ms}, b_by
 
 
 def pool_bound_ms(x, out, steps):
@@ -945,9 +1095,10 @@ def pool_kernel_phase(dev, records, schedule):
     import torch
 
     from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
+    from facet_graph_convolution_torch.ops.ms_solver_kernel import scale_centers
     from facet_graph_convolution_torch.ops.vertex_update import face_centers_pyramid
 
-    largest = max((p for r in records for p in r["mesh"].patches), key=lambda p: p.num_nodes)
+    largest = largest_patch(records)
     rng = np.random.default_rng(6)
     with torch.no_grad():
         centers = face_centers_pyramid(torch.as_tensor(largest.vertices, device=dev),
@@ -1000,6 +1151,28 @@ def pool_kernel_phase(dev, records, schedule):
         schedule[0] + schedule[1], schedule[0], per_patch["ms"], per_patch["plain_ms"],
         per_patch["bound_ms"]))
     kinds = {timed[0][3], timed[1][3]}
+
+    # the scale kernel's phase A alone: its pool against the plain K4 of its
+    # own level-0 centroids, bit for bit, at the largest patch's two levels
+    x = torch.as_tensor(largest.vertices, device=dev)
+    faces = torch.as_tensor(largest.faces, device=dev).to(torch.int32)
+    level0 = scale_centers(x, faces, 0)
+    torch.cuda.synchronize()
+    c_err = float((level0 - centers).abs().max())
+    if c_err > CENTROID_ATOL:
+        raise AssertionError(f"the scale kernel's centroids differ from the plain gather-mean "
+                             f"by {c_err}")
+    print(f"  scale kernel, phase A alone: level-0 centroids vs the plain gather-mean "
+          f"{c_err:.3e} (atol {CENTROID_ATOL})")
+    for shift in (2, 4):
+        out = scale_centers(x, faces, shift)
+        ref = k4.tree_pool_ignore_zeros_plain(level0, shift)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, ref) and torch.equal(torch.signbit(out), torch.signbit(ref))):
+            raise AssertionError(f"the scale kernel's pool differs from the plain K4 at shift "
+                                 f"{shift}: {float((out - ref).abs().max())}")
+        print(f"  scale kernel, phase A alone: level {shift // 2} ({out.shape[0]} nodes, "
+              f"{shift} rounds) vs plain K4 of its level 0: bit for bit")
     return worst, per_patch, ("bytes" if kinds == {"bytes"} else "operations")
 
 
@@ -1035,7 +1208,10 @@ def main() -> int:
         train_launches, trained = training_phase(dev, workdir)
         k3_launches, k3_inputs = rotinv_training_phase(dev, trained)
         err3, totals3, bound_by3 = aggregate_kernel_phase(dev, k3_inputs)
-        pool_launches, vertex_records = vertex_serving_phase(dev, workdir)
+        vertex_launches, vertex_records, vertex_cfg, vertex_params = vertex_serving_phase(
+            dev, workdir)
+        err5, totals5, bound_by5 = solver_kernel_phase(dev, vertex_records, vertex_cfg,
+                                                       vertex_params)
         err4, totals4, bound_by4 = pool_kernel_phase(
             dev, vertex_records, default_config().eval.ms_solver_iterations)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
@@ -1087,15 +1263,30 @@ def main() -> int:
         "route": "cuda",
         "source": "facet_graph_convolution_torch/csrc/tree_pool_iz.cu",
         "replaces": "facet_graph_convolution_tpu/ops/pallas_kernels.py:91",
-        "launches": pool_launches,
+        # the naive solver runs the scale kernel below, not this one: 0
+        "launches": vertex_launches["K4"],
         "max_abs_err": err4,
-        # per served patch of the largest size under the naive solver: its
-        # 180 launches at the two solver shapes
+        # per served patch of the largest size as the naive solver ran K4
+        # before the scale kernel: 180 launches at the two solver shapes
         "ms": totals4["ms"],
         "plain_ms": totals4["plain_ms"],
         "bound_ms": totals4["bound_ms"],
         "bound_by": bound_by4,
         # no single PyTorch call computes a zero-ignoring pairwise mean
+        "library_ms": None,
+    }, {
+        "name": "ms_solver_naive",
+        "route": "cuda",
+        "source": "facet_graph_convolution_torch/csrc/ms_solver_naive.cu",
+        "replaces": "facet_graph_convolution_tpu/ops/pallas_kernels.py:91",
+        "launches": vertex_launches["solver"],
+        "max_abs_err": err5,
+        # per served patch of the largest size: its 3 launches, one a scale
+        "ms": totals5["ms"],
+        "plain_ms": totals5["plain_ms"],
+        "bound_ms": totals5["bound_ms"],
+        "bound_by": bound_by5,
+        # no single PyTorch call runs the solver's loop
         "library_ms": None,
     }]}))
     print(card)

@@ -19,7 +19,8 @@ from typing import Dict, Iterable, List
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-KERNELS = ("facet_conv_fwd", "facet_conv_bwd", "tree_pool_iz", "weighted_aggregate")
+KERNELS = ("facet_conv_fwd", "facet_conv_bwd", "tree_pool_iz", "weighted_aggregate",
+           "ms_solver_naive")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

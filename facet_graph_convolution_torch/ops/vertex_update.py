@@ -5,9 +5,9 @@
   the edge map (reference ``update_position2``, train.py:1467-1557);
 - :func:`update_positions_multiscale`: the coarse→fine projection solver
   over the per-vertex face lists and the coarsening pyramid, face centres
-  recomputed from the moving vertices every iteration, their coarse levels
-  pooled by K4 on the card (reference ``update_position_MS`` and
-  ``updateFacesCenter``, train.py:1668-1798);
+  recomputed from the moving vertices every iteration, each scale one launch
+  of the solver kernel on the card (``ops/ms_solver_kernel.py``; reference
+  ``update_position_MS`` and ``updateFacesCenter``, train.py:1668-1798);
 - :func:`update_positions_multiscale_operator`: the same solver as a linear
   operator over the static tables of :func:`build_solver_tables`.
 """
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from facet_graph_convolution_torch.graph.convert import dedupe_klist, lane_tables
+from facet_graph_convolution_torch.ops import ms_solver_kernel
 from facet_graph_convolution_torch.ops.gather import gather_neighbors_lane
 from facet_graph_convolution_torch.ops.normalization import dot_last
 from facet_graph_convolution_torch.ops.pooling import tree_pool
@@ -151,29 +152,25 @@ def update_positions_multiscale(
     ``face_normals_list`` holds the per-level normals, fine first; the
     scales run coarsest first, ``iter_nums[s]`` iterations each. A vertex's
     fine faces ``v_faces`` [V, K] (−1 padded) map to level-s nodes by floor
-    division by (2^steps)^s, so a −1 pad stays −1 and reads a prepended zero
-    normal. Each iteration recomputes the face centres of the current level
-    only (``cur_scale + 1`` pyramid levels: the finer pools would go unread)
+    division by (2^steps)^s, so a −1 pad stays −1 and contributes nothing.
+    Each iteration recomputes the face centres of the current level only
     and moves each vertex by ``1/|v_faces|`` × Σ_k n_k (⟨n_k, c_k⟩ − ⟨n_k,
-    x⟩). Returns the final x and the per-scale displacements, coarse first.
+    x⟩). Each scale is one call of
+    :func:`~facet_graph_convolution_torch.ops.ms_solver_kernel.naive_scale`:
+    one kernel launch on the card, the plain loop on the CPU. Returns the
+    final x and the per-scale displacements, coarse first.
     """
     levels = len(face_normals_list)
-    lmbd = _solver_step_sizes(v_faces, x.dtype)[:, None]
-    v_faces = v_faces.long()
+    faces = faces.to(torch.int32).contiguous()
+    v_faces = v_faces.to(torch.int32).contiguous()
+    x = x.contiguous()
     dx_list: List[torch.Tensor] = []
     for s in range(levels):
         cur_scale = levels - 1 - s
-        fn = face_normals_list[cur_scale].reshape(-1, 3)
-        fn_pad = torch.cat([fn.new_zeros(1, 3), fn], dim=0)
-        vf = torch.div(v_faces, (2 ** coarsening_steps) ** cur_scale,
-                       rounding_mode="floor") + 1
-        v_fn = fn_pad[vf]                                          # [V, K, 3]
+        fn = face_normals_list[cur_scale].reshape(-1, 3).contiguous()
         x_init = x
-        for _ in range(int(iter_nums[s])):
-            fpos = face_centers_pyramid(x, faces, coarsening_steps, cur_scale + 1)[cur_scale]
-            t_pad = torch.cat([fn.new_zeros(1), torch.sum(fn * fpos, dim=-1)])
-            n_w = t_pad[vf] - dot_last(v_fn, x[:, None, :])       # [V, K]
-            x = x + lmbd * torch.sum(n_w[..., None] * v_fn, dim=1)
+        x = ms_solver_kernel.naive_scale(x, faces, v_faces, fn, cur_scale, coarsening_steps,
+                                         int(iter_nums[s]))
         dx_list.append(x - x_init)
     return x, dx_list
 

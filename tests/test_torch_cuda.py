@@ -28,10 +28,12 @@ from facet_graph_convolution_torch.graph.convert import (
     slot_major_arrays,
     split_self_klist,
 )
+from facet_graph_convolution_torch.geometry.mesh_math import vertex_faces
 from facet_graph_convolution_torch.inference.driver import infer_normals, infer_with_vertices
 from facet_graph_convolution_torch.models.unet import init_unet
 from facet_graph_convolution_torch.ops import aggregate as k3
 from facet_graph_convolution_torch.ops import facet_conv as k1
+from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
 from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
 
 pytestmark = pytest.mark.cuda
@@ -495,6 +497,132 @@ def test_tree_pool_kernel_raises_under_grad(cuda):
         assert k4.tree_pool_ignore_zeros(x, 2).shape == (4, 3)
 
 
+def _solver_patch():
+    """A served patch of a noisy subdivision-3 icosphere (fake faces, −1
+    pads) with random unit normals at each level, from a seed."""
+    v, f = icosphere(3)
+    mesh = InferenceMesh(max_patch_size=700, coarsening_steps=2, coarsening_levels=3,
+                         k_faces=23, seed=0)
+    mesh.add_mesh_with_vertices(add_vertex_noise(v, f, 0.2, np.random.default_rng(0)), f)
+    p = max(mesh.patches, key=lambda q: q.num_nodes)
+    return p.vertices, p.faces.astype(np.int32), p.v_faces
+
+
+def _unit_normals(rng, n):
+    fn = rng.normal(size=(n, 3)).astype(np.float32)
+    return fn / np.linalg.norm(fn, axis=1, keepdims=True)
+
+
+def _synthetic_solver_case(rng, num_vertices, num_faces):
+    """Random faces over the vertices with fake faces (whole groups of 16 and
+    single ones), a vertex without faces (λ = 0) and vertex 0 in more than
+    K = 25 faces (a full row)."""
+    # ids 1 .. V - 2: the last vertex has no faces
+    faces = rng.integers(1, num_vertices - 1, size=(num_faces, 3)).astype(np.int32)
+    faces[100:140, 0] = 0
+    fake = rng.random(num_faces) < 0.1
+    fake[32:64] = True
+    fake[100:140] = False
+    faces[fake] = -1
+    v_f = vertex_faces(faces, 25, num_vertices)
+    assert (v_f[0] >= 0).all() and (v_f[-1] < 0).all()
+    x = rng.normal(size=(num_vertices, 3)).astype(np.float32)
+    return x, faces, v_f
+
+
+def _solver_check(cuda, rng, x, faces, v_f, scale, steps, iters):
+    """The kernel against the plain scale on the card; returns the kernel's x."""
+    args = [torch.as_tensor(a, device=cuda) for a in (x, faces, v_f)]
+    fn = torch.as_tensor(_unit_normals(rng, faces.shape[0] >> (steps * scale)), device=cuda)
+    before = ms.naive_scale.launches
+    with torch.no_grad():
+        out = ms.naive_scale(args[0], args[1], args[2], fn, scale, steps, iters)
+        assert ms.naive_scale.launches == before + 1
+        ref = ms.naive_scale_plain(args[0], args[1], args[2], fn, scale, steps, iters)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    return out
+
+
+@pytest.mark.parametrize("iters", [1, 80])
+@pytest.mark.parametrize("scale", [0, 1, 2])
+def test_solver_kernel_matches_plain(cuda, rng, scale, iters):
+    x, faces, v_f = _solver_patch()
+    out = _solver_check(cuda, rng, x, faces, v_f, scale, 2, iters)
+    assert float((out.cpu() - torch.as_tensor(x)).abs().max()) > 1e-4      # it moved
+
+
+@pytest.mark.parametrize("scale", [0, 1, 2])
+def test_solver_kernel_on_fake_faces_empty_and_full_rows(cuda, rng, scale):
+    x, faces, v_f = _synthetic_solver_case(rng, 300, 16 * 64)
+    out = _solver_check(cuda, rng, x, faces, v_f, scale, 2, 20)
+    assert torch.equal(out[-1].cpu(), torch.as_tensor(x[-1]))             # λ = 0: unmoved
+
+
+@pytest.mark.parametrize("steps,scale", [(3, 2), (4, 2)])
+def test_solver_kernel_pools_more_leaves_than_a_warp(cuda, rng, steps, scale):
+    """2^shift > 32 leaves a node: each lane pools its own leaves first."""
+    x, faces, v_f = _synthetic_solver_case(rng, 300, 256 * 8)
+    _solver_check(cuda, rng, x, faces, v_f, scale, steps, 5)
+
+
+def test_solver_kernel_is_deterministic(cuda, rng):
+    x, faces, v_f = _solver_patch()
+    args = [torch.as_tensor(a, device=cuda) for a in (x, faces, v_f)]
+    fn = torch.as_tensor(_unit_normals(rng, faces.shape[0] >> 4), device=cuda)
+    first = ms.naive_scale(*args, fn, 2, 2, 80)
+    assert torch.equal(ms.naive_scale(*args, fn, 2, 2, 80), first)
+
+
+@pytest.mark.parametrize("shift", [2, 4, 6, 7])
+def test_solver_phase_a_pools_bit_for_bit(cuda, rng, shift):
+    """The kernel's level-s centres equal the plain K4 of its own level-0
+    centroids, bit for bit; the centroids match the plain gather-mean."""
+    x, faces, _ = _synthetic_solver_case(rng, 300, 256 * 8)
+    xt, ft = torch.as_tensor(x, device=cuda), torch.as_tensor(faces, device=cuda)
+    level0 = ms.scale_centers(xt, ft, 0)
+    v_pad = torch.cat([xt.new_zeros(1, 3), xt])
+    torch.testing.assert_close(level0, v_pad[ft.long() + 1].mean(dim=1), atol=1e-6, rtol=0)
+    out = ms.scale_centers(xt, ft, shift)
+    ref = k4.tree_pool_ignore_zeros_plain(level0, shift)
+    assert out.shape == ref.shape == (faces.shape[0] >> shift, 3)
+    assert torch.equal(out, ref) and torch.equal(torch.signbit(out), torch.signbit(ref))
+
+
+def test_solver_kernel_raises_under_grad(cuda, rng):
+    x, faces, v_f = _solver_patch()
+    xt = torch.as_tensor(x, device=cuda).requires_grad_()
+    ft, vt = torch.as_tensor(faces, device=cuda), torch.as_tensor(v_f, device=cuda)
+    fn = torch.as_tensor(_unit_normals(rng, faces.shape[0]), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ms.naive_scale(xt, ft, vt, fn, 0, 2, 3)
+    with torch.no_grad():
+        assert ms.naive_scale(xt, ft, vt, fn, 0, 2, 3).shape == xt.shape
+
+
+def test_solver_kernel_refuses_what_it_does_not_take(cuda, rng):
+    x, faces, v_f = _solver_patch()
+    xt, ft = torch.as_tensor(x, device=cuda), torch.as_tensor(faces, device=cuda)
+    vt = torch.as_tensor(v_f, device=cuda)
+    fn = torch.as_tensor(_unit_normals(rng, faces.shape[0]), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ms.naive_scale(xt.T.contiguous().T, ft, vt, fn, 0, 2, 3)
+    with pytest.raises(RuntimeError, match="cooperative launch"):
+        ms.naive_scale(xt, ft, vt, fn, 0, 2, 3, grid=ms.max_grid(xt.device) + 1)
+    # the refusal leaves no error behind for the next launch to report
+    assert ms.naive_scale(xt, ft, vt, fn, 0, 2, 3).shape == xt.shape
+
+
+def test_solver_kernel_grid_strides_over_a_million_faces(cuda, rng):
+    """~1M faces and 2^19 vertices: more work than one wave of the grid's
+    threads, so every grid-stride loop takes several passes."""
+    x, faces, v_f = _synthetic_solver_case(rng, 1 << 19, 1 << 20)
+    for scale in (0, 2):
+        nodes = faces.shape[0] >> (2 * scale)
+        grid = ms.default_grid(torch.device(cuda), x.shape[0], nodes, 2 * scale)
+        assert grid * 1024 < 8 * x.shape[0]      # 1024-thread blocks, 8 lanes a vertex
+        _solver_check(cuda, rng, x, faces, v_f, scale, 2, 3)
+
+
 @pytest.mark.parametrize("solver", ["operator", "naive"])
 def test_vertex_request_on_card_matches_cpu(cuda, solver):
     v, f = icosphere(3)
@@ -504,12 +632,15 @@ def test_vertex_request_on_card_matches_cpu(cuda, solver):
     cfg = default_config().replace(eval={"vertex_solver": solver})
     params = init_unet(0, device="cpu", multi_scale=True, **SMALL)
     on_card = {layer: {k: t.to(cuda) for k, t in p.items()} for layer, p in params.items()}
-    before = (k1.facet_conv_fwd.launches, k4.tree_pool_ignore_zeros.launches)
+    before = (k1.facet_conv_fwd.launches, k4.tree_pool_ignore_zeros.launches,
+              ms.naive_scale.launches)
     out = infer_with_vertices(mesh, cfg, params=on_card)
     patches = len(mesh.patches)
     assert k1.facet_conv_fwd.launches == before[0] + 8 * patches
-    pools = 180 * patches if solver == "naive" else 0
-    assert k4.tree_pool_ignore_zeros.launches == before[1] + pools
+    # the naive solver: one solver-kernel launch a scale, no standalone K4
+    assert k4.tree_pool_ignore_zeros.launches == before[1]
+    scales = 3 * patches if solver == "naive" else 0
+    assert ms.naive_scale.launches == before[2] + scales
     ref = infer_with_vertices(mesh, cfg, params=params, device="cpu")
     for key, value in ref.items():
         np.testing.assert_allclose(out[key], value, atol=1e-4, err_msg=key)
