@@ -54,13 +54,25 @@ Phases, each fatal on failure:
    scale kernel against the plain solve (atol 1e-5) and against itself (the
    same bits), and the operator points against the naive points on the same
    patches;
-9. solver kernel: the scale kernel against its plain version at the three
+9. vertex training: noisy/GT pairs of the same 3 shapes →
+   ``preprocess_directory(with_vertices=True)`` → ``train_with_vertices``
+   at full width for 30 steps under the operator solver (the default:
+   schedule (80, 20, 20), 500 chamfer samples, Adam at 1e-3); checks finite
+   losses with the last below 5× the first, that K1 and K2 each ran 8 times
+   a step and K3, the standalone K4 and the scale kernel never, the
+   checkpoints, that one step's gradients on the largest vertex patch
+   through K1/K2 match the plain conv's, that ``step.eval`` gives the loss
+   the step reports for the same draws, and that training under the naive
+   solver is refused on the card (the scale kernel has no backward); prints
+   the preprocessing seconds, the step's median time over 20 steps, one
+   profiled step, and the solver's share of its device time;
+10. solver kernel: the scale kernel against its plain version at the three
    launches of the largest served patch's solve (the inputs the path gave
    it), with its times per scale and per patch at the default grid and at
    one block an SM, the plain loop's times (pure PyTorch, and with the
    standalone K4 as before the redesign), the cost of one grid barrier, and
    its bound;
-10. pool kernel: K4 against its plain version, bit for bit, at the solver's
+11. pool kernel: K4 against its plain version, bit for bit, at the solver's
    two pools of the largest served patch, at C = 3 and N = 1,048,576, on
    rows of zeros, groups of zeros and -0.0 rows, and at steps 1, 2 and 3;
    prints its times and bound; the scale kernel's phase A alone at the
@@ -98,6 +110,16 @@ SEVEN_FILES = ("_denoised.obj", "_d_mid.obj", "_d_coarse.obj", "_fine_normals_s.
 # gradient scaled to max 1: float32 sums in another order through 8 convs
 GRAD_ATOL = 1e-4
 TRAIN_STEPS = 50
+VERTEX_TRAIN_STEPS = 30
+# one vertex step through K1/K2 against the plain conv, each gradient scaled
+# to max 1, and against the plain step in float64: float32 alone moves the
+# gradients by ~5e-4 through the solver's 120 iterations (measured on an
+# H100 at the largest vertex patch: plain float32 against float64 4.8e-4,
+# K1/K2 against float64 7.6e-4, K1/K2 against plain float32 7.8e-4), so
+# GRAD_ATOL's 1e-4 is below float32's own noise here
+VERTEX_GRAD_ATOL = 2e-3
+# the chamfer loss (~10², ×1000 of the patch frame), relative
+VERTEX_LOSS_RTOL = 1e-5
 # (C, M) wider than the model's convs (C <= 128, M = 9), checked untimed at
 # level 1 of the served patch; past M = 32 K2 takes its general pass A
 WIDE = ((256, 9), (64, 32), (6, 33), (64, 64), (128, 100))
@@ -472,7 +494,8 @@ def serving_phase(dev, workdir):
 
 def device_profile(fn, label):
     """Device time by kernel (torch.profiler) of one call of ``fn``, and the
-    device's busy share of its unprofiled wall time."""
+    device's busy share of its unprofiled wall time; returns (wall ms, busy
+    ms, device activities)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -494,6 +517,19 @@ def device_profile(fn, label):
           f"{len(device_events(prof))} device activities")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {ms:9.4f} ms  {name[:100]}")
+    return bare_ms, busy_ms, len(device_events(prof))
+
+
+def device_busy(fn):
+    """(device busy ms, device activities) of one profiled call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    return sum(us for _, us in events) / 1e3, len(events)
 
 
 def count_edges(patch) -> int:
@@ -969,6 +1005,216 @@ def largest_patch(records):
     return max((p for r in records for p in r["mesh"].patches), key=lambda p: p.num_nodes)
 
 
+def vertex_gradient_check(state, cfg, tensors, rot, idx0, idx1):
+    """One vertex step's parameter gradients through K1/K2 against the same
+    step through the plain conv (same draws), each gradient scaled to max 1;
+    fails beyond VERTEX_GRAD_ATOL, or on a loss beyond VERTEX_LOSS_RTOL. Both
+    are also held against the plain step in float64, which shows how far
+    float32 alone moves the gradients through the solver's 120 iterations."""
+    import torch
+
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.training.trainer import vertex_loss
+
+    names = [(layer, k) for layer in sorted(state.params) for k in sorted(state.params[layer])]
+
+    def grads(params, t, draws):
+        loss = vertex_loss(params, cfg, t, *draws)
+        g = torch.autograd.grad(loss, [params[a][b] for a, b in names])
+        return float(loss.detach()), [x.double() for x in g]
+
+    draws = (rot, idx0, idx1)
+    kernel = grads(state.params, tensors, draws)
+    kernels = (k1.facet_conv_fwd, k1.facet_conv_bwd)
+    try:
+        k1.facet_conv_fwd, k1.facet_conv_bwd = k1.facet_conv_fwd_plain, k1.facet_conv_bwd_plain
+        plain = grads(state.params, tensors, draws)
+        p64 = {a: {b: t.detach().double().requires_grad_() for b, t in leaves.items()}
+               for a, leaves in state.params.items()}
+        t64 = tensors._replace(**{f: getattr(tensors, f).double() for f in (
+            "x", "vertices", "gt_vertices", "gt_normals")})
+        exact = grads(p64, t64, (rot.double(), idx0, idx1))
+    finally:
+        k1.facet_conv_fwd, k1.facet_conv_bwd = kernels
+
+    def worst(a, b):
+        errs = [(float((x - y).abs().max()) / (float(y.abs().max()) or 1.0), f"{n[0]}.{n[1]}")
+                for x, y, n in zip(a[1], b[1], names)]
+        return max(errs)
+
+    for g in kernel[1]:
+        if not torch.isfinite(g).all():
+            raise AssertionError("non-finite gradient through the kernels")
+    err, leaf = worst(kernel, plain)
+    err64, leaf64 = worst(kernel, exact)
+    print(f"  one vertex step through K1/K2 vs through the plain conv: loss {kernel[0]:.6f} vs "
+          f"{plain[0]:.6f}, gradient max abs err {err:.3e} scaled to max 1 ({leaf}; atol "
+          f"{VERTEX_GRAD_ATOL}); against the plain step in float64 (loss {exact[0]:.6f}): "
+          f"through K1/K2 {err64:.3e} ({leaf64}), plain float32 %.3e (%s)" % worst(plain, exact))
+    if (max(err, err64) > VERTEX_GRAD_ATOL
+            or abs(kernel[0] - plain[0]) > VERTEX_LOSS_RTOL * abs(plain[0])):
+        raise AssertionError(f"the vertex step through K1/K2 differs from the plain step: "
+                             f"gradient {err} ({leaf}), from float64 {err64} ({leaf64}), loss "
+                             f"{kernel[0]} vs {plain[0]}")
+
+
+def vertex_training_phase(dev, workdir):
+    """Vertex training at full width: the 3 shapes' noisy/GT pairs →
+    ``preprocess_directory(with_vertices=True)`` → ``train_with_vertices``
+    under the operator solver; then its checks and times on the largest
+    vertex patch."""
+    import torch
+
+    from facet_graph_convolution_torch.config import default_config
+    from facet_graph_convolution_torch.data.dataset import load_dataset
+    from facet_graph_convolution_torch.data.preprocess import preprocess_directory
+    from facet_graph_convolution_torch.data.synthetic import add_vertex_noise
+    from facet_graph_convolution_torch.geometry.obj_io import write_obj
+    from facet_graph_convolution_torch.models.unet import unet_apply
+    from facet_graph_convolution_torch.ops import aggregate as k3
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
+    from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
+    from facet_graph_convolution_torch.ops.normalization import normalize_tensor
+    from facet_graph_convolution_torch.ops.vertex_update import (
+        update_positions_multiscale_operator,
+    )
+    from facet_graph_convolution_torch.training.trainer import (
+        create_train_state,
+        make_vertex_train_step,
+        train_with_vertices,
+        vertex_loss,
+        vertex_patch_tensors,
+    )
+
+    t_phase = time.perf_counter()
+    base = os.path.join(workdir, "vertex_train_run")
+    # full width, schedule (80, 20, 20), 500 chamfer samples, the operator
+    # solver, Adam at 1e-3: the config's defaults
+    cfg = default_config(base).replace(train={
+        "network_path": os.path.join(base, "Networks") + "/", "net_name": "smoke_vertex",
+        "save_every": VERTEX_TRAIN_STEPS // 2, "seed": 0})
+    os.makedirs(cfg.data.training_data_path)
+    os.makedirs(cfg.data.gt_data_path)
+    rng = np.random.default_rng(6)
+    for name, (v, f) in request_shapes().items():
+        write_obj(add_vertex_noise(v, f, 0.2, rng), f,
+                  os.path.join(cfg.data.training_data_path, name + "_n1.obj"))
+        write_obj(v, f, os.path.join(cfg.data.gt_data_path, name + ".obj"))
+    t0 = time.perf_counter()
+    preprocess_directory(cfg, with_vertices=True)
+    pre_s = time.perf_counter() - t0
+    train_set = load_dataset(os.path.join(cfg.data.binary_dump_path,
+                                          "trainingSetWithVertices.npz"))
+    print(f"vertex training phase: preprocessed {len(train_set.patches)} patches with vertices "
+          f"in {pre_s:.2f} s")
+
+    counters = {"K1": k1.facet_conv_fwd, "K2": k1.facet_conv_bwd, "K3": k3.weighted_aggregate,
+                "K4": k4.tree_pool_ignore_zeros, "solver": ms.naive_scale}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, hist = train_with_vertices(cfg, train_set, num_iterations=VERTEX_TRAIN_STEPS,
+                                      device=str(dev))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    losses = hist[:, 0]
+    if len(losses) != VERTEX_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"vertex training: bad loss history {losses}")
+    if not losses[-1] < 5 * losses[0]:
+        raise AssertionError(f"vertex training: loss {losses[0]} → {losses[-1]} (want the last "
+                             "below 5× the first)")
+    want = {"K1": 8 * VERTEX_TRAIN_STEPS, "K2": 8 * VERTEX_TRAIN_STEPS, "K3": 0, "K4": 0,
+            "solver": 0}
+    if launches != want or state.step != VERTEX_TRAIN_STEPS:
+        raise AssertionError(f"vertex training: launches {launches}, want {want}; "
+                             f"{state.step} updates in {VERTEX_TRAIN_STEPS} steps")
+    net_dir = os.path.join(cfg.train.network_path, cfg.train.net_name)
+    saved = sorted(os.listdir(net_dir))
+    for want_file in (f"step_{VERTEX_TRAIN_STEPS // 2}.pt", f"step_{VERTEX_TRAIN_STEPS}.pt",
+                      "params.pt"):
+        if want_file not in saved:
+            raise AssertionError(f"vertex training: checkpoint {want_file} missing: {saved}")
+    print(f"  {VERTEX_TRAIN_STEPS} steps over {len(train_set.patches)} patches in "
+          f"{train_s:.2f} s (tables, checkpoints and warm-up included): loss {losses[0]:.3f} → "
+          f"{losses[-1]:.3f}, min {losses.min():.3f}; launches {launches}; saved {saved}")
+
+    # the largest vertex patch: one step through K1/K2 against the plain
+    # conv, step.eval against the step, then its times
+    largest = max(train_set.patches, key=lambda p: p.num_nodes)
+    tensors = vertex_patch_tensors(cfg, largest, str(dev))
+    samples = cfg.train.chamfer_samples
+    draw_rng = np.random.default_rng(8)
+    rot = torch.as_tensor(np.linalg.qr(draw_rng.normal(size=(3, 3)))[0].astype(np.float32),
+                          device=dev)
+    idx0 = torch.as_tensor(draw_rng.integers(0, largest.vertices.shape[0], samples), device=dev)
+    idx1 = torch.as_tensor(draw_rng.integers(0, largest.gt_vertices.shape[0], samples),
+                           device=dev)
+    print(f"  largest vertex patch: {largest.num_nodes} faces, {largest.vertices.shape[0]} "
+          f"vertices, {largest.gt_vertices.shape[0]} GT vertices")
+    vertex_gradient_check(state, cfg, tensors, rot, idx0, idx1)
+
+    bench = create_train_state(cfg, num_steps=100, device=str(dev), params=state.params,
+                               multi_scale=True)
+    step = make_vertex_train_step(cfg)
+    eval_loss = float(step.eval(bench.params, tensors, rot, idx0, idx1))
+    bench, step_loss = step(bench, tensors, rot, idx0, idx1)
+    step_loss = float(step_loss)
+    if abs(eval_loss - step_loss) > VERTEX_LOSS_RTOL * abs(step_loss):
+        raise AssertionError(f"step.eval's loss {eval_loss} differs from the step's {step_loss}")
+    print(f"  step.eval vs the step, same draws: {eval_loss:.6f} vs {step_loss:.6f} "
+          f"({'the same bits' if eval_loss == step_loss else 'rtol %g' % VERTEX_LOSS_RTOL})")
+
+    times = []
+    for _ in range(25):
+        t0 = time.perf_counter()
+        bench, loss = step(bench, tensors)
+        float(loss)                     # waits for the step, as train_with_vertices does
+        times.append(time.perf_counter() - t0)
+    times = sorted(times[5:])
+    print(f"  vertex train step, {largest.num_nodes}-face patch: median "
+          f"{1e3 * times[len(times) // 2]:.3f} ms over {len(times)} steps "
+          f"(min {1e3 * times[0]:.3f}, max {1e3 * times[-1]:.3f})")
+    _, step_busy, _ = device_profile(lambda: float(step(bench, tensors)[1]),
+                                     f"one vertex train step of the {largest.num_nodes}-face "
+                                     "patch")
+
+    # the solver's share of that step's device time: its forward and its
+    # backward alone, from the step's normalized heads
+    with torch.no_grad():
+        heads = [normalize_tensor(h) for h in unet_apply(
+            bench.params, tensors.x, tensors.adjs, tensors.rows,
+            coarsening_steps=cfg.model.coarsening_steps, multi_scale=True)]
+    leaves = [h.clone().requires_grad_() for h in heads]
+    cotangent = torch.randn_like(tensors.vertices)
+    solved = []
+
+    def solver_forward():
+        solved.append(update_positions_multiscale_operator(
+            tensors.vertices, leaves, tensors.faces, tensors.v_faces, tensors.tables,
+            coarsening_steps=cfg.model.coarsening_steps,
+            iter_nums=cfg.eval.ms_solver_iterations)[0])
+
+    fwd_ms, fwd_n = device_busy(solver_forward)
+    bwd_ms, bwd_n = device_busy(lambda: solved[-1].backward(cotangent))
+    print(f"  the operator solver in that step: forward {fwd_ms:.3f} ms busy ({fwd_n} device "
+          f"activities), backward {bwd_ms:.3f} ms ({bwd_n}); together "
+          f"{100 * (fwd_ms + bwd_ms) / step_busy:.1f}% of the step's device time")
+
+    naive = cfg.replace(eval={"vertex_solver": "naive"}, train={"net_name": "smoke_naive"})
+    try:
+        train_with_vertices(naive, train_set, num_iterations=1, device=str(dev))
+    except NotImplementedError as err:
+        if "no backward" not in str(err):
+            raise
+        print(f"  vertex_solver='naive' refused on the card: {err}")
+    else:
+        raise AssertionError("train_with_vertices trained under the naive solver on the card")
+    print(f"  vertex training phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def solver_bound_ms(calls):
     """Least time for the scale kernel's work on this card, summed over a
     solve's launches: each input read once and x written once at the HBM
@@ -1210,6 +1456,7 @@ def main() -> int:
         err3, totals3, bound_by3 = aggregate_kernel_phase(dev, k3_inputs)
         vertex_launches, vertex_records, vertex_cfg, vertex_params = vertex_serving_phase(
             dev, workdir)
+        vertex_training_phase(dev, workdir)
         err5, totals5, bound_by5 = solver_kernel_phase(dev, vertex_records, vertex_cfg,
                                                        vertex_params)
         err4, totals4, bound_by4 = pool_kernel_phase(

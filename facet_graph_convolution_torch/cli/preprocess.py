@@ -3,8 +3,11 @@
     python -m facet_graph_convolution_torch.cli.preprocess --base_path <dir>
 
 Reads ``<base_path>/Data/Synthetic/train/{noisy,original,valid}/`` and writes
-``<base_path>/Preprocessed_Data/{trainingSet,validSet}.npz``. Host work only
-(NumPy, one process per mesh); the device is not used.
+``<base_path>/Preprocessed_Data/{trainingSet,validSet}.npz``; with
+``--include_vertices``, ``{trainingSet,validSet}WithVertices.npz``, whose
+patches carry the vertex pipeline's fields (for ``cli.train
+--include_vertices``). Host work only (NumPy, one process per mesh); the
+device is not used.
 """
 
 import argparse

@@ -7,7 +7,11 @@
 Trains the normals network on ``<base_path>/Preprocessed_Data/
 trainingSet.npz`` (and ``validSet.npz`` when present; ``cli.preprocess``
 writes both) and checkpoints into ``<network_path>/<net_name>/``, whose
-``params.pt`` ``cli.infer`` serves. ``--device`` defaults to ``cuda``;
+``params.pt`` ``cli.infer`` serves. With ``--include_vertices`` it trains
+the multi-scale network through the vertex solver on
+``trainingSetWithVertices.npz`` (and ``validSetWithVertices.npz``;
+``cli.preprocess --include_vertices`` writes both), whose ``params.pt``
+``cli.infer --include_vertices`` serves. ``--device`` defaults to ``cuda``;
 without a card, pass ``--device cpu``.
 """
 
@@ -20,7 +24,7 @@ from facet_graph_convolution_torch.config import (
     parse_device,
 )
 from facet_graph_convolution_torch.data.dataset import load_dataset
-from facet_graph_convolution_torch.training.trainer import train_normals
+from facet_graph_convolution_torch.training.trainer import train_normals, train_with_vertices
 
 
 def main(argv=None):
@@ -36,18 +40,15 @@ def main(argv=None):
     if args.stream_dir:
         raise NotImplementedError(
             "--stream_dir: streaming training (ROADMAP queue 1, item 9) is not ported yet")
-    if cfg.model.include_vertices:
-        raise NotImplementedError(
-            "--include_vertices: the vertex pipeline's training half (ROADMAP queue 1, "
-            "item 7) is not ported yet; only its serving half is")
     if args.steps_per_call > 1:
         raise NotImplementedError(
-            "--steps_per_call > 1: the CUDA-graph step (ROADMAP queue 1, item 4) is not "
-            "ported yet")
-    train_set = load_dataset(os.path.join(cfg.data.binary_dump_path, "trainingSet.npz"))
-    valid_path = os.path.join(cfg.data.binary_dump_path, "validSet.npz")
+            "--steps_per_call > 1: the CUDA-graph step (ROADMAP queue 1) is not ported yet")
+    suffix = "WithVertices" if cfg.model.include_vertices else ""
+    train_set = load_dataset(os.path.join(cfg.data.binary_dump_path, f"trainingSet{suffix}.npz"))
+    valid_path = os.path.join(cfg.data.binary_dump_path, f"validSet{suffix}.npz")
     valid_set = load_dataset(valid_path) if os.path.isfile(valid_path) else None
-    train_normals(cfg, train_set, valid_set, device=parse_device(args.device))
+    train = train_with_vertices if cfg.model.include_vertices else train_normals
+    train(cfg, train_set, valid_set, device=parse_device(args.device))
 
 
 if __name__ == "__main__":

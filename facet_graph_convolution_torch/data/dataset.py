@@ -341,10 +341,10 @@ class InferenceMesh(MeshDataset):
 # Serialization: the JAX package's .npz layout (data/dataset.py:334-414)
 # ---------------------------------------------------------------------------
 
-_OPTIONAL_FIELDS = ("gt_normals", "patch_indices", "perm_inv")
-# the vertex pipeline's patch fields, whose serialization comes with vertex
-# training
-_VERTEX_FIELDS = ("vertices", "gt_vertices", "faces", "v_faces", "v_old_idx", "f_old_idx")
+# a patch's optional fields, the vertex pipeline's among them, under the
+# JAX package's keys
+_OPTIONAL_FIELDS = ("gt_normals", "patch_indices", "perm_inv", "vertices", "gt_vertices",
+                    "faces", "v_faces", "v_old_idx", "f_old_idx")
 _MESH_FIELDS = ("edge_map", "v_e_map", "vertices", "faces", "normals")
 
 
@@ -382,8 +382,7 @@ def save_dataset(ds: MeshDataset, path: str) -> None:
 
 def load_dataset(path: str) -> MeshDataset:
     """Read a dataset written by :func:`save_dataset` or by the JAX
-    package's ``save_dataset``. Raises on a vertex-pipeline set (its patches
-    carry vertex fields that the port does not read yet)."""
+    package's ``save_dataset``, the vertex pipeline's sets included."""
     with np.load(path, allow_pickle=False) as data:
         meta = dict(zip([str(k) for k in data["meta_keys"]], data["meta"]))
         ds = MeshDataset(
@@ -398,10 +397,6 @@ def load_dataset(path: str) -> MeshDataset:
             if f"mesh_{name}" in data:
                 setattr(ds, name, data[f"mesh_{name}"])
         for i in range(int(meta["num_patches"])):
-            if any(f"p{i}_{f_name}" in data for f_name in _VERTEX_FIELDS):
-                raise NotImplementedError(
-                    f"{path}: a vertex-pipeline dataset; reading one comes with vertex "
-                    "training, which is not ported yet")
             adjs = []
             while f"p{i}_adj{len(adjs)}" in data:
                 adjs.append(data[f"p{i}_adj{len(adjs)}"])

@@ -9,7 +9,9 @@
   of the solver kernel on the card (``ops/ms_solver_kernel.py``; reference
   ``update_position_MS`` and ``updateFacesCenter``, train.py:1668-1798);
 - :func:`update_positions_multiscale_operator`: the same solver as a linear
-  operator over the static tables of :func:`build_solver_tables`.
+  operator over the static tables of :func:`build_solver_tables`, plain
+  tensor ops whose backward (vertex training) gathers through the tables'
+  transpose maps, with no scatter.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from facet_graph_convolution_torch.graph.convert import dedupe_klist, lane_tables
 from facet_graph_convolution_torch.ops import ms_solver_kernel
@@ -252,8 +255,7 @@ def build_solver_tables(
     [K_u, V])``; with ``faces``, also the face-centre operator's tables of
     :func:`_face_center_tables`, ``(fadjT, fadjT_t, fwT)``, which replace the
     per-iteration centre pyramid. The transpose maps (``adjT_t``,
-    ``fadjT_t``) serve a scatter-free backward and are not read by the
-    serving solver.
+    ``fadjT_t``) serve the operator solver's scatter-free backward.
     """
     v_faces = np.asarray(v_faces)
     group = 2 ** coarsening_steps
@@ -277,6 +279,7 @@ def update_positions_multiscale_operator(
     tables,
     coarsening_steps: int = 2,
     iter_nums: Sequence[int] = (80, 20, 20),
+    checkpoint: bool = False,
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """:func:`update_positions_multiscale` as a linear operator over the
     deduped tables of :func:`build_solver_tables` (equal up to float
@@ -289,7 +292,14 @@ def update_positions_multiscale_operator(
     lane gather and a weighted sum with the normals folded into the weights;
     without them (``faces`` is then read) the centre pyramid is rebuilt every
     iteration, as in the naive solver. Works node-minor ([3, V]); returns x
-    [V, 3] and the per-scale displacements, coarse first."""
+    [V, 3] and the per-scale displacements, coarse first.
+
+    Under autograd every gather takes its table's transpose map, so the
+    backward sums cotangents through the maps (no ``index_add``, no scatter;
+    the JAX package's operator solver is scatter-free both ways too).
+    ``checkpoint`` (``cfg.eval.solver_remat``) recomputes each iteration in
+    the backward instead of keeping its activations
+    (``torch.utils.checkpoint``); the gradients are the same."""
     levels = len(face_normals_list)
     lmbd = _solver_step_sizes(v_faces, x.dtype)[None, :]
     x_t = x.T.contiguous()                                         # [3, V]
@@ -297,25 +307,37 @@ def update_positions_multiscale_operator(
     for s in range(levels):
         cur_scale = levels - 1 - s
         tab = tables[cur_scale]
-        adjT, multT = tab[0], tab[2]
+        adjT, adjT_t, multT = tab[:3]
         fn = face_normals_list[cur_scale].reshape(-1, 3)
         fn_t = fn.T.contiguous()                                   # [3, F_s]
-        n_vu = gather_neighbors_lane(fn_t, adjT)                   # [3, K_u, V]
+        n_vu = gather_neighbors_lane(fn_t, adjT, adjT_t)           # [3, K_u, V]
         p_t = torch.einsum("akv,bkv,kv->abv", n_vu, n_vu, multT)  # [3, 3, V]
-        if len(tab) >= 6:
-            fadjT, fwT = tab[3], tab[5]
-            nw = fwT[None] * fn_t[:, None, :]                      # [3, K_s, F_s]
-        x_init_t = x_t
-        for _ in range(int(iter_nums[s])):
-            if len(tab) >= 6:
-                t = torch.sum(nw * gather_neighbors_lane(x_t, fadjT), dim=(0, 1))
+        # with face tables: (fadjT, fadjT_t, fwT), the normals folded into fwT
+        nw = tab[5][None] * fn_t[:, None, :] if len(tab) >= 6 else None   # [3, K_s, F_s]
+
+        # the scale's tables bound as defaults: a checkpointed iteration is
+        # recomputed in the backward, after this loop has moved on
+        def body(x_t, n_vu, p_t, nw, fn, cur_scale=cur_scale, tab=tab):
+            adjT, adjT_t, multT = tab[:3]
+            if nw is not None:
+                g = gather_neighbors_lane(x_t, tab[3], tab[4])     # [3, K_s, F_s]
+                t = torch.sum(nw * g, dim=(0, 1))
             else:
                 fpos = face_centers_pyramid(
                     x_t.T, faces, coarsening_steps, cur_scale + 1)[cur_scale]
                 t = torch.sum(fn * fpos, dim=-1)                   # [F_s]
-            t_vu = gather_neighbors_lane(t[None], adjT)[0]         # [K_u, V]
-            term1 = torch.sum((multT * t_vu)[None] * n_vu, dim=1)  # [3, V]
+            t_vu = gather_neighbors_lane(t[None], adjT, adjT_t)[0]     # [K_u, V]
+            term1 = torch.sum((multT * t_vu)[None] * n_vu, dim=1)     # [3, V]
             px = torch.einsum("abv,bv->av", p_t, x_t)
-            x_t = x_t + lmbd * (term1 - px)
+            return x_t + lmbd * (term1 - px)
+
+        remat = checkpoint and torch.is_grad_enabled()
+        x_init_t = x_t
+        for _ in range(int(iter_nums[s])):
+            if remat:
+                x_t = torch.utils.checkpoint.checkpoint(body, x_t, n_vu, p_t, nw, fn,
+                                                        use_reentrant=False)
+            else:
+                x_t = body(x_t, n_vu, p_t, nw, fn)
         dx_list.append((x_t - x_init_t).T)
     return x_t.T, dx_list

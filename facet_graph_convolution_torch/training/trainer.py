@@ -1,8 +1,9 @@
-"""Normals-supervised training (the port's counterpart of
+"""Training (the port's counterpart of
 ``facet_graph_convolution_tpu/training/trainer.py``: ``create_train_state``,
 ``make_normals_train_step``, ``make_normals_eval_step`` and
-``train_normals`` with one step per call; reference ``trainNet``,
-train.py:380-632).
+``train_normals`` with one step per call, reference ``trainNet``
+train.py:380-632; ``make_vertex_train_step`` and ``train_with_vertices``,
+reference ``trainAccuracyNet`` train.py:636-914).
 
 One train step: rotation augmentation, the U-Net forward over the kernel
 tables (K1 in every conv; under ``rotation_invariance`` K3 in conv1 and K1
@@ -13,9 +14,16 @@ host; their numbers differ from the JAX package's for the same seed, so the
 tests inject the JAX package's values. The patch sequence comes from
 ``np.random.default_rng(seed)`` and is the JAX package's.
 
+One vertex train step: one rotation of the inputs, the vertices and the GT
+vertices, the three-head U-Net (K1/K2 as above), ``normalize_tensor`` on
+each head, the multi-scale vertex solver (the operator form over per-patch
+tables, or the naive form), ``full_chamfer_loss`` on sampled points (plus
+``normals_weight`` × the angular loss of the fine head), the backward from
+the chamfer loss through the solver's iterations into the U-Net, Adam.
+
 Not ported yet (each raises): ``steps_per_call > 1`` (a CUDA graph around
-the step, ROADMAP queue 1, item 4), bf16 compute, the multi-scale heads,
-the vertex pipeline.
+the step, ROADMAP queue 1), bf16 compute, and vertex training under the
+naive solver on the card (the scale kernel has no backward yet).
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import math
 import os
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,13 +44,13 @@ from facet_graph_convolution_torch.data.dataset import (
     bucket_size,
     pad_patch_to,
 )
-from facet_graph_convolution_torch.inference.driver import resolve_device
+from facet_graph_convolution_torch.inference.driver import resolve_device, solver_tables
 from facet_graph_convolution_torch.models.augment import (
     random_rotation,
     rotate_inputs,
     rotate_vec3,
 )
-from facet_graph_convolution_torch.models.losses import face_normals_loss
+from facet_graph_convolution_torch.models.losses import face_normals_loss, full_chamfer_loss
 from facet_graph_convolution_torch.models.unet import (
     init_unet,
     train_graph_tensors,
@@ -50,6 +58,10 @@ from facet_graph_convolution_torch.models.unet import (
 )
 from facet_graph_convolution_torch.ops.conv import FacetConvVariant
 from facet_graph_convolution_torch.ops.normalization import normalize_tensor
+from facet_graph_convolution_torch.ops.vertex_update import (
+    update_positions_multiscale,
+    update_positions_multiscale_operator,
+)
 from facet_graph_convolution_torch.training.checkpoint import CheckpointManager
 
 ADAM_BETAS = (0.9, 0.999)   # optax.adam defaults
@@ -119,9 +131,8 @@ def create_train_state(
     """Parameters from ``init_unet(cfg.train.seed)`` (or ``params``, e.g.
     converted from the JAX package), Adam with optax's defaults, and the
     schedule of :func:`lr_schedule`. ``num_steps`` sizes the cosine
-    horizon."""
-    if multi_scale:
-        raise NotImplementedError("training: the multi-scale heads are not ported yet")
+    horizon; ``multi_scale`` adds the mid and coarse heads of vertex
+    training."""
     if cfg.model.compute_dtype != "float32":
         raise NotImplementedError(
             f"training: compute_dtype {cfg.model.compute_dtype!r} is not ported yet (float32)")
@@ -130,8 +141,9 @@ def create_train_state(
         params = init_unet(
             seed=cfg.train.seed, in_channels=in_channels, channels=tuple(cfg.model.channels),
             num_filters=cfg.model.num_filters, fc_channels=cfg.model.fc_channels,
-            out_channels=cfg.model.out_channels, std_dev=cfg.model.std_dev,
-            std_dev_bias=cfg.model.std_dev_bias, variant=variant, device=str(device))
+            out_channels=cfg.model.out_channels, multi_scale=multi_scale,
+            std_dev=cfg.model.std_dev, std_dev_bias=cfg.model.std_dev_bias, variant=variant,
+            device=str(device))
     params = {layer: {name: t.detach().to(device).clone().requires_grad_()
                       for name, t in leaves.items()} for layer, leaves in params.items()}
     schedule = lr_schedule(cfg, num_steps)
@@ -234,6 +246,13 @@ def make_normals_eval_step(cfg: Config, generator: Optional[torch.Generator] = N
     return eval_step
 
 
+def _refuse_steps_per_call(name: str, steps_per_call: int) -> None:
+    if steps_per_call != 1:
+        raise NotImplementedError(
+            f"{name}: steps_per_call > 1 (a CUDA graph around the step, ROADMAP queue 1) "
+            "is not ported yet")
+
+
 def train_normals(
     cfg: Config,
     train_set: MeshDataset,
@@ -253,10 +272,7 @@ def train_normals(
     Each patch's kernel tables are built once, before the loop. Runs on CUDA
     unless ``device="cpu"``. Returns ``(state, history [rows, 2])``, each
     row the smoothed train loss and the last validation loss."""
-    if steps_per_call != 1:
-        raise NotImplementedError(
-            "train_normals: steps_per_call > 1 (a CUDA graph around the step, ROADMAP "
-            "queue 1, item 4) is not ported yet")
+    _refuse_steps_per_call("train_normals", steps_per_call)
     dev = str(resolve_device(device))
     iters = num_iterations or cfg.train.num_iterations
     log_every = log_every or cfg.train.eval_every
@@ -308,6 +324,197 @@ def train_normals(
         # a non-finite loss leaves the parameters poisoned: never persist them
         print("NaN training loss — aborted, the final state is not saved")
     else:
+        ckpt.save(start_step + iters, state)
+    ckpt.close()
+    hist = np.asarray(loss_hist, dtype=np.float64)
+    os.makedirs(cfg.train.network_path, exist_ok=True)
+    with open(os.path.join(cfg.train.network_path, cfg.train.net_name + ".csv"), "ab") as fh:
+        np.savetxt(fh, hist, delimiter=",")
+    return state, hist
+
+
+# ---------------------------------------------------------------------------
+# Vertex training (reference trainAccuracyNet): the three-head forward, the
+# multi-scale vertex solver and the sampled chamfer loss against the GT
+# points, optionally plus the angular loss of the fine head
+# ---------------------------------------------------------------------------
+
+class VertexTensors(NamedTuple):
+    """A vertex patch's train-step inputs on one device."""
+
+    x: torch.Tensor                  # [N, 6] inputs
+    adjs: List[torch.Tensor]         # kernel tables of train_graph_tensors
+    adj_ts: List[torch.Tensor]
+    rows: List[torch.Tensor]
+    vertices: torch.Tensor           # [V, 3] noisy, the solver's start
+    gt_vertices: torch.Tensor        # [V_gt, 3]
+    faces: torch.Tensor              # [N, 3], −1 rows for fake faces
+    v_faces: torch.Tensor            # [V, k_vertices], −1 padded
+    gt_normals: Optional[torch.Tensor]
+    tables: Optional[tuple]          # the operator solver's, None for the naive one
+
+
+def vertex_patch_tensors(cfg: Config, patch: FacetPatch, device: str) -> VertexTensors:
+    """:class:`VertexTensors` of one vertex patch, built once before the
+    loop: the U-Net's kernel tables and, under ``vertex_solver="operator"``,
+    the solver's tables of ``build_solver_tables(..., faces=...)`` (the JAX
+    package's ``_solver_tables``)."""
+    if cfg.eval.vertex_solver not in ("operator", "naive"):
+        raise ValueError(f"unknown vertex_solver {cfg.eval.vertex_solver!r} "
+                         "(use 'operator' or 'naive')")
+    adjs, adj_ts, rows = train_graph_tensors(patch.adjs, device)
+
+    def tensor(a):
+        return None if a is None else torch.as_tensor(a, device=device)
+
+    return VertexTensors(
+        tensor(patch.inputs), adjs, adj_ts, rows, tensor(patch.vertices),
+        tensor(patch.gt_vertices), tensor(patch.faces), tensor(patch.v_faces),
+        tensor(patch.gt_normals),
+        solver_tables(cfg, patch, device) if cfg.eval.vertex_solver == "operator" else None)
+
+
+def vertex_loss(params, cfg: Config, t: VertexTensors, rot: torch.Tensor,
+                idx0: torch.Tensor, idx1: torch.Tensor,
+                normals_weight: float = 0.0) -> torch.Tensor:
+    """The vertex step's loss (the JAX ``make_vertex_train_step``'s
+    ``_loss``): rotate the inputs, the vertices and the GT vertices by
+    ``rot``; the three heads, each normalized; the solver from the rotated
+    vertices (the operator form when ``t.tables`` is given, else the naive
+    form); ``full_chamfer_loss`` of the solved points at ``idx0`` against
+    the GT points at ``idx1``; plus ``normals_weight`` × the angular loss of
+    the fine head against the rotated GT normals, when both are there."""
+    kw = dict(coarsening_steps=cfg.model.coarsening_steps,
+              iter_nums=cfg.eval.ms_solver_iterations)
+    heads = unet_apply(params, rotate_inputs(rot, t.x), t.adjs, t.rows,
+                       coarsening_steps=cfg.model.coarsening_steps, alpha=cfg.model.lrelu_alpha,
+                       variant=_config_variant(cfg), adj_ts=t.adj_ts, multi_scale=True)
+    normals = [normalize_tensor(h) for h in heads]
+    vertices = rotate_vec3(rot, t.vertices)
+    if t.tables is not None:
+        refined, _ = update_positions_multiscale_operator(
+            vertices, normals, t.faces, t.v_faces, t.tables,
+            checkpoint=cfg.eval.solver_remat, **kw)
+    else:
+        refined, _ = update_positions_multiscale(vertices, normals, t.faces, t.v_faces, **kw)
+    loss = full_chamfer_loss(refined, rotate_vec3(rot, t.gt_vertices), idx0, idx1)
+    if normals_weight > 0 and t.gt_normals is not None:
+        loss = loss + normals_weight * face_normals_loss(normals[0],
+                                                         rotate_vec3(rot, t.gt_normals))
+    return loss
+
+
+def make_vertex_train_step(cfg: Config, normals_weight: float = 0.0,
+                           generator: Optional[torch.Generator] = None):
+    """The step ``(state, tensors, rot=None, idx0=None, idx1=None) → (state,
+    loss)`` over :class:`VertexTensors`. It updates ``state`` in place and
+    returns it with the loss (a 0-d tensor, before the update). What is not
+    given is drawn from ``generator`` (a host generator, default seeded with
+    ``cfg.train.seed``) in the JAX step's order (trainer.py:868-874): the
+    rotation [3, 3], then ``chamfer_samples`` indices into the vertices and
+    as many into the GT vertices. ``normals_weight > 0`` adds the angular
+    term (the reference's double-loss trainer, train.py:919-1267).
+
+    ``step.eval(params, tensors, rot=None, idx0=None, idx1=None)`` is the
+    same loss under ``torch.no_grad()``, with no backward (the reference's
+    validation loss, train.py:859-888)."""
+    generator = _default_generator(cfg, generator)
+    samples = cfg.train.chamfer_samples
+
+    def draws(t: VertexTensors, rot, idx0, idx1):
+        if rot is None:
+            rot = random_rotation(generator)
+        if idx0 is None:
+            idx0 = torch.randint(0, t.vertices.shape[0], (samples,), generator=generator)
+        if idx1 is None:
+            idx1 = torch.randint(0, t.gt_vertices.shape[0], (samples,), generator=generator)
+        dev = t.x.device
+        return rot.to(dev), idx0.to(dev), idx1.to(dev)
+
+    def step(state: TrainState, tensors: VertexTensors, rot=None, idx0=None, idx1=None):
+        loss = vertex_loss(state.params, cfg, tensors, *draws(tensors, rot, idx0, idx1),
+                           normals_weight)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        return adam_update(state), loss.detach()
+
+    def eval_loss(params, tensors: VertexTensors, rot=None, idx0=None, idx1=None):
+        with torch.no_grad():
+            return vertex_loss(params, cfg, tensors, *draws(tensors, rot, idx0, idx1),
+                               normals_weight)
+
+    step.eval = eval_loss
+    return step
+
+
+def train_with_vertices(
+    cfg: Config,
+    train_set: MeshDataset,
+    valid_set: Optional[MeshDataset] = None,
+    num_iterations: Optional[int] = None,
+    normals_weight: float = 0.0,
+    steps_per_call: int = 1,
+    log_every: int = 10,
+    device: str = "cuda",
+) -> Tuple[TrainState, np.ndarray]:
+    """End-to-end vertex training (reference ``trainAccuracyNet``,
+    train.py:636-914): the gradients flow from the chamfer loss through the
+    120-iteration vertex solver into the U-Net. A random patch per step (the
+    JAX package's sequence), each patch's tensors and solver tables built
+    once before the loop, an eval-only validation sweep every
+    ``valid_every`` steps, a checkpoint every ``min(save_every, 500)``
+    steps (the reference's 500) and a resume from the latest, an abort at
+    the first non-finite loss without a final save of the poisoned state,
+    and the loss history (a row a step: the loss and the last validation
+    loss) appended to ``<network_path>/<net_name>.csv``. Runs on CUDA unless
+    ``device="cpu"``; there ``vertex_solver="naive"`` is refused before any
+    step, since the naive solver's scale kernel has no backward yet.
+    Returns ``(state, history [steps, 2])``."""
+    _refuse_steps_per_call("train_with_vertices", steps_per_call)
+    dev = resolve_device(device)
+    if cfg.eval.vertex_solver == "naive" and dev.type == "cuda":
+        raise NotImplementedError(
+            "train_with_vertices: vertex_solver='naive' cannot train on the card: the naive "
+            "solver's scale kernel (csrc/ms_solver_naive.cu) has no backward yet (ROADMAP "
+            "queue 1, the scale kernel's backward); train with vertex_solver='operator', "
+            "or on the CPU")
+    dev = str(dev)
+    iters = num_iterations or cfg.train.num_iterations
+    state = create_train_state(cfg, num_steps=iters, device=dev, multi_scale=True)
+    step_fn = make_vertex_train_step(cfg, normals_weight,
+                                     torch.Generator().manual_seed(cfg.train.seed))
+
+    ckpt = CheckpointManager(cfg.train.network_path, cfg.train.net_name)
+    state, start_step = ckpt.restore(state)
+    arrays = [vertex_patch_tensors(cfg, p, dev) for p in train_set.patches]
+    valid_arrays = [vertex_patch_tensors(cfg, p, dev) for p in valid_set.patches] if (
+        valid_set is not None) else []
+
+    rng = np.random.default_rng(cfg.train.seed)
+    loss_hist: List[Tuple[float, float]] = []
+    last_valid = float("nan")
+    aborted = False
+    t_start = time.time()
+    save_every = min(cfg.train.save_every, 500)
+    for it in range(iters):
+        if it > 0 and it % save_every == 0:
+            ckpt.save(start_step + it, state)
+        state, loss = step_fn(state, arrays[int(rng.integers(len(arrays)))])
+        loss = float(loss)
+        if valid_arrays and it % cfg.train.valid_every == 0:
+            last_valid = sum(float(step_fn.eval(state.params, a))
+                             for a in valid_arrays) / len(valid_arrays)
+            print(f"iter {it}: validation loss {last_valid:.4f}")
+        loss_hist.append((loss, last_valid))
+        if it % log_every == 0:
+            print(f"iter {it}: loss {loss:.4f} ({time.time() - t_start:.1f}s)")
+        if not math.isfinite(loss):
+            # the update just applied is poisoned: never persist it
+            print("NaN training loss — aborting; the state is not saved")
+            aborted = True
+            break
+
+    if not aborted:
         ckpt.save(start_step + iters, state)
     ckpt.close()
     hist = np.asarray(loss_hist, dtype=np.float64)

@@ -13,7 +13,9 @@ same sums in another order); K4 bit for bit (the same float operations in the
 same order); the U-Net forward and inference atol 1e-4; a train step's loss
 atol 1e-4 degrees and its gradients atol 1e-4 on each gradient scaled to max
 1 (the backward through 8 convs, summed in another order); a vertex request's
-normals and points atol 1e-4.
+normals and points atol 1e-4; a vertex train step's loss rtol 1e-4 and its
+gradients atol 1e-4 scaled to max 1; the operator solver's points atol 1e-5
++ rtol 1e-4 and its gradients atol 1e-4 scaled to max 1.
 """
 
 import numpy as np
@@ -644,3 +646,110 @@ def test_vertex_request_on_card_matches_cpu(cuda, solver):
     ref = infer_with_vertices(mesh, cfg, params=params, device="cpu")
     for key, value in ref.items():
         np.testing.assert_allclose(out[key], value, atol=1e-4, err_msg=key)
+
+
+def _vertex_training_case(solver="operator"):
+    from facet_graph_convolution_torch.data.dataset import TrainingSet
+
+    v, f = icosphere(2)
+    ds = TrainingSet(max_patch_size=20000, coarsening_steps=2, coarsening_levels=3,
+                     k_faces=23, seed=0)
+    ds.add_mesh_with_vertices(add_vertex_noise(v, f, 0.2, np.random.default_rng(0)), f,
+                              gt_vertices=v)
+    cfg = default_config().replace(
+        model={"channels": SMALL["channels"], "num_filters": 4, "fc_channels": 32},
+        train={"chamfer_samples": 64}, eval={"vertex_solver": solver})
+    return ds, cfg
+
+
+def test_vertex_train_step_through_kernels_matches_plain(cuda):
+    """One vertex step on the card (operator solver, K1 8 and K2 8 a step)
+    against the same step with the plain K1/K2 swapped in, same draws: the
+    loss and the gradients scaled to max 1 (atol 1e-4); and against the
+    same step on the CPU."""
+    from facet_graph_convolution_torch.training.trainer import (
+        create_train_state,
+        make_vertex_train_step,
+        vertex_loss,
+        vertex_patch_tensors,
+    )
+
+    ds, cfg = _vertex_training_case()
+    patch = ds.patches[0]
+    rng = np.random.default_rng(1)
+    rot = torch.as_tensor(np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32))
+    idx0 = torch.as_tensor(rng.integers(0, patch.vertices.shape[0], size=64))
+    idx1 = torch.as_tensor(rng.integers(0, patch.gt_vertices.shape[0], size=64))
+
+    def loss_and_grads(dev, plain=False):
+        state = create_train_state(cfg, device=str(dev), multi_scale=True)
+        tensors = vertex_patch_tensors(cfg, patch, str(dev))
+        leaves = [state.params[a][b] for a in sorted(state.params) for b in sorted(state.params[a])]
+        kernels = (k1.facet_conv_fwd, k1.facet_conv_bwd)
+        try:
+            if plain:
+                k1.facet_conv_fwd, k1.facet_conv_bwd = (k1.facet_conv_fwd_plain,
+                                                        k1.facet_conv_bwd_plain)
+            loss = vertex_loss(state.params, cfg, tensors, rot.to(dev), idx0.to(dev),
+                               idx1.to(dev))
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            k1.facet_conv_fwd, k1.facet_conv_bwd = kernels
+        return float(loss.detach()), [g.cpu() for g in grads], state, tensors
+
+    before = (k1.facet_conv_fwd.launches, k1.facet_conv_bwd.launches)
+    loss, grads, state, tensors = loss_and_grads(cuda)
+    assert (k1.facet_conv_fwd.launches - before[0], k1.facet_conv_bwd.launches - before[1]) == (
+        8, 8)
+    for other in (loss_and_grads(cuda, plain=True), loss_and_grads("cpu")):
+        assert abs(other[0] - loss) <= 1e-4 * max(1.0, abs(loss))
+        for a, b in zip(grads, other[1]):
+            assert torch.isfinite(a).all()
+            scale = b.abs().max().clamp_min(1e-30)
+            torch.testing.assert_close(a / scale, b / scale, atol=1e-4, rtol=0)
+    state, step_loss = make_vertex_train_step(cfg)(state, tensors, rot, idx0, idx1)
+    assert state.step == 1 and abs(float(step_loss) - loss) <= 1e-6 * max(1.0, abs(loss))
+
+
+def test_operator_solver_gradients_on_card_match_cpu(cuda, rng):
+    """The operator solver under autograd on CUDA tensors (its gathers'
+    transpose-map backward) against the same on the CPU."""
+    from facet_graph_convolution_torch.ops.vertex_update import (
+        build_solver_tables,
+        update_positions_multiscale_operator,
+    )
+
+    ds, _ = _vertex_training_case()
+    p = ds.patches[0]
+    normals = []
+    for n in (p.num_nodes, p.num_nodes // 4, p.num_nodes // 16):
+        nrm = rng.normal(size=(n, 3)).astype(np.float32)
+        normals.append(nrm / np.linalg.norm(nrm, axis=1, keepdims=True))
+    r = rng.normal(size=p.vertices.shape).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda):
+        leaves = [torch.tensor(a, device=dev, requires_grad=True) for a in (p.vertices, *normals)]
+        tables = build_solver_tables(p.v_faces, [a.shape[0] for a in p.adjs], p.vertices.shape[0],
+                                     2, faces=p.faces, device=dev)
+        x, _ = update_positions_multiscale_operator(
+            leaves[0], leaves[1:], torch.as_tensor(p.faces, device=dev),
+            torch.as_tensor(p.v_faces, device=dev), tables)
+        grads = torch.autograd.grad((x * torch.as_tensor(r, device=dev)).sum(), leaves)
+        out.append((x.detach().cpu(), [g.cpu() for g in grads]))
+    (x_cpu, g_cpu), (x_card, g_card) = out
+    torch.testing.assert_close(x_card, x_cpu, atol=1e-5, rtol=1e-4)
+    for a, b in zip(g_card, g_cpu):
+        scale = b.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(a / scale, b / scale, atol=1e-4, rtol=0)
+
+
+def test_train_with_vertices_refuses_the_naive_solver_on_card(cuda, tmp_path):
+    """The scale kernel has no backward: train_with_vertices under the naive
+    solver raises before any step, naming the cause."""
+    from facet_graph_convolution_torch.training.trainer import train_with_vertices
+
+    ds, cfg = _vertex_training_case("naive")
+    cfg = cfg.replace(train={"network_path": str(tmp_path) + "/"})
+    with pytest.raises(NotImplementedError, match="no backward"):
+        train_with_vertices(cfg, ds, num_iterations=1, device=str(cuda))
+    assert not any(tmp_path.rglob("*.pt"))

@@ -569,10 +569,6 @@ def test_training_refuses_what_is_not_ported(port_sphere_set):
         train_normals(cfg, port_sphere_set, num_iterations=1, steps_per_call=4, device="cpu")
     with pytest.raises(NotImplementedError):
         create_train_state(cfg.replace(model={"compute_dtype": "bfloat16"}), device="cpu")
-    with pytest.raises(NotImplementedError):
-        create_train_state(cfg, device="cpu", multi_scale=True)
-    with pytest.raises(NotImplementedError, match="vertex"):
-        preprocess_directory(cfg, with_vertices=True)
     with pytest.raises(NotImplementedError, match="streaming"):
         preprocess_directory(cfg, shard_size=4)
 
@@ -601,8 +597,7 @@ def test_cli_preprocess_train_infer(tmp_path, monkeypatch, capsys):
         assert (base / "Preprocessed_Data" / name).is_file()
 
     for extra, match in ((["--steps_per_call", "4"], "CUDA-graph"),
-                         (["--stream_dir", str(tmp_path)], "streaming"),
-                         (["--include_vertices"], "vertex")):
+                         (["--stream_dir", str(tmp_path)], "streaming")):
         with pytest.raises(NotImplementedError, match=match):
             cli_train.main(common + ["--device", "cpu"] + extra)
     with monkeypatch.context() as mp:
