@@ -61,18 +61,35 @@ Phases, each fatal on failure:
    losses with the last below 5× the first, that K1 and K2 each ran 8 times
    a step and K3, the standalone K4 and the scale kernel never, the
    checkpoints, that one step's gradients on the largest vertex patch
-   through K1/K2 match the plain conv's, that ``step.eval`` gives the loss
+   through K1/K2 match the plain conv's (as they are where no kink of the
+   step lies on another side, and with every kink pinned to the float64
+   step's), that ``step.eval`` gives the loss
    the step reports for the same draws, and that training under the naive
    solver is refused on the card (the scale kernel has no backward); prints
    the preprocessing seconds, the step's median time over 20 steps, one
    profiled step, and the solver's share of its device time;
-10. solver kernel: the scale kernel against its plain version at the three
+10. graph training: ``train_normals`` (default and rotation-invariant) and
+   ``train_with_vertices`` at ``steps_per_call=10`` for 30 steps each, at
+   full width on the two training sets, each call replaying a captured
+   CUDA graph of the step; checks finite losses, the update counts, the
+   checkpoints and the wrappers' launch counts (the warm-up step and the
+   capture: replays launch from the graph). Then for each of the three
+   steps, on the whole subdivision-5 icosphere and the largest vertex
+   patch: two calls through the graph (the second under torch's sync debug
+   mode set to raise, its only host synchronisation the loss read) equal as
+   many eager steps with the same draws bit for bit; K1, K2 (and K3) launch
+   a step from the graph counted in a profile (8, 8; 7, 7, 1; 8, 8); prints
+   the step time through the graph beside the eager step's, the device
+   busy share and activities a step of each, the capture time and the
+   graph's memory; last ``cli.train`` on the card with its default
+   ``--steps_per_call`` (100) for 150 steps;
+11. solver kernel: the scale kernel against its plain version at the three
    launches of the largest served patch's solve (the inputs the path gave
    it), with its times per scale and per patch at the default grid and at
    one block an SM, the plain loop's times (pure PyTorch, and with the
    standalone K4 as before the redesign), the cost of one grid barrier, and
    its bound;
-11. pool kernel: K4 against its plain version, bit for bit, at the solver's
+12. pool kernel: K4 against its plain version, bit for bit, at the solver's
    two pools of the largest served patch, at C = 3 and N = 1,048,576, on
    rows of zeros, groups of zeros and -0.0 rows, and at steps 1, 2 and 3;
    prints its times and bound; the scale kernel's phase A alone at the
@@ -687,8 +704,8 @@ def training_phase(dev, workdir):
     tensors = patch_tensors(patch, str(dev))
     time_train_step(cfg, tensors, dev, patch.num_nodes, edges, "default")
     return launches, {"cfg": cfg, "train_set": train_set, "first_patch": first_patch,
-                      "bench_tensors": tensors, "bench_nodes": patch.num_nodes,
-                      "bench_edges": edges}
+                      "bench_patch": patch, "bench_tensors": tensors,
+                      "bench_nodes": patch.num_nodes, "bench_edges": edges}
 
 
 def time_train_step(cfg, tensors, dev, nodes, edges, label):
@@ -1010,52 +1027,123 @@ def vertex_gradient_check(state, cfg, tensors, rot, idx0, idx1):
     step through the plain conv (same draws), each gradient scaled to max 1;
     fails beyond VERTEX_GRAD_ATOL, or on a loss beyond VERTEX_LOSS_RTOL. Both
     are also held against the plain step in float64, which shows how far
-    float32 alone moves the gradients through the solver's 120 iterations."""
+    float32 alone moves the gradients through the solver's 120 iterations.
+
+    The step is not smooth everywhere: ``lrelu``'s derivative is 1, α, or 0
+    at exactly 0; the max pool's and the chamfer minimum's gradients go to
+    the winning entry. Where float32 noise moves an input across such a
+    point, the gradient changes discretely (on an H100, one lrelu input and
+    one pool winner on other sides through K1 than through the plain conv
+    moved fc_mid.b's gradient by 6.1e-3 scaled; pinned, 3.2e-4). So each
+    pair of steps is compared as it is where none of those points differ
+    between the two, and every step is compared once more with them pinned
+    to the float64 step's (the same forward values; each derivative, pool
+    winner and nearest point taken from the float64 step), where none can
+    differ."""
     import torch
 
+    from facet_graph_convolution_torch.models import losses, unet
     from facet_graph_convolution_torch.ops import facet_conv as k1
-    from facet_graph_convolution_torch.training.trainer import vertex_loss
+    from facet_graph_convolution_torch.training import trainer
 
     names = [(layer, k) for layer in sorted(state.params) for k in sorted(state.params[layer])]
+    originals = (unet.lrelu, unet.tree_pool, trainer.full_chamfer_loss)
+    lrelu, tree_pool, chamfer = originals
+    records = []                      # per step: its kinks, in call order
+
+    def recorded(kind, value):
+        seen = records[-1].setdefault(kind, [])
+        if len(records) > 3:          # pinned: the float64 step's
+            value = records[2][kind][len(seen)]
+        seen.append(value)
+        return value
+
+    def check_lrelu(x, alpha=0.1):
+        # the derivative autograd takes of relu(x) - alpha * relu(-x)
+        d = recorded("lrelu", torch.where(x > 0, 1.0, torch.where(x < 0, alpha, 0.0)).float())
+        y = lrelu(x, alpha)
+        return y if len(records) <= 3 else y.detach() + (x - x.detach()) * d.to(x.dtype)
+
+    def check_pool(x, steps=1, mode="max"):
+        groups = x.reshape(-1, 2 ** steps, x.shape[1])
+        win = recorded("pool", torch.argmax(groups, dim=1))
+        if len(records) <= 3:
+            return tree_pool(x, steps, mode)
+        return torch.gather(groups, 1, win[:, None, :]).squeeze(1)
+
+    def check_chamfer(p0, p1, i0, i1):
+        with torch.no_grad():
+            nn0 = recorded("nearest", torch.argmin(losses._pairwise_dist(p0[i0], p1), dim=1))
+            nn1 = recorded("nearest", torch.argmin(losses._pairwise_dist(p0, p1[i1]), dim=0))
+        if len(records) <= 3:
+            return chamfer(p0, p1, i0, i1)
+        d0 = torch.sqrt(torch.sum(torch.square(p0[i0] - p1[nn0]), dim=-1) + 1e-20)
+        d1 = torch.sqrt(torch.sum(torch.square(p0[nn1] - p1[i1]), dim=-1) + 1e-20)
+        return 1000.0 * (torch.mean(losses._threshold(d0, 5000.0))
+                         + torch.mean(losses._threshold(d1, 5000.0)))
 
     def grads(params, t, draws):
-        loss = vertex_loss(params, cfg, t, *draws)
+        records.append({})
+        loss = trainer.vertex_loss(params, cfg, t, *draws)
         g = torch.autograd.grad(loss, [params[a][b] for a, b in names])
         return float(loss.detach()), [x.double() for x in g]
 
-    draws = (rot, idx0, idx1)
-    kernel = grads(state.params, tensors, draws)
+    p64 = {a: {b: t.detach().double().requires_grad_() for b, t in leaves.items()}
+           for a, leaves in state.params.items()}
+    t64 = tensors._replace(**{f: getattr(tensors, f).double() for f in (
+        "x", "vertices", "gt_vertices", "gt_normals")})
+    runs = {}
     kernels = (k1.facet_conv_fwd, k1.facet_conv_bwd)
     try:
-        k1.facet_conv_fwd, k1.facet_conv_bwd = k1.facet_conv_fwd_plain, k1.facet_conv_bwd_plain
-        plain = grads(state.params, tensors, draws)
-        p64 = {a: {b: t.detach().double().requires_grad_() for b, t in leaves.items()}
-               for a, leaves in state.params.items()}
-        t64 = tensors._replace(**{f: getattr(tensors, f).double() for f in (
-            "x", "vertices", "gt_vertices", "gt_normals")})
-        exact = grads(p64, t64, (rot.double(), idx0, idx1))
+        unet.lrelu, unet.tree_pool, trainer.full_chamfer_loss = (check_lrelu, check_pool,
+                                                                  check_chamfer)
+        for mode in ("as they are", "pinned to float64's"):
+            k1.facet_conv_fwd, k1.facet_conv_bwd = kernels
+            kernel = grads(state.params, tensors, (rot, idx0, idx1))
+            k1.facet_conv_fwd, k1.facet_conv_bwd = k1.facet_conv_fwd_plain, k1.facet_conv_bwd_plain
+            plain = grads(state.params, tensors, (rot, idx0, idx1))
+            runs[mode] = (kernel, plain, grads(p64, t64, (rot.double(), idx0, idx1)))
     finally:
         k1.facet_conv_fwd, k1.facet_conv_bwd = kernels
+        unet.lrelu, unet.tree_pool, trainer.full_chamfer_loss = originals
 
     def worst(a, b):
         errs = [(float((x - y).abs().max()) / (float(y.abs().max()) or 1.0), f"{n[0]}.{n[1]}")
                 for x, y, n in zip(a[1], b[1], names)]
         return max(errs)
 
-    for g in kernel[1]:
-        if not torch.isfinite(g).all():
-            raise AssertionError("non-finite gradient through the kernels")
-    err, leaf = worst(kernel, plain)
-    err64, leaf64 = worst(kernel, exact)
-    print(f"  one vertex step through K1/K2 vs through the plain conv: loss {kernel[0]:.6f} vs "
-          f"{plain[0]:.6f}, gradient max abs err {err:.3e} scaled to max 1 ({leaf}; atol "
-          f"{VERTEX_GRAD_ATOL}); against the plain step in float64 (loss {exact[0]:.6f}): "
-          f"through K1/K2 {err64:.3e} ({leaf64}), plain float32 %.3e (%s)" % worst(plain, exact))
-    if (max(err, err64) > VERTEX_GRAD_ATOL
-            or abs(kernel[0] - plain[0]) > VERTEX_LOSS_RTOL * abs(plain[0])):
-        raise AssertionError(f"the vertex step through K1/K2 differs from the plain step: "
-                             f"gradient {err} ({leaf}), from float64 {err64} ({leaf64}), loss "
-                             f"{kernel[0]} vs {plain[0]}")
+    def flips(i, j):
+        """Kinks on different sides in steps i and j, by kind."""
+        return {kind: sum(int((a != b).sum()) for a, b in zip(records[i][kind], records[j][kind]))
+                for kind in records[i]}
+
+    failed = []
+    for mode, (kernel, plain, exact) in runs.items():
+        for g in kernel[1]:
+            if not torch.isfinite(g).all():
+                raise AssertionError("non-finite gradient through the kernels")
+        err, leaf = worst(kernel, plain)
+        err64, leaf64 = worst(kernel, exact)
+        if mode == "as they are":
+            flipped = {"plain": flips(0, 1), "float64": flips(0, 2)}
+            note = f"; kinks on other sides than the plain step's {flipped['plain']}, " \
+                   f"than float64's {flipped['float64']}"
+        else:
+            flipped = {"plain": {}, "float64": {}}
+            note = ""
+        print(f"  one vertex step through K1/K2 vs through the plain conv, kinks {mode}: loss "
+              f"{kernel[0]:.6f} vs {plain[0]:.6f}, gradient max abs err {err:.3e} scaled to max 1 "
+              f"({leaf}; atol {VERTEX_GRAD_ATOL}); against the plain step in float64 (loss "
+              f"{exact[0]:.6f}): through K1/K2 {err64:.3e} ({leaf64}), plain float32 %.3e (%s)"
+              % worst(plain, exact) + note)
+        if ((not any(flipped["plain"].values()) and err > VERTEX_GRAD_ATOL)
+                or (not any(flipped["float64"].values()) and err64 > VERTEX_GRAD_ATOL)
+                or abs(kernel[0] - plain[0]) > VERTEX_LOSS_RTOL * abs(plain[0])):
+            failed.append(f"kinks {mode}: gradient {err} ({leaf}), from float64 {err64} "
+                          f"({leaf64}), loss {kernel[0]} vs {plain[0]}")
+    if failed:
+        raise AssertionError("the vertex step through K1/K2 differs from the plain step: "
+                             + "; ".join(failed))
 
 
 def vertex_training_phase(dev, workdir):
@@ -1213,6 +1301,248 @@ def vertex_training_phase(dev, workdir):
     else:
         raise AssertionError("train_with_vertices trained under the naive solver on the card")
     print(f"  vertex training phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"cfg": cfg, "train_set": train_set, "tensors": tensors, "params": state.params}
+
+
+GRAPH_STEPS = 10            # steps a call in the graph training phase
+GRAPH_TRAIN_STEPS = 30      # steps of each trainer run there (3 calls)
+# the kernels' names in a profile, counted a step: K2's pass B runs once a launch
+GRAPH_KERNELS = {"K1": "facet_conv_fwd_kernel", "K2": "transpose_sum_kernel",
+                 "K3": "weighted_aggregate_kernel"}
+
+
+def graph_vs_eager(label, scanned, graph_state, eager_state, eager_step, draw, per_step,
+                   profile_steps):
+    """One train step through its captured CUDA graph against the eager step:
+    two calls of GRAPH_STEPS through ``scanned`` (the first captures, the
+    second only replays, under torch's sync debug mode set to raise) against
+    as many eager steps with the same draws and the same capturable Adam, bit
+    for bit (losses, parameters, Adam state); then the step time through the
+    graph (host clock over a call of GRAPH_STEPS, its draws and loss read
+    included, / GRAPH_STEPS, median of 6 calls) beside the eager step's
+    (median of 10 after 3, each ending in its loss on the host), one
+    profiled call of ``profile_steps`` (device busy share and activities a
+    step; K1, K2 and K3 launches a step, which must equal ``per_step``) and
+    one profiled eager step. Returns the printed numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from facet_graph_convolution_torch.training.trainer import _leaves
+
+    calls = [draw(GRAPH_STEPS) for _ in range(2)]
+    _, first = scanned(graph_state, calls[0])
+    first = first.numpy()
+    torch.cuda.set_sync_debug_mode("error")      # a synchronising op in the call raises
+    try:
+        _, second = scanned(graph_state, calls[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph_losses = np.concatenate([first, second.numpy()])
+    eager_losses = []
+    for d in calls:
+        for j in range(GRAPH_STEPS):
+            eager_state, loss = eager_step(eager_state, d, j)
+            eager_losses.append(float(loss))
+    eager_losses = np.asarray(eager_losses, np.float32)
+    worst = 0.0
+    for p, q in zip(_leaves(graph_state.params), _leaves(eager_state.params)):
+        sp, sq = graph_state.optimizer.state[p], eager_state.optimizer.state[q]
+        for a, b in ((p, q), (sp["exp_avg"], sq["exp_avg"]), (sp["exp_avg_sq"], sq["exp_avg_sq"]),
+                     (sp["step"], sq["step"])):
+            worst = max(worst, float((a.detach() - b.detach()).abs().max()))
+    if worst != 0.0 or not np.array_equal(graph_losses, eager_losses):
+        raise AssertionError(f"{label}: {2 * GRAPH_STEPS} steps through the graph differ from "
+                             f"the eager steps: losses {graph_losses} vs {eager_losses}, "
+                             f"state max abs diff {worst}")
+    print(f"  {label}: {2 * GRAPH_STEPS} steps through the graph (2 calls; the second's only "
+          "host synchronisation its loss read) equal the eager steps bit for bit; capture "
+          f"{scanned.capture_s:.3f} s, graph memory {scanned.graph_bytes / 2**20:.1f} MiB")
+
+    per_call = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        _, losses = scanned(graph_state, draw(GRAPH_STEPS))
+        losses.numpy()
+        per_call.append(1e3 * (time.perf_counter() - t0) / GRAPH_STEPS)
+    per_call.sort()
+    eager_ms = []
+    for i in range(13):
+        t0 = time.perf_counter()
+        eager_state, loss = eager_step(eager_state, None, 0)
+        float(loss)
+        if i >= 3:
+            eager_ms.append(1e3 * (time.perf_counter() - t0))
+    eager_ms.sort()
+
+    def one_call():
+        scanned(graph_state, draw(profile_steps))[1].numpy()
+
+    one_call()
+    t0 = time.perf_counter()
+    one_call()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_call()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    busy_ms = sum(us for _, us in events) / 1e3
+    launches = {k: sum(kernel in name for name, _ in events) / profile_steps
+                for k, kernel in GRAPH_KERNELS.items()}
+    if launches != per_step:
+        raise AssertionError(f"{label}: kernel launches a step through the graph {launches}, "
+                             f"want {per_step}")
+    graph_median = per_call[len(per_call) // 2]
+    print(f"  {label}: step through the graph median {graph_median:.3f} ms (min "
+          f"{per_call[0]:.3f}, max {per_call[-1]:.3f}; a call of {GRAPH_STEPS}, 6 calls), eager "
+          f"median {eager_ms[len(eager_ms) // 2]:.3f} ms (min {eager_ms[0]:.3f}, max "
+          f"{eager_ms[-1]:.3f}; 10 steps)")
+    print(f"  {label}: one profiled call of {profile_steps} steps through the graph: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of "
+          f"the unprofiled wall time), {len(events)} device activities "
+          f"({len(events) / profile_steps:.1f} a step); launches a step {launches}")
+    eager_wall, eager_busy, eager_n = device_profile(
+        lambda: float(eager_step(eager_state, None, 0)[1]), f"{label}: one eager step")
+    return {"graph_ms": graph_median, "eager_ms": eager_ms[len(eager_ms) // 2],
+            "graph_busy_share": busy_ms / wall_ms, "graph_activities": len(events) / profile_steps,
+            "eager_busy_share": eager_busy / eager_wall, "eager_activities": eager_n,
+            "capture_s": scanned.capture_s, "graph_mib": scanned.graph_bytes / 2**20}
+
+
+def graph_training_phase(dev, trained, vertex_trained):
+    """Training with steps_per_call > 1 at full width: ``train_normals``
+    (default and rotation-invariant) and ``train_with_vertices`` (operator
+    solver) at ``steps_per_call=GRAPH_STEPS`` for GRAPH_TRAIN_STEPS steps on
+    the training phases' sets, each call replaying a captured CUDA graph a
+    step; finite losses, the updates counted, and K1/K2/K3 counted by their
+    wrappers at the warm-up step and the capture only (replays launch from
+    the graph). Then, for each step, the graph against the eager step
+    (:func:`graph_vs_eager`) on the whole subdivision-5 icosphere (normals)
+    and the largest vertex patch, and ``cli.train`` on the card with its
+    default ``--steps_per_call`` (100)."""
+    import torch
+
+    from facet_graph_convolution_torch.cli import train as cli_train
+    from facet_graph_convolution_torch.ops import aggregate as k3
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.training.checkpoint import CheckpointManager
+    from facet_graph_convolution_torch.training.trainer import (
+        create_train_state,
+        make_normals_train_step,
+        make_scanned_train_step,
+        make_vertex_train_step,
+        normals_draws,
+        stack_patch_tensors,
+        train_normals,
+        train_with_vertices,
+    )
+
+    t_phase = time.perf_counter()
+    counters = {"K1": k1.facet_conv_fwd, "K2": k1.facet_conv_bwd, "K3": k3.weighted_aggregate}
+    vcfg = vertex_trained["cfg"]
+    runs = (
+        ("default", trained["cfg"], trained["train_set"], train_normals, {"K1": 8, "K2": 8, "K3": 0}),
+        ("rotation-invariant", trained["cfg"].replace(model={"rotation_invariance": True}),
+         trained["train_set"], train_normals, {"K1": 7, "K2": 7, "K3": 1}),
+        ("vertex", vcfg, vertex_trained["train_set"], train_with_vertices,
+         {"K1": 8, "K2": 8, "K3": 0}),
+    )
+    print(f"graph training phase: {GRAPH_TRAIN_STEPS} steps at steps_per_call={GRAPH_STEPS}, "
+          "full width, a CUDA graph replayed a step")
+    for label, cfg, train_set, train, per_step in runs:
+        cfg = cfg.replace(train={"net_name": f"graph_{label}", "save_every": GRAPH_TRAIN_STEPS})
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state, hist = train(cfg, train_set, num_iterations=GRAPH_TRAIN_STEPS,
+                            steps_per_call=GRAPH_STEPS, device=str(dev))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        # one graph (the normals stack) or one a pinned patch (vertex); each
+        # counted its kernels at its warm-up step and its capture
+        rng = np.random.default_rng(cfg.train.seed)
+        graphs = 1 if train is train_normals else len(
+            {int(rng.integers(len(train_set.patches))) for _ in range(3)})
+        want = {k: 2 * graphs * n for k, n in per_step.items()}
+        losses = hist[:, 0]
+        if hist.shape != (GRAPH_TRAIN_STEPS // GRAPH_STEPS, 2) or not np.isfinite(losses).all():
+            raise AssertionError(f"graph training, {label}: bad loss history {hist}")
+        if state.step != GRAPH_TRAIN_STEPS or launches != want:
+            raise AssertionError(f"graph training, {label}: {state.step} updates; wrapper "
+                                 f"launches {launches}, want {want} ({graphs} graphs)")
+        saved = CheckpointManager(cfg.train.network_path, cfg.train.net_name).steps()
+        if saved != [GRAPH_TRAIN_STEPS]:
+            raise AssertionError(f"graph training, {label}: checkpoints {saved}")
+        print(f"  {label}: {GRAPH_TRAIN_STEPS} steps in {train_s:.2f} s ({graphs} graph(s) "
+              f"captured; tables and checkpoint included): chunk losses "
+              f"{np.array2string(losses, precision=3)}; wrapper launches {launches} (warm-up "
+              f"and capture); saved step {saved}")
+
+    results = {}
+    cfg = trained["cfg"]
+    patch = trained["bench_patch"]
+    for label, model, per_step in (("default", {}, {"K1": 8, "K2": 8, "K3": 0}),
+                                   ("rotation-invariant", {"rotation_invariance": True},
+                                    {"K1": 7, "K2": 7, "K3": 1})):
+        c = cfg.replace(model=model)
+        graph_state = create_train_state(c, num_steps=100, device=str(dev))
+        eager_state = create_train_state(c, num_steps=100, device=str(dev))
+        scanned = make_scanned_train_step(graph_state, c, stack_patch_tensors([patch], str(dev)),
+                                          GRAPH_STEPS)
+        gen = torch.Generator().manual_seed(11)
+        step = make_normals_train_step(c)
+        tensors = trained["bench_tensors"]
+
+        def eager(state, d, j, step=step, tensors=tensors):
+            if d is None:
+                return step(state, *tensors)
+            return step(state, *tensors, rot=d["rot"][j], sample_idx=d["sample_idx"][j])
+
+        results[label] = graph_vs_eager(
+            f"{label} step, {patch.num_nodes}-node patch", scanned, graph_state, eager_state,
+            eager, lambda n, c=c, gen=gen: normals_draws(c, gen, [0] * n, patch.num_nodes),
+            per_step, GRAPH_STEPS)
+
+    tensors = vertex_trained["tensors"]
+    params = vertex_trained["params"]
+    graph_state = create_train_state(vcfg, num_steps=100, device=str(dev), params=params,
+                                     multi_scale=True)
+    eager_state = create_train_state(vcfg, num_steps=100, device=str(dev), params=params,
+                                     multi_scale=True)
+    step = make_vertex_train_step(vcfg, generator=torch.Generator().manual_seed(12))
+
+    def vertex_eager(state, d, j):
+        if d is None:
+            return step(state, tensors)
+        return step(state, tensors, d["rot"][j], d["idx0"][j], d["idx1"][j])
+
+    results["vertex"] = graph_vs_eager(
+        f"vertex step, {tensors.x.shape[0]}-face patch", step.scanned(graph_state, tensors,
+                                                                      GRAPH_STEPS),
+        graph_state, eager_state, vertex_eager, lambda n: step.draw(tensors, n),
+        {"K1": 8, "K2": 8, "K3": 0}, 2)
+
+    # cli.train on the card with its default --steps_per_call (100): a full
+    # call and a remainder of 50, a CSV row each
+    net = os.path.join(cfg.data.base_path, "NetworksCli")
+    t0 = time.perf_counter()
+    cli_train.main(["--base_path", cfg.data.base_path, "--network_path", net, "--net_name", "cli",
+                    "--num_iterations", "150"])
+    cli_s = time.perf_counter() - t0
+    rows = np.loadtxt(os.path.join(net, "cli.csv"), delimiter=",", ndmin=2)
+    saved = CheckpointManager(net, "cli").steps()
+    if saved != [150] or rows.shape != (2, 2) or not np.isfinite(rows[:, 0]).all():
+        raise AssertionError(f"cli.train on the card: checkpoints {saved}, history {rows}")
+    print(f"  cli.train, default --steps_per_call (100), 150 steps: {cli_s:.2f} s, losses "
+          f"{np.array2string(rows[:, 0], precision=3)}, saved step {saved}")
+    print("  graph vs eager (ms a step; device busy share; device activities a step; capture "
+          "s; graph MiB):")
+    for label, r in results.items():
+        print(f"    {label}: graph {r['graph_ms']:.3f} vs eager {r['eager_ms']:.3f}; busy "
+              f"{100 * r['graph_busy_share']:.1f}% vs {100 * r['eager_busy_share']:.1f}%; "
+              f"activities {r['graph_activities']:.1f} vs {r['eager_activities']}; capture "
+              f"{r['capture_s']:.3f}; {r['graph_mib']:.1f}")
+    print(f"  graph training phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def solver_bound_ms(calls):
@@ -1456,7 +1786,8 @@ def main() -> int:
         err3, totals3, bound_by3 = aggregate_kernel_phase(dev, k3_inputs)
         vertex_launches, vertex_records, vertex_cfg, vertex_params = vertex_serving_phase(
             dev, workdir)
-        vertex_training_phase(dev, workdir)
+        vertex_trained = vertex_training_phase(dev, workdir)
+        graph_training_phase(dev, trained, vertex_trained)
         err5, totals5, bound_by5 = solver_kernel_phase(dev, vertex_records, vertex_cfg,
                                                        vertex_params)
         err4, totals4, bound_by4 = pool_kernel_phase(

@@ -12,11 +12,15 @@ the multi-scale network through the vertex solver on
 ``trainingSetWithVertices.npz`` (and ``validSetWithVertices.npz``;
 ``cli.preprocess --include_vertices`` writes both), whose ``params.pt``
 ``cli.infer --include_vertices`` serves. ``--device`` defaults to ``cuda``;
-without a card, pass ``--device cpu``.
+without a card, pass ``--device cpu``. ``--steps_per_call`` defaults as the
+JAX package's does (``cli/train.py:36-37``): 100 on the card, where each
+call replays a captured CUDA graph of the step 100 times, and 1 on the CPU.
 """
 
 import argparse
 import os
+
+import torch
 
 from facet_graph_convolution_torch.config import (
     add_cli_overrides,
@@ -30,8 +34,9 @@ from facet_graph_convolution_torch.training.trainer import train_normals, train_
 def main(argv=None):
     parser = add_cli_overrides(argparse.ArgumentParser())
     parser.add_argument(
-        "--steps_per_call", type=int, default=1,
-        help="train steps per call (only 1 is ported: raises above)")
+        "--steps_per_call", type=int, default=None,
+        help="train steps per call: a CUDA graph replayed a step on the card "
+             "(default 100 there, 1 on the CPU)")
     parser.add_argument(
         "--stream_dir", type=str, default=None,
         help="train from streaming shards (not ported yet: raises)")
@@ -40,15 +45,16 @@ def main(argv=None):
     if args.stream_dir:
         raise NotImplementedError(
             "--stream_dir: streaming training (ROADMAP queue 1, item 9) is not ported yet")
-    if args.steps_per_call > 1:
-        raise NotImplementedError(
-            "--steps_per_call > 1: the CUDA-graph step (ROADMAP queue 1) is not ported yet")
     suffix = "WithVertices" if cfg.model.include_vertices else ""
     train_set = load_dataset(os.path.join(cfg.data.binary_dump_path, f"trainingSet{suffix}.npz"))
     valid_path = os.path.join(cfg.data.binary_dump_path, f"validSet{suffix}.npz")
     valid_set = load_dataset(valid_path) if os.path.isfile(valid_path) else None
+    device = parse_device(args.device)
+    steps_per_call = args.steps_per_call
+    if steps_per_call is None:
+        steps_per_call = 100 if torch.device(device).type == "cuda" else 1
     train = train_with_vertices if cfg.model.include_vertices else train_normals
-    train(cfg, train_set, valid_set, device=parse_device(args.device))
+    train(cfg, train_set, valid_set, steps_per_call=steps_per_call, device=device)
 
 
 if __name__ == "__main__":

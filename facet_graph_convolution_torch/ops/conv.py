@@ -69,6 +69,17 @@ def linear(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 # Rotation-invariant assignment features
 # ---------------------------------------------------------------------------
 
+def _filled(like: torch.Tensor, values, shape) -> torch.Tensor:
+    """A tensor of ``shape + (len(values),)`` holding ``values`` along its
+    last axis, made on ``like``'s device without a copy from the host (a
+    CUDA graph capture of the train step allows none)."""
+    out = like.new_zeros(*shape, len(values))
+    for i, value in enumerate(values):
+        if value:
+            out[..., i] = value
+    return out
+
+
 def rotation_to_axis(normals: torch.Tensor) -> torch.Tensor:
     """Per-face rotation [..., 3, 3] aligning each normal with +z by the
     Rodrigues formula (reference ``getRotationToAxis``, model.py:128-183,
@@ -76,7 +87,7 @@ def rotation_to_axis(normals: torch.Tensor) -> torch.Tensor:
     Where ``sin² ≤ 1e-12`` (a normal parallel or antiparallel to z, or zero)
     the quadratic term is dropped, R = I + S ≈ I: an antiparallel normal
     keeps R = I, as in the JAX package."""
-    ref = normals.new_tensor([0.0, 0.0, 1.0]).expand_as(normals)
+    ref = _filled(normals, (0.0, 0.0, 1.0), normals.shape[:-1])
     cross = torch.linalg.cross(normals, ref, dim=-1)
     sin2 = torch.sum(cross * cross, dim=-1)
     cos = normals[..., 2]
@@ -125,7 +136,7 @@ def _rotation_invariant_feats(x: torch.Tensor, x_nbr: torch.Tensor,
         feats.append(torch.einsum("nij,knj->kni", rot, x_nbr[..., 3:] - x[None, :, 3:]))
     feats = torch.cat(feats, dim=-1)
     if self_slot:
-        self_row = x.new_tensor(_SELF_FEATS[in_ch]).expand(1, x.shape[0], in_ch)
+        self_row = _filled(x, _SELF_FEATS[in_ch], (1, x.shape[0]))
         feats = torch.cat([self_row, feats], dim=0)
     return feats
 

@@ -335,8 +335,11 @@ def update_positions_multiscale_operator(
         x_init_t = x_t
         for _ in range(int(iter_nums[s])):
             if remat:
+                # the body draws nothing: no RNG state to stash, which a
+                # CUDA graph capture would refuse
                 x_t = torch.utils.checkpoint.checkpoint(body, x_t, n_vu, p_t, nw, fn,
-                                                        use_reentrant=False)
+                                                        use_reentrant=False,
+                                                        preserve_rng_state=False)
             else:
                 x_t = body(x_t, n_vu, p_t, nw, fn)
         dx_list.append((x_t - x_init_t).T)

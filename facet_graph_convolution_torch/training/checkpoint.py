@@ -5,7 +5,10 @@ Reference flow: a checkpoint every ``save_every`` iterations plus a final
 save (train.py:551-552,626), and resume from the latest step
 (train.py:528-534). Here a checkpoint is ``torch.save`` of ``{params,
 optimizer state, step}`` as ``<network_path>/<net_name>/step_<step>.pt``;
-the last ``max_to_keep`` are kept. Every save also writes the parameters to
+the last ``max_to_keep`` are kept. It is read onto the CPU and loaded into
+the template's optimizer in that optimizer's form, so a checkpoint of the
+card's capturable Adam (its update counts on the device) resumes on the card
+and loads on the CPU, and the other way round. Every save also writes the parameters to
 ``params.pt`` in the same directory (:func:`..params.save`), the file that
 ``cli.infer`` reads, so the newest net is the one served.
 """
@@ -21,6 +24,23 @@ import torch
 from facet_graph_convolution_torch import params as params_io
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
+
+
+def _load_optimizer(optimizer: torch.optim.Optimizer, saved: dict) -> None:
+    """Load a saved Adam state (moments and update counts) into
+    ``optimizer``, which keeps its own group settings: capturable with a
+    tensor learning rate on the card, plain on the CPU. A checkpoint written
+    on either device thus resumes on either: the update counts (``step``) go
+    to the parameters' device under a capturable Adam and to the CPU
+    otherwise."""
+    kept = [{k: v for k, v in g.items() if k != "params"} for g in optimizer.param_groups]
+    optimizer.load_state_dict(saved)
+    for group, own in zip(optimizer.param_groups, kept):
+        group.update(own)
+        for p in group["params"]:
+            state = optimizer.state.get(p)
+            if state:
+                state["step"] = state["step"].to(p.device if own["capturable"] else "cpu")
 
 
 class CheckpointManager:
@@ -74,7 +94,7 @@ class CheckpointManager:
             for layer, leaves in state_template.params.items():
                 for name, t in leaves.items():
                     t.copy_(tree["params"][layer][name])
-        state_template.optimizer.load_state_dict(tree["optimizer"])
+        _load_optimizer(state_template.optimizer, tree["optimizer"])
         state_template.step = int(tree["step"])
         return state_template, int(step)
 

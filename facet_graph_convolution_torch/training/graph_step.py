@@ -1,0 +1,166 @@
+"""Multi-step train calls: the port's counterpart of
+``facet_graph_convolution_tpu/training/trainer.py::make_scanned_train_step``
+(a jitted ``lax.scan`` over ``steps_per_call`` steps) and of the vertex
+step's ``scanned``.
+
+On the card one train step (forward through K1/K2/K3, backward, the
+capturable Adam update) is captured once as a ``torch.cuda.CUDAGraph`` and
+replayed, once a step. A call of N steps does on the host:
+
+1. copy the N steps' draws (drawn by the caller in the order N single steps
+   draw them, plus each step's learning rate ``schedule(step)``) from
+   pinned memory into static device buffers ``[steps_per_call, ...]``;
+2. set a device counter to 0 and replay the graph N times; the captured step
+   reads its draws at the counter (``index_select``), writes its loss to the
+   loss buffer there and adds one to the counter, so one step costs the host
+   one ``replay()``;
+3. copy the N losses into pinned host memory behind an event.
+
+Nothing in a call waits for the device; :meth:`CallLosses.numpy` waits for
+the event once, which the training loops do one call late (the JAX loop's
+deferred ``consume``). The first call runs its first step eagerly on a side
+stream (the warm-up whole-network capture needs: lazy state, cuBLAS
+workspaces) and captures the second; the warm-up is a real step of the call.
+A failed capture raises: there is no eager fallback on the card.
+
+On the CPU the same step runs eagerly, once a step, on the same buffers and
+counter (the caller asked for the CPU; the tests drive this path).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr) -> None:
+    """Set every group's learning rate: in place into the tensor a capturable
+    Adam holds on the card (a graph reads it at replay; a Python float would
+    be frozen into the graph), else as a Python float."""
+    for group in optimizer.param_groups:
+        if torch.is_tensor(group["lr"]):
+            if torch.is_tensor(lr):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"].fill_(lr)
+        else:
+            group["lr"] = float(lr)
+
+
+class CallLosses:
+    """The per-step losses of one call, read on the host once."""
+
+    def __init__(self, host: torch.Tensor, event: Optional[torch.cuda.Event]):
+        self._host, self._event = host, event
+
+    def numpy(self) -> np.ndarray:
+        """The losses [N]; on the card this waits for the call's event (its
+        one host synchronisation)."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+class GraphStep:
+    """Up to ``steps_per_call`` train steps a call of ``loss_fn(params,
+    **draw) → loss`` on ``state`` (a ``trainer.TrainState``; its Adam must be
+    capturable on the card). ``__call__(state, draws) → (state, losses)``:
+    ``draws`` maps names to CPU tensors ``[N, ...]``, one row a step, the
+    same names every call; the state is updated in place and its ``step``
+    advanced by N.
+
+    After the first call on the card: ``capture_s`` (the capture's host
+    seconds) and ``graph_bytes`` (the device memory the capture allocated,
+    ``torch.cuda.max_memory_allocated`` around it)."""
+
+    def __init__(self, state, loss_fn: Callable[..., torch.Tensor], steps_per_call: int):
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+        self.loss_fn = loss_fn
+        self.steps_per_call = steps_per_call
+        self.device = next(iter(next(iter(state.params.values())).values())).device
+        self.on_card = self.device.type == "cuda"
+        self.buffers: Optional[Dict[str, torch.Tensor]] = None
+        self.losses = torch.zeros(steps_per_call, device=self.device)
+        self.counter = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.capture_s: Optional[float] = None
+        self.graph_bytes: Optional[int] = None
+        self._state = state
+
+    def _step(self) -> None:
+        """One train step on the draws at the counter; it advances the
+        counter and waits for nothing, so it can be captured."""
+        draw = {name: buf.index_select(0, self.counter)[0]
+                for name, buf in self.buffers.items()}
+        lr = draw.pop("lr")
+        optimizer = self._state.optimizer
+        loss = self.loss_fn(self._state.params, **draw)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        set_learning_rate(optimizer, lr)
+        optimizer.step()
+        self.losses.index_copy_(0, self.counter, loss.detach().reshape(1))
+        self.counter.add_(1)
+
+    def _capture(self) -> None:
+        """The call's first step eagerly on a side stream, then the capture
+        of one step (executed only by replays)."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._step()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        before = torch.cuda.memory_allocated(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        # the gradients are made in the graph's pool, written by its backward
+        self._state.optimizer.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            self._step()
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+        self.graph_bytes = torch.cuda.max_memory_allocated(self.device) - before
+        self.graph = graph
+
+    def __call__(self, state, draws: Dict[str, torch.Tensor]):
+        if state is not self._state:
+            raise ValueError("GraphStep: called with another state than it was built for")
+        chunk = len(next(iter(draws.values())))
+        if not 0 < chunk <= self.steps_per_call:
+            raise ValueError(f"GraphStep: {chunk} steps in a call of at most "
+                             f"{self.steps_per_call}")
+        draws = {**draws, "lr": torch.tensor(
+            [state.schedule(state.step + j) for j in range(chunk)], dtype=torch.float64)}
+        if self.buffers is None:
+            self.buffers = {name: torch.zeros((self.steps_per_call, *d.shape[1:]), dtype=d.dtype,
+                                              device=self.device) for name, d in draws.items()}
+        if set(draws) != set(self.buffers):
+            raise ValueError(f"GraphStep: draws {sorted(draws)}, want {sorted(self.buffers)}")
+        self.counter.zero_()
+        for name, d in draws.items():
+            if len(d) != chunk:
+                raise ValueError(f"GraphStep: {len(d)} rows of {name!r}, want {chunk}")
+            self.buffers[name][:chunk].copy_(d.pin_memory() if self.on_card else d,
+                                             non_blocking=self.on_card)
+        state.step += chunk
+        if not self.on_card:
+            for _ in range(chunk):
+                self._step()
+            return state, CallLosses(self.losses[:chunk].clone(), None)
+        done = 0
+        if self.graph is None:
+            self._capture()
+            done = 1
+        for _ in range(chunk - done):
+            self.graph.replay()
+        host = torch.empty(chunk, pin_memory=True)
+        host.copy_(self.losses[:chunk], non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return state, CallLosses(host, event)

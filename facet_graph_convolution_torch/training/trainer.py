@@ -21,8 +21,14 @@ tables, or the naive form), ``full_chamfer_loss`` on sampled points (plus
 ``normals_weight`` × the angular loss of the fine head), the backward from
 the chamfer loss through the solver's iterations into the U-Net, Adam.
 
-Not ported yet (each raises): ``steps_per_call > 1`` (a CUDA graph around
-the step, ROADMAP queue 1), bf16 compute, and vertex training under the
+``steps_per_call > 1`` runs chunks of steps through
+:class:`..graph_step.GraphStep` (the JAX package's ``lax.scan`` calls): on
+the card each step is one replay of a captured CUDA graph, on the CPU the
+same step runs eagerly. The normals loop stacks the patches
+(:func:`stack_patch_tensors`) and picks each step's patch on the device;
+the vertex loop pins one patch a chunk, with a graph a patch.
+
+Not ported yet (each raises): bf16 compute, and vertex training under the
 naive solver on the card (the scale kernel has no backward yet).
 """
 
@@ -32,7 +38,7 @@ import math
 import os
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +69,7 @@ from facet_graph_convolution_torch.ops.vertex_update import (
     update_positions_multiscale_operator,
 )
 from facet_graph_convolution_torch.training.checkpoint import CheckpointManager
+from facet_graph_convolution_torch.training.graph_step import GraphStep, set_learning_rate
 
 ADAM_BETAS = (0.9, 0.999)   # optax.adam defaults
 ADAM_EPS = 1e-8             # added outside the square root, as optax does
@@ -71,8 +78,10 @@ ADAM_EPS = 1e-8             # added outside the square root, as optax does
 @dataclass
 class TrainState:
     """Parameters (a dict of layers of leaf tensors that require grad), the
-    Adam optimizer over them, its learning-rate schedule and the number of
-    updates applied (optax's ``count``; the JAX package's ``state.step``)."""
+    Adam optimizer over them (capturable on the card: its learning rate and
+    update counts are device tensors, so a CUDA graph can replay it), its
+    learning-rate schedule and the number of updates applied (optax's
+    ``count``; the JAX package's ``state.step``)."""
 
     params: Dict[str, Dict[str, torch.Tensor]]
     optimizer: torch.optim.Adam
@@ -132,7 +141,10 @@ def create_train_state(
     converted from the JAX package), Adam with optax's defaults, and the
     schedule of :func:`lr_schedule`. ``num_steps`` sizes the cosine
     horizon; ``multi_scale`` adds the mid and coarse heads of vertex
-    training."""
+    training. On the card Adam is ``capturable`` with a tensor learning
+    rate, for one step a call as for many, so that both run the same
+    arithmetic; the CPU keeps the plain Adam (PyTorch refuses a capturable
+    one on CPU parameters)."""
     if cfg.model.compute_dtype != "float32":
         raise NotImplementedError(
             f"training: compute_dtype {cfg.model.compute_dtype!r} is not ported yet (float32)")
@@ -147,8 +159,13 @@ def create_train_state(
     params = {layer: {name: t.detach().to(device).clone().requires_grad_()
                       for name, t in leaves.items()} for layer, leaves in params.items()}
     schedule = lr_schedule(cfg, num_steps)
-    optimizer = torch.optim.Adam(_leaves(params), lr=schedule(0), betas=ADAM_BETAS,
-                                 eps=ADAM_EPS)
+    if torch.device(device).type == "cuda":
+        optimizer = torch.optim.Adam(
+            _leaves(params), lr=torch.tensor(schedule(0), dtype=torch.float32, device=device),
+            betas=ADAM_BETAS, eps=ADAM_EPS, capturable=True, foreach=True)
+    else:
+        optimizer = torch.optim.Adam(_leaves(params), lr=schedule(0), betas=ADAM_BETAS,
+                                     eps=ADAM_EPS)
     return TrainState(params, optimizer, schedule, 0)
 
 
@@ -157,9 +174,10 @@ def adam_state_from_optax(state: TrainState, mu: Mapping, nu: Mapping, count: in
     parameter pytrees with numpy leaves (``ScaleByAdamState.mu``/``.nu``),
     ``count`` its update count. Afterwards both packages apply the same next
     update from the same parameters."""
+    capturable = state.optimizer.param_groups[0]["capturable"]
     for p, m, v in zip(_leaves(state.params), _leaves(mu), _leaves(nu)):
         state.optimizer.state[p] = {
-            "step": torch.tensor(float(count)),
+            "step": torch.tensor(float(count), device=p.device if capturable else None),
             "exp_avg": torch.tensor(np.asarray(m, np.float32), device=p.device),
             "exp_avg_sq": torch.tensor(np.asarray(v, np.float32), device=p.device)}
     state.step = int(count)
@@ -170,8 +188,7 @@ def adam_update(state: TrainState) -> TrainState:
     """Apply one Adam update with the gradients held in the parameters'
     ``.grad``, at the learning rate ``schedule(step)`` (optax's order), and
     count it."""
-    for group in state.optimizer.param_groups:
-        group["lr"] = state.schedule(state.step)
+    set_learning_rate(state.optimizer, state.schedule(state.step))
     state.optimizer.step()
     state.step += 1
     return state
@@ -246,11 +263,137 @@ def make_normals_eval_step(cfg: Config, generator: Optional[torch.Generator] = N
     return eval_step
 
 
-def _refuse_steps_per_call(name: str, steps_per_call: int) -> None:
-    if steps_per_call != 1:
-        raise NotImplementedError(
-            f"{name}: steps_per_call > 1 (a CUDA graph around the step, ROADMAP queue 1) "
-            "is not ported yet")
+class PatchStack(NamedTuple):
+    """Train-step tensors of patches that share one node count, stacked on
+    one device (the JAX package's ``_stack_patch_arrays``, trainer.py:
+    321-369): ``xs`` [P, N, C] and ``gts`` [P, N, 3]; per level ``adjs``
+    [P, K', N'], ``adj_ts`` [P, N', K_t] and ``rows`` [P, K'+1, N', 1],
+    zero-padded to the largest K' and K_t."""
+
+    xs: torch.Tensor
+    adjs: List[torch.Tensor]
+    adj_ts: List[torch.Tensor]
+    rows: List[torch.Tensor]
+    gts: torch.Tensor
+
+    def select(self, idx: torch.Tensor):
+        """Patch ``idx`` (a [1] int64 tensor on the stack's device) as the
+        tuple of :func:`patch_tensors`, taken by ``index_select`` (JAX's
+        ``take``, trainer.py:391-399), so a captured step picks it on the
+        device."""
+        def take(t):
+            return t.index_select(0, idx)[0]
+
+        return (take(self.xs), [take(a) for a in self.adjs], [take(a) for a in self.adj_ts],
+                [take(r) for r in self.rows], take(self.gts))
+
+
+def _stack_padded(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Stack, each tensor zero-padded at the end of every axis to the
+    largest size there."""
+    shape = [max(sizes) for sizes in zip(*(t.shape for t in tensors))]
+    padded = []
+    for t in tensors:
+        pad = []
+        for dim in reversed(range(t.dim())):
+            pad += [0, shape[dim] - t.shape[dim]]
+        padded.append(torch.nn.functional.pad(t, pad))
+    return torch.stack(padded)
+
+
+def stack_patch_tensors(patches: Sequence[FacetPatch], device: str) -> PatchStack:
+    """:class:`PatchStack` of ``patches``, which must share one node count
+    (:func:`pad_patch_to` the largest bucket first, as the JAX loop does).
+    Every level's node axis N' is then the same for all, so only the slot
+    axes are padded: the extra slots of ``adjs`` are 0 (they gather the zero
+    row), their ``rows`` 0 (multiplicity 0), and the transpose maps, whose
+    one-indexed flat slots ``k·N' + n`` do not depend on K', still list
+    every slot that reads a node (``graph/convert.py::transpose_adjacency``),
+    padded with 0 to the largest K_t."""
+    counts = sorted({p.num_nodes for p in patches})
+    if len(counts) != 1:
+        raise ValueError(f"stack_patch_tensors: the patches have node counts {counts}; pad "
+                         "them to one (pad_patch_to) first")
+    per = [patch_tensors(p, device) for p in patches]
+    levels = range(len(per[0][1]))
+    return PatchStack(
+        torch.stack([t[0] for t in per]),
+        [_stack_padded([t[1][lvl] for t in per]) for lvl in levels],
+        [_stack_padded([t[2][lvl] for t in per]) for lvl in levels],
+        [_stack_padded([t[3][lvl] for t in per]) for lvl in levels],
+        torch.stack([t[4] for t in per]))
+
+
+def normals_draws(cfg: Config, generator: torch.Generator, idxs: Sequence[int],
+                  num_nodes: int) -> Dict[str, torch.Tensor]:
+    """The draws of ``len(idxs)`` normals steps for :class:`GraphStep`, in
+    the order as many steps of :func:`make_normals_train_step` draw them
+    from ``generator``: per step the rotation (when
+    ``cfg.train.augment_rotations``), then ``loss_samples`` faces of
+    ``num_nodes``. ``idx`` holds the steps' patch indices into the stack."""
+    augment = cfg.train.augment_rotations
+    rots, samples = [], []
+    for _ in idxs:
+        if augment:
+            rots.append(random_rotation(generator))
+        samples.append(torch.randint(0, num_nodes, (cfg.train.loss_samples,), generator=generator))
+    draws = {"idx": torch.as_tensor(np.asarray(idxs), dtype=torch.int64).reshape(-1, 1),
+             "sample_idx": torch.stack(samples)}
+    if augment:
+        draws["rot"] = torch.stack(rots)
+    return draws
+
+
+def make_scanned_train_step(state: TrainState, cfg: Config, stack: PatchStack,
+                            steps_per_call: int) -> GraphStep:
+    """Up to ``steps_per_call`` normals steps a call over the stacked
+    patches (JAX ``make_scanned_train_step``, trainer.py:372-404), each step
+    taking its patch from ``stack`` at its drawn index on the device:
+    ``(state, normals_draws(...)) → (state, losses)``."""
+    def loss_fn(params, idx, sample_idx, rot=None):
+        return normals_loss(params, cfg, *stack.select(idx), sample_idx, rot)
+
+    return GraphStep(state, loss_fn, steps_per_call)
+
+
+def _chunk_loop(iters: int, steps_per_call: int, run_chunk, finish_chunk,
+                periods: Sequence[int]) -> bool:
+    """Chunks of ``steps_per_call`` steps, the last one shorter, so that
+    exactly ``iters`` updates are applied. ``run_chunk(chunk)`` enqueues a
+    chunk and returns its :class:`..graph_step.CallLosses`;
+    ``finish_chunk(it, chunk, losses)`` reads them after ``it`` updates and
+    returns False to abort. A chunk is finished after the next one is
+    enqueued (the JAX loop's deferred ``consume``, trainer.py:466-512),
+    except where it crosses a multiple of one of ``periods`` (the
+    checkpoint's and the validation's): those need the state as of that
+    chunk, and the port updates it in place. Returns False when aborted."""
+    it, pending = 0, None
+    while it < iters:
+        chunk = min(steps_per_call, iters - it)
+        losses = run_chunk(chunk)
+        it += chunk
+        if pending is not None and not finish_chunk(*pending):
+            return False
+        pending = (it, chunk, losses)
+        if any(_every(it, chunk, period) for period in periods):
+            done, pending = pending, None
+            if not finish_chunk(*done):
+                return False
+    return pending is None or finish_chunk(*pending)
+
+
+def _every(it: int, chunk: int, period: int) -> bool:
+    """Whether a chunk of ``chunk`` steps ending at ``it`` crossed a
+    multiple of ``period`` (JAX ``p_it % period < p_chunk``)."""
+    return it % period < chunk
+
+
+def _write_history(cfg: Config, loss_hist) -> np.ndarray:
+    hist = np.asarray(loss_hist, dtype=np.float64)
+    os.makedirs(cfg.train.network_path, exist_ok=True)
+    with open(os.path.join(cfg.train.network_path, cfg.train.net_name + ".csv"), "ab") as fh:
+        np.savetxt(fh, hist, delimiter=",")
+    return hist
 
 
 def train_normals(
@@ -271,8 +414,15 @@ def train_normals(
     to ``<network_path>/<net_name>.csv``. Resumes from the latest checkpoint.
     Each patch's kernel tables are built once, before the loop. Runs on CUDA
     unless ``device="cpu"``. Returns ``(state, history [rows, 2])``, each
-    row the smoothed train loss and the last validation loss."""
-    _refuse_steps_per_call("train_normals", steps_per_call)
+    row the smoothed train loss and the last validation loss.
+
+    ``steps_per_call > 1`` runs the JAX package's scanned loop
+    (trainer.py:451-512): the patches padded to the largest bucket and
+    stacked, one ``rng.integers(num_patches, size=steps_per_call)`` a chunk
+    (the JAX patch sequence), chunks of :func:`make_scanned_train_step` (a
+    CUDA graph replayed a step on the card) and a shorter last chunk, a
+    history row a chunk (its mean loss), checkpoints and validation at chunk
+    boundaries, and a NaN chunk aborting without the final save."""
     dev = str(resolve_device(device))
     iters = num_iterations or cfg.train.num_iterations
     log_every = log_every or cfg.train.eval_every
@@ -284,41 +434,73 @@ def train_normals(
     ckpt = CheckpointManager(cfg.train.network_path, cfg.train.net_name)
     state, start_step = ckpt.restore(state)
 
-    def tables(patches):
-        return [patch_tensors(pad_patch_to(p, bucket_size(p.num_nodes, bucket_align)), dev)
-                for p in patches]
+    def bucketed(patches):
+        return [pad_patch_to(p, bucket_size(p.num_nodes, bucket_align)) for p in patches]
 
-    arrays = tables(train_set.patches)
-    valid_arrays = tables(valid_set.patches) if valid_set else []
+    patches = bucketed(train_set.patches)
+    valid_arrays = [patch_tensors(p, dev) for p in bucketed(valid_set.patches)] if (
+        valid_set) else []
+
+    def validate() -> float:
+        return sum(float(eval_fn(state.params, *a)) for a in valid_arrays) / len(valid_arrays)
 
     rng = np.random.default_rng(cfg.train.seed)
     loss_hist: List[Tuple[float, float]] = []
     smooth_loss, smooth_n, last_valid = 0.0, 0, float("nan")
     poisoned = False
     t_start = time.time()
-    for it in range(iters):
-        if it > 0 and it % cfg.train.save_every == 0:
-            if poisoned:
-                break
-            ckpt.save(start_step + it, state)
-        x, adjs, adj_ts, rows, gt = arrays[int(rng.integers(len(arrays)))]
-        state, loss = step_fn(state, x, adjs, adj_ts, rows, gt)
-        loss = float(loss)
-        if not math.isfinite(loss):
-            if not poisoned:
-                print(f"iter {it}: non-finite training loss — aborting at the next checkpoint")
-            poisoned = True
-        smooth_loss += loss
-        smooth_n += 1
-        if it % log_every == 0:
-            avg = smooth_loss / max(smooth_n, 1)
-            print(f"iter {it}: train loss {avg:.4f} ({(time.time() - t_start):.1f}s)")
+    if steps_per_call > 1:
+        target = max(p.num_nodes for p in patches)
+        scanned = make_scanned_train_step(
+            state, cfg, stack_patch_tensors([pad_patch_to(p, target) for p in patches], dev),
+            steps_per_call)
+
+        def run_chunk(chunk):
+            idxs = rng.integers(len(patches), size=steps_per_call)[:chunk]
+            return scanned(state, normals_draws(cfg, generator, idxs, target))[1]
+
+        def finish_chunk(it, chunk, losses):
+            nonlocal last_valid
+            avg = float(losses.numpy().mean())
             loss_hist.append((avg, last_valid))
-            smooth_loss, smooth_n = 0.0, 0
-        if valid_arrays and it % cfg.train.valid_every == 0:
-            vloss = sum(float(eval_fn(state.params, *a)) for a in valid_arrays)
-            last_valid = vloss / len(valid_arrays)
-            print(f"iter {it}: validation loss {last_valid:.4f}")
+            print(f"iter {it}: train loss {avg:.4f} ({(time.time() - t_start):.1f}s)")
+            if not math.isfinite(avg):
+                return False
+            if _every(it, chunk, cfg.train.save_every):
+                ckpt.save(start_step + it, state)
+            if valid_arrays and _every(it, chunk, cfg.train.valid_every):
+                last_valid = validate()
+                print(f"iter {it}: validation loss {last_valid:.4f}")
+            return True
+
+        poisoned = not _chunk_loop(
+            iters, steps_per_call, run_chunk, finish_chunk,
+            [cfg.train.save_every] + ([cfg.train.valid_every] if valid_arrays else []))
+    else:
+        arrays = [patch_tensors(p, dev) for p in patches]
+        for it in range(iters):
+            if it > 0 and it % cfg.train.save_every == 0:
+                if poisoned:
+                    break
+                ckpt.save(start_step + it, state)
+            x, adjs, adj_ts, rows, gt = arrays[int(rng.integers(len(arrays)))]
+            state, loss = step_fn(state, x, adjs, adj_ts, rows, gt)
+            loss = float(loss)
+            if not math.isfinite(loss):
+                if not poisoned:
+                    print(f"iter {it}: non-finite training loss — aborting at the next "
+                          "checkpoint")
+                poisoned = True
+            smooth_loss += loss
+            smooth_n += 1
+            if it % log_every == 0:
+                avg = smooth_loss / max(smooth_n, 1)
+                print(f"iter {it}: train loss {avg:.4f} ({(time.time() - t_start):.1f}s)")
+                loss_hist.append((avg, last_valid))
+                smooth_loss, smooth_n = 0.0, 0
+            if valid_arrays and it % cfg.train.valid_every == 0:
+                last_valid = validate()
+                print(f"iter {it}: validation loss {last_valid:.4f}")
 
     if poisoned:
         # a non-finite loss leaves the parameters poisoned: never persist them
@@ -326,11 +508,7 @@ def train_normals(
     else:
         ckpt.save(start_step + iters, state)
     ckpt.close()
-    hist = np.asarray(loss_hist, dtype=np.float64)
-    os.makedirs(cfg.train.network_path, exist_ok=True)
-    with open(os.path.join(cfg.train.network_path, cfg.train.net_name + ".csv"), "ab") as fh:
-        np.savetxt(fh, hist, delimiter=",")
-    return state, hist
+    return state, _write_history(cfg, loss_hist)
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +595,13 @@ def make_vertex_train_step(cfg: Config, normals_weight: float = 0.0,
 
     ``step.eval(params, tensors, rot=None, idx0=None, idx1=None)`` is the
     same loss under ``torch.no_grad()``, with no backward (the reference's
-    validation loss, train.py:859-888)."""
+    validation loss, train.py:859-888).
+
+    ``step.draw(tensors, count)`` draws ``count`` steps' values on the host,
+    in the order as many steps draw them, and ``step.scanned(state, tensors,
+    steps_per_call)`` is a :class:`GraphStep` of this step on one patch (the
+    JAX step's ``scanned``, trainer.py:921-933): ``(state,
+    step.draw(tensors, N)) → (state, losses)``."""
     generator = _default_generator(cfg, generator)
     samples = cfg.train.chamfer_samples
 
@@ -443,7 +627,22 @@ def make_vertex_train_step(cfg: Config, normals_weight: float = 0.0,
             return vertex_loss(params, cfg, tensors, *draws(tensors, rot, idx0, idx1),
                                normals_weight)
 
+    def draw(tensors: VertexTensors, count: int) -> Dict[str, torch.Tensor]:
+        rows = [[random_rotation(generator),
+                 torch.randint(0, tensors.vertices.shape[0], (samples,), generator=generator),
+                 torch.randint(0, tensors.gt_vertices.shape[0], (samples,), generator=generator)]
+                for _ in range(count)]
+        return {name: torch.stack(col) for name, col in zip(("rot", "idx0", "idx1"), zip(*rows))}
+
+    def scanned(state: TrainState, tensors: VertexTensors, steps_per_call: int) -> GraphStep:
+        def loss_fn(params, rot, idx0, idx1):
+            return vertex_loss(params, cfg, tensors, rot, idx0, idx1, normals_weight)
+
+        return GraphStep(state, loss_fn, steps_per_call)
+
     step.eval = eval_loss
+    step.draw = draw
+    step.scanned = scanned
     return step
 
 
@@ -469,8 +668,15 @@ def train_with_vertices(
     loss) appended to ``<network_path>/<net_name>.csv``. Runs on CUDA unless
     ``device="cpu"``; there ``vertex_solver="naive"`` is refused before any
     step, since the naive solver's scale kernel has no backward yet.
-    Returns ``(state, history [steps, 2])``."""
-    _refuse_steps_per_call("train_with_vertices", steps_per_call)
+    Returns ``(state, history [rows, 2])``.
+
+    ``steps_per_call > 1`` runs the JAX package's chunk loop (trainer.py:
+    1017-1043): one ``rng.integers(num_patches)`` a chunk pins its patch
+    (vertex patches differ in V and faces, so they are not stacked), the
+    chunk runs through that patch's ``step.scanned`` (on the card a CUDA
+    graph a patch, captured at its first use, each graph in its own memory
+    pool), a shorter last chunk, a history row a chunk (its mean loss), and
+    validation, checkpoints and the NaN abort at chunk boundaries."""
     dev = resolve_device(device)
     if cfg.eval.vertex_solver == "naive" and dev.type == "cuda":
         raise NotImplementedError(
@@ -490,35 +696,67 @@ def train_with_vertices(
     valid_arrays = [vertex_patch_tensors(cfg, p, dev) for p in valid_set.patches] if (
         valid_set is not None) else []
 
+    def validate() -> float:
+        return sum(float(step_fn.eval(state.params, a)) for a in valid_arrays) / len(valid_arrays)
+
     rng = np.random.default_rng(cfg.train.seed)
     loss_hist: List[Tuple[float, float]] = []
     last_valid = float("nan")
     aborted = False
     t_start = time.time()
     save_every = min(cfg.train.save_every, 500)
-    for it in range(iters):
-        if it > 0 and it % save_every == 0:
-            ckpt.save(start_step + it, state)
-        state, loss = step_fn(state, arrays[int(rng.integers(len(arrays)))])
-        loss = float(loss)
-        if valid_arrays and it % cfg.train.valid_every == 0:
-            last_valid = sum(float(step_fn.eval(state.params, a))
-                             for a in valid_arrays) / len(valid_arrays)
+    graphs: Dict[int, GraphStep] = {}     # a patch's step.scanned, made at its first chunk
+
+    def run_chunk(chunk):
+        idx = int(rng.integers(len(arrays)))
+        if idx not in graphs:
+            graphs[idx] = step_fn.scanned(state, arrays[idx], steps_per_call)
+        graph = graphs[idx]
+        captured = graph.graph is None
+        _, losses = graph(state, step_fn.draw(arrays[idx], chunk))
+        if captured and graph.capture_s is not None:
+            print(f"patch {idx}: step graph captured in {graph.capture_s:.3f} s, "
+                  f"{graph.graph_bytes / 2**20:.1f} MiB")
+        return losses
+
+    def finish_chunk(it, chunk, losses):
+        nonlocal last_valid
+        avg = float(losses.numpy().mean())
+        if valid_arrays and _every(it, chunk, cfg.train.valid_every):
+            last_valid = validate()
             print(f"iter {it}: validation loss {last_valid:.4f}")
-        loss_hist.append((loss, last_valid))
-        if it % log_every == 0:
-            print(f"iter {it}: loss {loss:.4f} ({time.time() - t_start:.1f}s)")
-        if not math.isfinite(loss):
-            # the update just applied is poisoned: never persist it
+        loss_hist.append((avg, last_valid))
+        print(f"iter {it}: vertex loss {avg:.4f} ({time.time() - t_start:.1f}s)")
+        if not math.isfinite(avg):
             print("NaN training loss — aborting; the state is not saved")
-            aborted = True
-            break
+            return False
+        if _every(it, chunk, save_every):
+            ckpt.save(start_step + it, state)
+        return True
+
+    if steps_per_call > 1:
+        aborted = not _chunk_loop(
+            iters, steps_per_call, run_chunk, finish_chunk,
+            [save_every] + ([cfg.train.valid_every] if valid_arrays else []))
+    else:
+        for it in range(iters):
+            if it > 0 and it % save_every == 0:
+                ckpt.save(start_step + it, state)
+            state, loss = step_fn(state, arrays[int(rng.integers(len(arrays)))])
+            loss = float(loss)
+            if valid_arrays and it % cfg.train.valid_every == 0:
+                last_valid = validate()
+                print(f"iter {it}: validation loss {last_valid:.4f}")
+            loss_hist.append((loss, last_valid))
+            if it % log_every == 0:
+                print(f"iter {it}: loss {loss:.4f} ({time.time() - t_start:.1f}s)")
+            if not math.isfinite(loss):
+                # the update just applied is poisoned: never persist it
+                print("NaN training loss — aborting; the state is not saved")
+                aborted = True
+                break
 
     if not aborted:
         ckpt.save(start_step + iters, state)
     ckpt.close()
-    hist = np.asarray(loss_hist, dtype=np.float64)
-    os.makedirs(cfg.train.network_path, exist_ok=True)
-    with open(os.path.join(cfg.train.network_path, cfg.train.net_name + ".csv"), "ab") as fh:
-        np.savetxt(fh, hist, delimiter=",")
-    return state, hist
+    return state, _write_history(cfg, loss_hist)

@@ -753,3 +753,211 @@ def test_train_with_vertices_refuses_the_naive_solver_on_card(cuda, tmp_path):
     with pytest.raises(NotImplementedError, match="no backward"):
         train_with_vertices(cfg, ds, num_iterations=1, device=str(cuda))
     assert not any(tmp_path.rglob("*.pt"))
+
+
+# ---------------------------------------------------------------------------
+# multi-step train calls: a train step captured as a CUDA graph
+# ---------------------------------------------------------------------------
+
+def optax_adam_reference(param, mu, nu, count, grad, lr, b1=0.9, b2=0.999, eps=1e-8):
+    """One ``optax.adam(lr)`` update in float32 numpy, as optax's
+    ``scale_by_adam`` and ``scale_by_learning_rate`` write it (held against
+    optax itself in tests/test_torch_scanned.py, where JAX is present):
+    returns ``(param, mu, nu, count)`` after it."""
+    f = np.float32
+    mu = (f(1 - b1) * grad + f(b1) * mu).astype(f)
+    nu = (f(1 - b2) * grad * grad + f(b2) * nu).astype(f)
+    count = count + 1
+    mu_hat = mu / f(1 - f(b1) ** f(count))
+    nu_hat = nu / f(1 - f(b2) ** f(count))
+    update = mu_hat / (np.sqrt(nu_hat) + f(eps))
+    return (param + f(-lr) * update).astype(f), mu, nu, count
+
+
+def _graph_case(model=None):
+    from facet_graph_convolution_torch.data.dataset import TrainingSet
+
+    v, f = icosphere(3)
+    ds = TrainingSet(max_patch_size=20000, coarsening_steps=2, coarsening_levels=3,
+                     k_faces=23, seed=0)
+    ds.add_mesh(add_vertex_noise(v, f, 0.2, np.random.default_rng(0)), f, gt_vertices=v)
+    cfg = default_config().replace(
+        model={"channels": SMALL["channels"], "num_filters": 4, "fc_channels": 32,
+               **(model or {})},
+        train={"loss_samples": 512})
+    return ds, cfg
+
+
+def _same_state(a, b):
+    from facet_graph_convolution_torch.training.trainer import _leaves
+
+    for p, q in zip(_leaves(a.params), _leaves(b.params)):
+        assert torch.equal(p, q)
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(sa[key], sb[key]), key
+
+
+@pytest.mark.parametrize("kind", ["default", "rotation_invariant", "vertex"])
+def test_graph_call_equals_eager_steps(cuda, kind):
+    """Two calls of 5 steps through the captured graph (the first: one eager
+    warm-up step, the capture, 4 replays; the second: 5 replays, with no
+    host synchronisation inside the call) against 10 steps of the eager
+    train step with the same capturable Adam and the same draws: the
+    losses, parameters and Adam state bit for bit (K1-K3 and the rest of
+    the step are repeatable). K1/K2 (and K3) run inside the graph: the
+    wrappers counted their launches at the warm-up and the capture only."""
+    from facet_graph_convolution_torch.training.trainer import (
+        create_train_state,
+        make_normals_train_step,
+        make_scanned_train_step,
+        make_vertex_train_step,
+        normals_draws,
+        patch_tensors,
+        stack_patch_tensors,
+        vertex_patch_tensors,
+    )
+
+    if kind == "vertex":
+        ds, cfg = _vertex_training_case()
+        patch = ds.patches[0]
+        tensors = vertex_patch_tensors(cfg, patch, str(cuda))
+        step = make_vertex_train_step(cfg, generator=torch.Generator().manual_seed(7))
+        graph_state = create_train_state(cfg, device=str(cuda), multi_scale=True)
+        eager_state = create_train_state(cfg, device=str(cuda), multi_scale=True)
+        scanned = step.scanned(graph_state, tensors, 5)
+        calls = [step.draw(tensors, 5) for _ in range(2)]
+
+        def eager(state, d, j):
+            return step(state, tensors, d["rot"][j], d["idx0"][j], d["idx1"][j])
+    else:
+        ds, cfg = _graph_case({"rotation_invariance": kind == "rotation_invariant"})
+        patch = ds.patches[0]
+        graph_state = create_train_state(cfg, device=str(cuda))
+        eager_state = create_train_state(cfg, device=str(cuda))
+        scanned = make_scanned_train_step(graph_state, cfg,
+                                          stack_patch_tensors([patch], str(cuda)), 5)
+        gen = torch.Generator().manual_seed(7)
+        calls = [normals_draws(cfg, gen, [0] * 5, patch.num_nodes) for _ in range(2)]
+        tensors = patch_tensors(patch, str(cuda))
+        normals_step = make_normals_train_step(cfg)
+
+        def eager(state, d, j):
+            return normals_step(state, *tensors, rot=d["rot"][j], sample_idx=d["sample_idx"][j])
+
+    counters = [k1.facet_conv_fwd, k1.facet_conv_bwd, k3.weighted_aggregate]
+    before = [fn.launches for fn in counters]
+    _, first = scanned(graph_state, calls[0])
+    after_capture = [fn.launches for fn in counters]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, second = scanned(graph_state, calls[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [fn.launches for fn in counters] == after_capture     # replays count nothing
+    per_step = {"default": [8, 8, 0], "rotation_invariant": [7, 7, 1], "vertex": [8, 8, 0]}
+    assert [a - b for a, b in zip(after_capture, before)] == [2 * n for n in per_step[kind]]
+    graph_losses = np.concatenate([first.numpy(), second.numpy()])
+    eager_losses = []
+    for d in calls:
+        for j in range(5):
+            eager_state, loss = eager(eager_state, d, j)
+            eager_losses.append(float(loss))
+    assert graph_state.step == eager_state.step == 10
+    np.testing.assert_array_equal(graph_losses, np.asarray(eager_losses, np.float32))
+    _same_state(graph_state, eager_state)
+    assert scanned.capture_s > 0 and scanned.graph_bytes > 0
+
+
+def test_capturable_adam_matches_optax(cuda):
+    """The card's Adam (capturable, a tensor learning rate) from an optax
+    state loaded by adam_state_from_optax, fed the same gradients for three
+    updates, against optax's update (the numpy reference above) within 1e-7,
+    the CPU Adam's bar in tests/test_torch_train.py."""
+    from facet_graph_convolution_torch.training.trainer import (
+        _leaves,
+        adam_state_from_optax,
+        adam_update,
+        create_train_state,
+    )
+
+    _, cfg = _graph_case()
+    state = create_train_state(cfg, device=str(cuda))
+    group = state.optimizer.param_groups[0]
+    assert group["capturable"] and torch.is_tensor(group["lr"])
+    rng = np.random.default_rng(4)
+    shapes = {layer: {n: tuple(t.shape) for n, t in leaves.items()}
+              for layer, leaves in state.params.items()}
+    mu = {a: {n: rng.normal(size=s).astype(np.float32) * 1e-2 for n, s in ls.items()}
+          for a, ls in shapes.items()}
+    nu = {a: {n: np.abs(rng.normal(size=s)).astype(np.float32) * 1e-4 for n, s in ls.items()}
+          for a, ls in shapes.items()}
+    adam_state_from_optax(state, mu, nu, 4)
+    leaves = _leaves(state.params)
+    ref = [(p.detach().cpu().numpy(), m, v, 4)
+           for p, m, v in zip(leaves, _leaves(mu), _leaves(nu))]
+    assert all(state.optimizer.state[p]["step"].device.type == "cuda" for p in leaves)
+    for _ in range(3):
+        grads = [rng.normal(size=p.shape).astype(np.float32) for p in leaves]
+        for p, g in zip(leaves, grads):
+            p.grad = torch.as_tensor(g, device=cuda)
+        adam_update(state)
+        ref = [optax_adam_reference(*r, g, cfg.train.learning_rate) for r, g in zip(ref, grads)]
+    for p, r in zip(leaves, ref):
+        np.testing.assert_allclose(p.detach().cpu().numpy(), r[0], atol=1e-7)
+    assert state.step == 7
+
+
+def test_card_checkpoint_resumes_on_card_and_loads_on_cpu(cuda, tmp_path):
+    """A checkpoint written by train_normals(steps_per_call=2) on the card
+    restores into the card's capturable Adam (update counts on the device)
+    and into the CPU's plain Adam (counts on the CPU, a float learning
+    rate); training resumes from it on the card and on the CPU."""
+    from facet_graph_convolution_torch.training.checkpoint import CheckpointManager
+    from facet_graph_convolution_torch.training.trainer import (
+        _leaves,
+        create_train_state,
+        train_normals,
+    )
+
+    ds, cfg = _graph_case()
+    cfg = cfg.replace(train={"network_path": str(tmp_path) + "/"})
+    state, _ = train_normals(cfg, ds, num_iterations=4, steps_per_call=2, device=str(cuda))
+    mgr = CheckpointManager(cfg.train.network_path, cfg.train.net_name)
+    assert mgr.steps() == [4]
+    for dev in (str(cuda), "cpu"):
+        restored, step = mgr.restore(create_train_state(cfg, device=dev))
+        group = restored.optimizer.param_groups[0]
+        assert step == 4 and group["capturable"] == (dev != "cpu")
+        for p, q in zip(_leaves(restored.params), _leaves(state.params)):
+            assert torch.equal(p.cpu(), q.cpu())
+            s = restored.optimizer.state[p]
+            assert s["step"].device.type == torch.device(dev).type and int(s["step"]) == 4
+            assert torch.equal(s["exp_avg"].cpu(), state.optimizer.state[q]["exp_avg"].cpu())
+    more, _ = train_normals(cfg, ds, num_iterations=2, steps_per_call=2, device=str(cuda))
+    assert more.step == 6
+    last, _ = train_normals(cfg, ds, num_iterations=1, device="cpu")
+    assert last.step == 7 and mgr.latest_step() == 7
+
+
+def test_capture_that_synchronises_raises(cuda):
+    """A step that reads a value on the host cannot be captured: the call
+    raises (there is no eager fallback on the card)."""
+    from facet_graph_convolution_torch.training.graph_step import GraphStep
+    from facet_graph_convolution_torch.training.trainer import create_train_state
+
+    _, cfg = _graph_case()
+    state = create_train_state(cfg, device=str(cuda))
+    w = state.params["fc1"]["w"]
+
+    def loss_fn(params, scale):
+        loss = (w * scale).square().mean()
+        if float(loss.detach()) < 0:    # a host read: legal eagerly, not in a capture
+            raise AssertionError
+        return loss
+
+    step = GraphStep(state, loss_fn, 3)
+    with pytest.raises(RuntimeError):
+        step(state, {"scale": torch.ones(3, 1)})
+    assert step.graph is None
+    torch.cuda.synchronize()

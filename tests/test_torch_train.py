@@ -565,8 +565,6 @@ def test_nan_loss_aborts_without_poisoned_checkpoint(port_sphere_set, tmp_path, 
 
 def test_training_refuses_what_is_not_ported(port_sphere_set):
     cfg = default_config().replace(model=MODEL)
-    with pytest.raises(NotImplementedError, match="CUDA graph"):
-        train_normals(cfg, port_sphere_set, num_iterations=1, steps_per_call=4, device="cpu")
     with pytest.raises(NotImplementedError):
         create_train_state(cfg.replace(model={"compute_dtype": "bfloat16"}), device="cpu")
     with pytest.raises(NotImplementedError, match="streaming"):
@@ -596,10 +594,8 @@ def test_cli_preprocess_train_infer(tmp_path, monkeypatch, capsys):
     for name in ("trainingSet.npz", "validSet.npz"):
         assert (base / "Preprocessed_Data" / name).is_file()
 
-    for extra, match in ((["--steps_per_call", "4"], "CUDA-graph"),
-                         (["--stream_dir", str(tmp_path)], "streaming")):
-        with pytest.raises(NotImplementedError, match=match):
-            cli_train.main(common + ["--device", "cpu"] + extra)
+    with pytest.raises(NotImplementedError, match="streaming"):
+        cli_train.main(common + ["--device", "cpu", "--stream_dir", str(tmp_path)])
     with monkeypatch.context() as mp:
         mp.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -610,6 +606,13 @@ def test_cli_preprocess_train_infer(tmp_path, monkeypatch, capsys):
     rows = np.loadtxt(str(tmp_path / "nets" / "net.csv"), delimiter=",", ndmin=2)
     assert rows.shape == (1, 2) and np.isfinite(rows[0, 0])
     assert "validation loss" in capsys.readouterr().out       # validSet.npz was read
+    # 6 steps at 4 a call: a chunk of 4 and one of 2, a CSV row each
+    nets4 = ["--network_path", str(tmp_path / "nets4")]
+    cli_train.main(common + nets4 + ["--device", "cpu", "--num_iterations", "6",
+                                     "--steps_per_call", "4"])
+    assert CheckpointManager(str(tmp_path / "nets4"), "net").steps() == [6]
+    rows = np.loadtxt(str(tmp_path / "nets4" / "net.csv"), delimiter=",", ndmin=2)
+    assert rows.shape == (2, 2) and np.isfinite(rows[:, 0]).all()
     cli_infer.main(common + ["--device", "cpu", "--input_dir", str(noisy_dir),
                              "--results_path", str(tmp_path / "out")])
     out_v, out_f, _ = load_obj(str(tmp_path / "out" / "sphere_n1_denoised.obj"))
