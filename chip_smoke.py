@@ -64,32 +64,50 @@ Phases, each fatal on failure:
    through K1/K2 match the plain conv's (as they are where no kink of the
    step lies on another side, and with every kink pinned to the float64
    step's), that ``step.eval`` gives the loss
-   the step reports for the same draws, and that training under the naive
-   solver is refused on the card (the scale kernel has no backward); prints
-   the preprocessing seconds, the step's median time over 20 steps, one
-   profiled step, and the solver's share of its device time;
-10. graph training: ``train_normals`` (default and rotation-invariant) and
-   ``train_with_vertices`` at ``steps_per_call=10`` for 30 steps each, at
-   full width on the two training sets, each call replaying a captured
-   CUDA graph of the step; checks finite losses, the update counts, the
-   checkpoints and the wrappers' launch counts (the warm-up step and the
-   capture: replays launch from the graph). Then for each of the three
-   steps, on the whole subdivision-5 icosphere and the largest vertex
-   patch: two calls through the graph (the second under torch's sync debug
-   mode set to raise, its only host synchronisation the loss read) equal as
-   many eager steps with the same draws bit for bit; K1, K2 (and K3) launch
-   a step from the graph counted in a profile (8, 8; 7, 7, 1; 8, 8); prints
-   the step time through the graph beside the eager step's, the device
-   busy share and activities a step of each, the capture time and the
-   graph's memory; last ``cli.train`` on the card with its default
-   ``--steps_per_call`` (100) for 150 steps;
-11. solver kernel: the scale kernel against its plain version at the three
+   the step reports for the same draws; prints the preprocessing seconds,
+   the step's median time over 20 steps, one profiled step, and the
+   solver's share of its device time;
+10. naive training: ``train_with_vertices(vertex_solver="naive")`` on the
+   same set for 30 eager steps at full width: finite losses, the
+   checkpoints, K1 8, K2 8, the scale kernel 3 and its adjoint
+   (``csrc/ms_solver_naive_bwd.cu``) 3 launches a step; the same gradient
+   check on the largest vertex patch, through K1/K2 against the plain conv
+   (the solver's kernels in both) and against the plain step in float64
+   (the plain solver loop under autograd);
+11. graph training: ``train_normals`` (default and rotation-invariant) and
+   ``train_with_vertices`` (operator and naive) at ``steps_per_call=10``
+   for 30 steps each, at full width on the two training sets, each call
+   replaying a captured CUDA graph of the step; checks finite losses, the
+   update counts, the checkpoints and the wrappers' launch counts (the
+   warm-up step and the capture: replays launch from the graph). Then for
+   each of the four steps, on the whole subdivision-5 icosphere and the
+   largest vertex patch: two calls through the graph (the second under
+   torch's sync debug mode set to raise, its only host synchronisation the
+   loss read) equal as many eager steps with the same draws bit for bit;
+   K1, K2, K3, the scale kernel and its adjoint launch a step from the
+   graph counted in profiles (8, 8, 0, 0, 0; 7, 7, 1, 0, 0; 8, 8, 0, 0, 0;
+   naive 8, 8, 0, 3, 3; the most of three, each traced from a warm-up
+   call on, since the profiler can drop activities); prints the step time through the graph beside the
+   eager step's, the device busy share and activities a step of each, the
+   capture time and the graph's memory; last ``cli.train`` on the card with
+   its default ``--steps_per_call`` (100) for 150 steps;
+12. budget: the naive vertex step through the graph on the vertex set with
+   a graph cache held to 1.5 graphs of the largest patch: evictions and
+   captures again, and the peak allocated and reserved memory within the
+   eager run's plus the budget;
+13. solver kernel: the scale kernel against its plain version at the three
    launches of the largest served patch's solve (the inputs the path gave
-   it), with its times per scale and per patch at the default grid and at
+   it), and its launch with the iterate store (training's) against its
+   serving launch, bit for bit, with its times per scale and per patch at the default grid and at
    one block an SM, the plain loop's times (pure PyTorch, and with the
    standalone K4 as before the redesign), the cost of one grid barrier, and
    its bound;
-12. pool kernel: K4 against its plain version, bit for bit, at the solver's
+14. adjoint kernel: the scale kernel's adjoint against the plain adjoint
+   (float32, and float64 on the same iterates) at the three launches of
+   the largest vertex patch's naive solve under autograd, bitwise
+   repeatable, with its times per scale and per patch, the plain adjoint's,
+   one grid barrier's, and its bound;
+15. pool kernel: K4 against its plain version, bit for bit, at the solver's
    two pools of the largest served patch, at C = 3 and N = 1,048,576, on
    rows of zeros, groups of zeros and -0.0 rows, and at steps 1, 2 and 3;
    prints its times and bound; the scale kernel's phase A alone at the
@@ -120,6 +138,10 @@ SOLVER_ATOL = 1e-4
 # the naive solve through the scale kernel against the plain solve, patch
 # frame: the same operations with the slot sums in another order
 NAIVE_ATOL = 1e-5
+# the scale kernel's adjoint against the plain adjoint, each gradient scaled
+# to max 1: float32 sums in another order over up to 80 iterations (both
+# within 8e-6 of the float64 adjoint on a 10k-face patch, H100)
+ADJOINT_ATOL = 1e-5
 CENTROID_ATOL = 1e-6
 SEVEN_FILES = ("_denoised.obj", "_d_mid.obj", "_d_coarse.obj", "_fine_normals_s.obj",
                "_original_normals.obj", "_mid_normals_s.obj", "_coarse_normals_s.obj")
@@ -877,11 +899,20 @@ def plain_solve(fn):
 
     kernels = (ms.naive_scale, k4.tree_pool_ignore_zeros)
     try:
-        ms.naive_scale = ms.naive_scale_plain
+        ms.naive_scale = plain_scale
         k4.tree_pool_ignore_zeros = k4.tree_pool_ignore_zeros_plain
         return fn()
     finally:
         ms.naive_scale, k4.tree_pool_ignore_zeros = kernels
+
+
+def plain_scale(x, faces, v_faces, fn, scale, steps, iters, **kernel_args):
+    """The plain loop in ``naive_scale``'s place (under autograd, autograd
+    through it); the kernels' own arguments (grid, maps, checkpoint) are
+    not its."""
+    from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
+
+    return ms.naive_scale_plain(x, faces, v_faces, fn, scale, steps, iters)
 
 
 def vertex_serving_phase(dev, workdir):
@@ -1044,6 +1075,8 @@ def vertex_gradient_check(state, cfg, tensors, rot, idx0, idx1):
 
     from facet_graph_convolution_torch.models import losses, unet
     from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
+    from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
     from facet_graph_convolution_torch.training import trainer
 
     names = [(layer, k) for layer in sorted(state.params) for k in sorted(state.params[layer])]
@@ -1093,18 +1126,29 @@ def vertex_gradient_check(state, cfg, tensors, rot, idx0, idx1):
     t64 = tensors._replace(**{f: getattr(tensors, f).double() for f in (
         "x", "vertices", "gt_vertices", "gt_normals")})
     runs = {}
-    kernels = (k1.facet_conv_fwd, k1.facet_conv_bwd)
+    # the plain step: the plain conv, the solver as in the step; the float64
+    # step: the plain conv and, under the naive solver, the plain loop under
+    # autograd with the plain K4 (the scale kernel and its adjoint take
+    # float32 only)
+    kernels = (k1.facet_conv_fwd, k1.facet_conv_bwd, ms.naive_scale, k4.tree_pool_ignore_zeros)
+    plain_conv = (k1.facet_conv_fwd_plain, k1.facet_conv_bwd_plain) + kernels[2:]
+    plains = plain_conv[:2] + (plain_scale, k4.tree_pool_ignore_zeros_plain)
+
+    def use(fns):
+        k1.facet_conv_fwd, k1.facet_conv_bwd, ms.naive_scale, k4.tree_pool_ignore_zeros = fns
+
     try:
         unet.lrelu, unet.tree_pool, trainer.full_chamfer_loss = (check_lrelu, check_pool,
                                                                   check_chamfer)
         for mode in ("as they are", "pinned to float64's"):
-            k1.facet_conv_fwd, k1.facet_conv_bwd = kernels
+            use(kernels)
             kernel = grads(state.params, tensors, (rot, idx0, idx1))
-            k1.facet_conv_fwd, k1.facet_conv_bwd = k1.facet_conv_fwd_plain, k1.facet_conv_bwd_plain
+            use(plain_conv)
             plain = grads(state.params, tensors, (rot, idx0, idx1))
+            use(plains)
             runs[mode] = (kernel, plain, grads(p64, t64, (rot.double(), idx0, idx1)))
     finally:
-        k1.facet_conv_fwd, k1.facet_conv_bwd = kernels
+        use(kernels)
         unet.lrelu, unet.tree_pool, trainer.full_chamfer_loss = originals
 
     def worst(a, b):
@@ -1198,7 +1242,8 @@ def vertex_training_phase(dev, workdir):
           f"in {pre_s:.2f} s")
 
     counters = {"K1": k1.facet_conv_fwd, "K2": k1.facet_conv_bwd, "K3": k3.weighted_aggregate,
-                "K4": k4.tree_pool_ignore_zeros, "solver": ms.naive_scale}
+                "K4": k4.tree_pool_ignore_zeros, "solver": ms.naive_scale,
+                "adjoint": ms.naive_scale_backward}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1215,7 +1260,7 @@ def vertex_training_phase(dev, workdir):
         raise AssertionError(f"vertex training: loss {losses[0]} → {losses[-1]} (want the last "
                              "below 5× the first)")
     want = {"K1": 8 * VERTEX_TRAIN_STEPS, "K2": 8 * VERTEX_TRAIN_STEPS, "K3": 0, "K4": 0,
-            "solver": 0}
+            "solver": 0, "adjoint": 0}
     if launches != want or state.step != VERTEX_TRAIN_STEPS:
         raise AssertionError(f"vertex training: launches {launches}, want {want}; "
                              f"{state.step} updates in {VERTEX_TRAIN_STEPS} steps")
@@ -1291,24 +1336,98 @@ def vertex_training_phase(dev, workdir):
           f"activities), backward {bwd_ms:.3f} ms ({bwd_n}); together "
           f"{100 * (fwd_ms + bwd_ms) / step_busy:.1f}% of the step's device time")
 
-    naive = cfg.replace(eval={"vertex_solver": "naive"}, train={"net_name": "smoke_naive"})
-    try:
-        train_with_vertices(naive, train_set, num_iterations=1, device=str(dev))
-    except NotImplementedError as err:
-        if "no backward" not in str(err):
-            raise
-        print(f"  vertex_solver='naive' refused on the card: {err}")
-    else:
-        raise AssertionError("train_with_vertices trained under the naive solver on the card")
     print(f"  vertex training phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"cfg": cfg, "train_set": train_set, "tensors": tensors, "params": state.params}
+    return {"cfg": cfg, "train_set": train_set, "tensors": tensors, "params": state.params,
+            "largest": largest, "draws": (rot, idx0, idx1)}
+
+
+def naive_training_phase(dev, vertex_trained):
+    """Vertex training at full width under the naive solver on the vertex
+    training phase's set: ``train_with_vertices`` eager for
+    VERTEX_TRAIN_STEPS steps (the scale kernel forward, its adjoint kernel
+    backward); then on the largest vertex patch the vertex gradient check
+    (through K1/K2 against the plain conv, and against float64). Returns the
+    run's launches and its config."""
+    import torch
+
+    from facet_graph_convolution_torch.ops import aggregate as k3
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
+    from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
+    from facet_graph_convolution_torch.training.checkpoint import CheckpointManager
+    from facet_graph_convolution_torch.training.trainer import (
+        train_with_vertices,
+        vertex_patch_tensors,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = vertex_trained["cfg"].replace(eval={"vertex_solver": "naive"},
+                                        train={"net_name": "smoke_naive"})
+    train_set = vertex_trained["train_set"]
+    counters = {"K1": k1.facet_conv_fwd, "K2": k1.facet_conv_bwd, "K3": k3.weighted_aggregate,
+                "K4": k4.tree_pool_ignore_zeros, "solver": ms.naive_scale,
+                "adjoint": ms.naive_scale_backward}
+    print(f"naive training phase: train_with_vertices(vertex_solver='naive'), full width, "
+          f"{VERTEX_TRAIN_STEPS} eager steps over {len(train_set.patches)} patches")
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, hist = train_with_vertices(cfg, train_set, num_iterations=VERTEX_TRAIN_STEPS,
+                                      device=str(dev))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    losses = hist[:, 0]
+    if len(losses) != VERTEX_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"naive training: bad loss history {losses}")
+    want = {"K1": 8 * VERTEX_TRAIN_STEPS, "K2": 8 * VERTEX_TRAIN_STEPS, "K3": 0, "K4": 0,
+            "solver": 3 * VERTEX_TRAIN_STEPS, "adjoint": 3 * VERTEX_TRAIN_STEPS}
+    if launches != want or state.step != VERTEX_TRAIN_STEPS:
+        raise AssertionError(f"naive training: launches {launches}, want {want}; "
+                             f"{state.step} updates")
+    saved = CheckpointManager(cfg.train.network_path, cfg.train.net_name).steps()
+    if saved != [VERTEX_TRAIN_STEPS // 2, VERTEX_TRAIN_STEPS]:
+        raise AssertionError(f"naive training: checkpoints {saved}")
+    print(f"  {VERTEX_TRAIN_STEPS} steps in {train_s:.2f} s (maps, checkpoints and warm-up "
+          f"included): loss {losses[0]:.3f} → {losses[-1]:.3f}, min {losses.min():.3f}; launches "
+          f"{launches}; saved steps {saved}")
+
+    largest = vertex_trained["largest"]
+    tensors = vertex_patch_tensors(cfg, largest, str(dev))
+    vertex_gradient_check(state, cfg, tensors, *vertex_trained["draws"])
+    print(f"  naive training phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "cfg": cfg}
 
 
 GRAPH_STEPS = 10            # steps a call in the graph training phase
 GRAPH_TRAIN_STEPS = 30      # steps of each trainer run there (3 calls)
 # the kernels' names in a profile, counted a step: K2's pass B runs once a launch
 GRAPH_KERNELS = {"K1": "facet_conv_fwd_kernel", "K2": "transpose_sum_kernel",
-                 "K3": "weighted_aggregate_kernel"}
+                 "K3": "weighted_aggregate_kernel", "solver": "ms_solver_naive_kernel",
+                 "adjoint": "ms_solver_adjoint_kernel"}
+# K1, K2, K3, the scale kernel and its adjoint a step of each trainer
+PER_STEP = {"default": {"K1": 8, "K2": 8, "K3": 0, "solver": 0, "adjoint": 0},
+            "rotation-invariant": {"K1": 7, "K2": 7, "K3": 1, "solver": 0, "adjoint": 0},
+            "vertex": {"K1": 8, "K2": 8, "K3": 0, "solver": 0, "adjoint": 0},
+            "vertex naive": {"K1": 8, "K2": 8, "K3": 0, "solver": 3, "adjoint": 3}}
+
+
+GRAPH_PROFILES = 3           # profiled calls a step's launch count is read from
+
+
+def warm_profile(fn):
+    """Device activities of one call of ``fn``, profiled with its tracing
+    started one call earlier (a warm-up call whose activities are dropped)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return device_events(prof)
 
 
 def graph_vs_eager(label, scanned, graph_state, eager_state, eager_step, draw, per_step,
@@ -1320,12 +1439,13 @@ def graph_vs_eager(label, scanned, graph_state, eager_state, eager_step, draw, p
     for bit (losses, parameters, Adam state); then the step time through the
     graph (host clock over a call of GRAPH_STEPS, its draws and loss read
     included, / GRAPH_STEPS, median of 6 calls) beside the eager step's
-    (median of 10 after 3, each ending in its loss on the host), one
-    profiled call of ``profile_steps`` (device busy share and activities a
-    step; K1, K2 and K3 launches a step, which must equal ``per_step``) and
-    one profiled eager step. Returns the printed numbers."""
+    (median of 10 after 3, each ending in its loss on the host),
+    GRAPH_PROFILES profiled calls of ``profile_steps`` (device busy share and
+    activities a step from the fullest; launches a step of each kernel of
+    GRAPH_KERNELS, the most any profile saw, which must equal ``per_step``)
+    and one profiled eager step. Returns the printed numbers, and the
+    graph's ``held_bytes``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from facet_graph_convolution_torch.training.trainer import _leaves
 
@@ -1381,16 +1501,20 @@ def graph_vs_eager(label, scanned, graph_state, eager_state, eager_step, draw, p
     t0 = time.perf_counter()
     one_call()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one_call()
-        torch.cuda.synchronize()
-    events = device_events(prof)
-    busy_ms = sum(us for _, us in events) / 1e3
-    launches = {k: sum(kernel in name for name, _ in events) / profile_steps
-                for k, kernel in GRAPH_KERNELS.items()}
+    # The profiler can drop a call's device activities (the same call's count
+    # varies by a few; once 8 of a 2-step call's 16 K1 launches went missing)
+    # but never adds one. So each kernel's launches is the most that any of
+    # GRAPH_PROFILES profiles saw, and it must still equal ``per_step``: a
+    # kernel launched more or fewer times than that fails in every profile.
+    profiles = [warm_profile(one_call) for _ in range(GRAPH_PROFILES)]
+    seen = [{k: sum(kernel in name for name, _ in events) / profile_steps
+             for k, kernel in GRAPH_KERNELS.items()} for events in profiles]
+    launches = {k: max(s[k] for s in seen) for k in GRAPH_KERNELS}
     if launches != per_step:
-        raise AssertionError(f"{label}: kernel launches a step through the graph {launches}, "
-                             f"want {per_step}")
+        raise AssertionError(f"{label}: kernel launches a step through the graph {launches} "
+                             f"(the most of {GRAPH_PROFILES} profiles: {seen}), want {per_step}")
+    events = max(profiles, key=len)
+    busy_ms = sum(us for _, us in events) / 1e3
     graph_median = per_call[len(per_call) // 2]
     print(f"  {label}: step through the graph median {graph_median:.3f} ms (min "
           f"{per_call[0]:.3f}, max {per_call[-1]:.3f}; a call of {GRAPH_STEPS}, 6 calls), eager "
@@ -1399,31 +1523,35 @@ def graph_vs_eager(label, scanned, graph_state, eager_state, eager_step, draw, p
     print(f"  {label}: one profiled call of {profile_steps} steps through the graph: wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of "
           f"the unprofiled wall time), {len(events)} device activities "
-          f"({len(events) / profile_steps:.1f} a step); launches a step {launches}")
+          f"({len(events) / profile_steps:.1f} a step; the fullest of {GRAPH_PROFILES} "
+          f"profiles, which saw {[len(e) for e in profiles]}); launches a step {launches}")
     eager_wall, eager_busy, eager_n = device_profile(
         lambda: float(eager_step(eager_state, None, 0)[1]), f"{label}: one eager step")
     return {"graph_ms": graph_median, "eager_ms": eager_ms[len(eager_ms) // 2],
             "graph_busy_share": busy_ms / wall_ms, "graph_activities": len(events) / profile_steps,
             "eager_busy_share": eager_busy / eager_wall, "eager_activities": eager_n,
-            "capture_s": scanned.capture_s, "graph_mib": scanned.graph_bytes / 2**20}
+            "capture_s": scanned.capture_s, "graph_mib": scanned.graph_bytes / 2**20,
+            "held_bytes": scanned.held_bytes}
 
 
-def graph_training_phase(dev, trained, vertex_trained):
+def graph_training_phase(dev, trained, vertex_trained, naive_cfg):
     """Training with steps_per_call > 1 at full width: ``train_normals``
     (default and rotation-invariant) and ``train_with_vertices`` (operator
-    solver) at ``steps_per_call=GRAPH_STEPS`` for GRAPH_TRAIN_STEPS steps on
-    the training phases' sets, each call replaying a captured CUDA graph a
-    step; finite losses, the updates counted, and K1/K2/K3 counted by their
-    wrappers at the warm-up step and the capture only (replays launch from
-    the graph). Then, for each step, the graph against the eager step
+    and naive solver) at ``steps_per_call=GRAPH_STEPS`` for
+    GRAPH_TRAIN_STEPS steps on the training phases' sets, each call
+    replaying a captured CUDA graph a step; finite losses, the updates
+    counted, and K1/K2/K3 and the scale kernel and its adjoint counted by
+    their wrappers at the warm-up step and the capture only (replays launch
+    from the graph). Then, for each step, the graph against the eager step
     (:func:`graph_vs_eager`) on the whole subdivision-5 icosphere (normals)
     and the largest vertex patch, and ``cli.train`` on the card with its
-    default ``--steps_per_call`` (100)."""
+    default ``--steps_per_call`` (100). Returns the results by step."""
     import torch
 
     from facet_graph_convolution_torch.cli import train as cli_train
     from facet_graph_convolution_torch.ops import aggregate as k3
     from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
     from facet_graph_convolution_torch.training.checkpoint import CheckpointManager
     from facet_graph_convolution_torch.training.trainer import (
         create_train_state,
@@ -1434,22 +1562,26 @@ def graph_training_phase(dev, trained, vertex_trained):
         stack_patch_tensors,
         train_normals,
         train_with_vertices,
+        vertex_patch_tensors,
     )
 
     t_phase = time.perf_counter()
-    counters = {"K1": k1.facet_conv_fwd, "K2": k1.facet_conv_bwd, "K3": k3.weighted_aggregate}
+    counters = {"K1": k1.facet_conv_fwd, "K2": k1.facet_conv_bwd, "K3": k3.weighted_aggregate,
+                "solver": ms.naive_scale, "adjoint": ms.naive_scale_backward}
     vcfg = vertex_trained["cfg"]
     runs = (
-        ("default", trained["cfg"], trained["train_set"], train_normals, {"K1": 8, "K2": 8, "K3": 0}),
+        ("default", trained["cfg"], trained["train_set"], train_normals),
         ("rotation-invariant", trained["cfg"].replace(model={"rotation_invariance": True}),
-         trained["train_set"], train_normals, {"K1": 7, "K2": 7, "K3": 1}),
-        ("vertex", vcfg, vertex_trained["train_set"], train_with_vertices,
-         {"K1": 8, "K2": 8, "K3": 0}),
+         trained["train_set"], train_normals),
+        ("vertex", vcfg, vertex_trained["train_set"], train_with_vertices),
+        ("vertex naive", naive_cfg, vertex_trained["train_set"], train_with_vertices),
     )
     print(f"graph training phase: {GRAPH_TRAIN_STEPS} steps at steps_per_call={GRAPH_STEPS}, "
           "full width, a CUDA graph replayed a step")
-    for label, cfg, train_set, train, per_step in runs:
-        cfg = cfg.replace(train={"net_name": f"graph_{label}", "save_every": GRAPH_TRAIN_STEPS})
+    for label, cfg, train_set, train in runs:
+        per_step = PER_STEP[label]
+        cfg = cfg.replace(train={"net_name": f"graph_{label.replace(' ', '_')}",
+                                 "save_every": GRAPH_TRAIN_STEPS})
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -1481,9 +1613,7 @@ def graph_training_phase(dev, trained, vertex_trained):
     results = {}
     cfg = trained["cfg"]
     patch = trained["bench_patch"]
-    for label, model, per_step in (("default", {}, {"K1": 8, "K2": 8, "K3": 0}),
-                                   ("rotation-invariant", {"rotation_invariance": True},
-                                    {"K1": 7, "K2": 7, "K3": 1})):
+    for label, model in (("default", {}), ("rotation-invariant", {"rotation_invariance": True})):
         c = cfg.replace(model=model)
         graph_state = create_train_state(c, num_steps=100, device=str(dev))
         eager_state = create_train_state(c, num_steps=100, device=str(dev))
@@ -1501,26 +1631,28 @@ def graph_training_phase(dev, trained, vertex_trained):
         results[label] = graph_vs_eager(
             f"{label} step, {patch.num_nodes}-node patch", scanned, graph_state, eager_state,
             eager, lambda n, c=c, gen=gen: normals_draws(c, gen, [0] * n, patch.num_nodes),
-            per_step, GRAPH_STEPS)
+            PER_STEP[label], GRAPH_STEPS)
 
-    tensors = vertex_trained["tensors"]
     params = vertex_trained["params"]
-    graph_state = create_train_state(vcfg, num_steps=100, device=str(dev), params=params,
-                                     multi_scale=True)
-    eager_state = create_train_state(vcfg, num_steps=100, device=str(dev), params=params,
-                                     multi_scale=True)
-    step = make_vertex_train_step(vcfg, generator=torch.Generator().manual_seed(12))
+    for label, c in (("vertex", vcfg), ("vertex naive", naive_cfg)):
+        tensors = vertex_trained["tensors"] if label == "vertex" else vertex_patch_tensors(
+            c, vertex_trained["largest"], str(dev))
+        graph_state = create_train_state(c, num_steps=100, device=str(dev), params=params,
+                                         multi_scale=True)
+        eager_state = create_train_state(c, num_steps=100, device=str(dev), params=params,
+                                         multi_scale=True)
+        step = make_vertex_train_step(c, generator=torch.Generator().manual_seed(12))
 
-    def vertex_eager(state, d, j):
-        if d is None:
-            return step(state, tensors)
-        return step(state, tensors, d["rot"][j], d["idx0"][j], d["idx1"][j])
+        def vertex_eager(state, d, j, step=step, tensors=tensors):
+            if d is None:
+                return step(state, tensors)
+            return step(state, tensors, d["rot"][j], d["idx0"][j], d["idx1"][j])
 
-    results["vertex"] = graph_vs_eager(
-        f"vertex step, {tensors.x.shape[0]}-face patch", step.scanned(graph_state, tensors,
-                                                                      GRAPH_STEPS),
-        graph_state, eager_state, vertex_eager, lambda n: step.draw(tensors, n),
-        {"K1": 8, "K2": 8, "K3": 0}, 2)
+        results[label] = graph_vs_eager(
+            f"{label} step, {tensors.x.shape[0]}-face patch",
+            step.scanned(graph_state, tensors, GRAPH_STEPS), graph_state, eager_state,
+            vertex_eager, lambda n, step=step, tensors=tensors: step.draw(tensors, n),
+            PER_STEP[label], 2)
 
     # cli.train on the card with its default --steps_per_call (100): a full
     # call and a remainder of 50, a CSV row each
@@ -1543,6 +1675,7 @@ def graph_training_phase(dev, trained, vertex_trained):
               f"activities {r['graph_activities']:.1f} vs {r['eager_activities']}; capture "
               f"{r['capture_s']:.3f}; {r['graph_mib']:.1f}")
     print(f"  graph training phase: {time.perf_counter() - t_phase:.1f} s")
+    return results
 
 
 def solver_bound_ms(calls):
@@ -1580,9 +1713,9 @@ def solver_kernel_phase(dev, records, cfg, params):
     largest = largest_patch(records)
     calls, kernel = [], ms.naive_scale
 
-    def record(x, faces, v_faces, fn, scale, steps, iters):
+    def record(x, faces, v_faces, fn, scale, steps, iters, **kw):
         calls.append((x, faces, v_faces, fn, scale, steps, iters))
-        return kernel(x, faces, v_faces, fn, scale, steps, iters)
+        return kernel(x, faces, v_faces, fn, scale, steps, iters, **kw)
 
     record.launches = 0             # the wrapper counts its launch on what stands in its name
     with torch.no_grad():
@@ -1597,7 +1730,8 @@ def solver_kernel_phase(dev, records, cfg, params):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     full = ms.max_grid(dev)
     print(f"solver kernel phase: the scale kernel vs plain (atol {NAIVE_ATOL}), bitwise "
-          f"repeatable, at the {largest.num_nodes}-face patch's solve "
+          f"repeatable and the same bits with the iterate store, at the {largest.num_nodes}-face "
+          f"patch's solve "
           f"({largest.vertices.shape[0]} vertices, K = {largest.v_faces.shape[1]})")
     print(f"  device ms by CUDA-graph replay: ms at the default grid, ms_1/SM at {sms} blocks, "
           f"ms_full at full occupancy ({full} blocks); plain_ms the plain loop in PyTorch, "
@@ -1612,11 +1746,18 @@ def solver_kernel_phase(dev, records, cfg, params):
             args = (x, faces, v_faces, fn, scale, steps, iters)
             out = ms.naive_scale(*args)
             again = ms.naive_scale(*args)
+            # training's launch, which also stores the iterates
+            stored, xs = ms._kernel_forward(x, faces, v_faces, fn, fn.shape[0], steps * scale,
+                                            iters, None, True)
             ref = plain_solve(lambda: ms.naive_scale_plain(*args))
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             if not torch.equal(out, again):
                 raise AssertionError(f"the scale kernel gave different bits at scale {scale}")
+            if not (torch.equal(stored, out) and torch.equal(xs[-1], out)
+                    and torch.equal(xs[0], x)):
+                raise AssertionError(f"the scale kernel with its store gave other bits than "
+                                     f"without at scale {scale}")
             if err > NAIVE_ATOL:
                 raise AssertionError(f"the scale kernel differs from plain at scale {scale}: "
                                      f"{err}")
@@ -1653,6 +1794,201 @@ def solver_kernel_phase(dev, records, cfg, params):
             print(f"  one grid barrier at {g} blocks: {1e3 * (t80 - t1) / 158:.4f} us "
                   f"(a 1-iteration launch {1e3 * t1:.3f} us)")
     return worst, {k: totals[k] for k in ("ms", "plain_ms")} | {"bound_ms": b_ms}, b_by
+
+
+def adjoint_bound_ms(calls):
+    """Least time for the adjoint kernel's work on this card, summed over a
+    solve's launches: the iterates it reads, each table, the normals and the
+    cotangent read once and the two cotangents written once at the HBM
+    rate, against the operations this data needs at the f32 rate (per
+    iteration: the forward's centroids and pool, 5 ops for t a node; a real
+    slot 28 in R-A for a, g t, the dot with x and the g n terms, and 12 in
+    R-B; a pooled value's share 3 ops a round, 3 for the third a fine face,
+    3 a corner; 9 a node and 6 a vertex to finish); the larger of the
+    two."""
+    import torch
+
+    nbytes = ops = 0
+    for xs, faces, v_faces, fn, scale, steps, maps in calls:
+        iters, shift = xs.shape[0] - 1, steps * scale
+        tables = [faces, v_faces, *maps]
+        nbytes += 4 * (iters * xs.shape[1] * 3 + sum(t.numel() for t in tables)
+                       + 2 * fn.numel() + 2 * xs.shape[1] * 3 + xs.shape[1])
+        f0, nodes, verts = faces.shape[0], fn.shape[0], xs.shape[1]
+        slots = int(torch.count_nonzero(v_faces >= 0))
+        corners = int(torch.count_nonzero(faces >= 0))
+        pool = sum(4 * 3 * (f0 >> r) for r in range(1, shift + 1))
+        share = sum(3 * (f0 >> r) for r in range(0, shift))
+        ops += iters * (9 * f0 + pool + 5 * nodes + 40 * slots + share + 3 * f0
+                        + 3 * corners + 9 * nodes + 6 * verts)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def adjoint_kernel_phase(dev, vertex_trained, naive_cfg):
+    """The scale kernel's adjoint against the plain adjoint at the three
+    scales of the largest vertex patch's naive solve under autograd (the
+    iterates, normals and cotangents the path gave it), in float32 and
+    against the plain adjoint in float64 on the same iterates; bitwise
+    repeatable; times per scale and per patch by CUDA-graph replay, the
+    plain adjoint's, one grid barrier's, and the bound. Returns (worst error
+    against the float32 plain adjoint, per patch {ms, plain_ms, bound_ms},
+    bound kind)."""
+    import torch
+
+    from facet_graph_convolution_torch.models.unet import unet_apply
+    from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
+    from facet_graph_convolution_torch.ops.normalization import normalize_tensor
+    from facet_graph_convolution_torch.ops.vertex_update import update_positions_multiscale
+    from facet_graph_convolution_torch.training.trainer import vertex_patch_tensors
+
+    largest = vertex_trained["largest"]
+    t = vertex_patch_tensors(naive_cfg, largest, str(dev))
+    with torch.no_grad():
+        heads = [normalize_tensor(h) for h in unet_apply(
+            vertex_trained["params"], t.x, t.adjs, t.rows,
+            coarsening_steps=naive_cfg.model.coarsening_steps, multi_scale=True)]
+    # the path's calls: each scale's iterates and the cotangent of its result
+    calls, adjoint = [], ms.naive_scale_backward
+
+    def record(xs, faces, v_faces, fn, scale, steps, g_out, **kw):
+        calls.append((xs, faces, v_faces, fn, scale, steps, g_out, kw))
+        return adjoint(xs, faces, v_faces, fn, scale, steps, g_out, **kw)
+
+    record.launches = 0             # the wrapper counts its launch on what stands in its name
+
+    leaves = [h.clone().requires_grad_() for h in heads]
+    out, _ = update_positions_multiscale(
+        t.vertices, leaves, t.faces, t.v_faces, coarsening_steps=naive_cfg.model.coarsening_steps,
+        iter_nums=naive_cfg.eval.ms_solver_iterations, maps=t.naive_maps)
+    try:
+        ms.naive_scale_backward = record
+        out.backward(torch.randn_like(out))
+    finally:
+        ms.naive_scale_backward = adjoint
+    if len(calls) != 3:
+        raise AssertionError(f"one naive solve's backward called the adjoint {len(calls)} times")
+    print(f"adjoint kernel phase: the scale kernel's adjoint vs the plain adjoint (atol "
+          f"{ADJOINT_ATOL} scaled to max 1), bitwise repeatable, at the {largest.num_nodes}-face "
+          f"patch's naive solve ({largest.vertices.shape[0]} vertices)")
+    print("  device ms by CUDA-graph replay; err32 / err64: against the plain adjoint in float32 "
+          "/ float64 on the same iterates (g x, g fn); plain32 err64: the float32 plain's own")
+    print("  %-5s %6s %5s %5s %21s %21s %21s %9s %9s %9s" % (
+        "scale", "nodes", "iters", "grid", "err32", "err64", "plain32 err64", "ms", "plain_ms",
+        "bound_ms"))
+
+    def err(a, b):
+        return float(((a.double() - b.double()) / b.double().abs().max().clamp_min(1e-30))
+                     .abs().max())
+
+    worst, totals, bounds = 0.0, {"ms": 0.0, "plain_ms": 0.0}, []
+    for xs, faces, v_faces, fn, scale, steps, g_out, kw in calls:
+        fn = fn.detach()               # as saved for the backward: a leaf of the step
+        args = (xs, faces, v_faces, fn, scale, steps, g_out)
+        ours = ms.naive_scale_backward(*args, **kw)
+        again = ms.naive_scale_backward(*args, **kw)
+        plain = ms.naive_scale_backward_plain(*args)
+        exact = ms.naive_scale_backward_plain(xs.double(), faces, v_faces, fn.double(), scale,
+                                              steps, g_out.double())
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(ours, again)):
+            raise AssertionError(f"the adjoint kernel gave different bits at scale {scale}")
+        e32 = [err(a, b) for a, b in zip(ours, plain)]
+        e64 = [err(a, b) for a, b in zip(ours, exact)]
+        p64 = [err(a, b) for a, b in zip(plain, exact)]
+        if max(e32) > ADJOINT_ATOL or max(e64) > ADJOINT_ATOL:
+            raise AssertionError(f"the adjoint kernel differs from the plain adjoint at scale "
+                                 f"{scale}: {e32} (float32), {e64} (float64)")
+        worst = max(worst, *e32)
+        row = {"ms": cuda_ms(lambda: ms.naive_scale_backward(*args, **kw), 20)[0],
+               "plain_ms": cuda_ms(lambda: ms.naive_scale_backward_plain(*args), 2)[0]}
+        for key in totals:
+            totals[key] += row[key]
+        bounds.append((xs, faces, v_faces, fn, scale, steps,
+                       (*kw["face_slots"], *kw["corners"])))
+        grid = ms.adjoint_grid(dev, xs.shape[1], fn.shape[0], steps * scale)
+        print("  %-5d %6d %5d %5d %10.3e %10.3e %10.3e %10.3e %10.3e %10.3e %9.5f %9.5f %9.6f" % (
+            scale, fn.shape[0], xs.shape[0] - 1, grid, *e32, *e64, *p64, row["ms"],
+            row["plain_ms"], adjoint_bound_ms(bounds[-1:])[0]))
+    b_ms, b_by = adjoint_bound_ms(bounds)
+    print("  %-5s %6s %5s %5s %21s %21s %21s %9.5f %9.5f %9.6f %s" % (
+        "patch", "", "", "", "", "", "", totals["ms"], totals["plain_ms"], b_ms, b_by))
+    # one grid barrier: a node of 16 faces on one vertex, 80 iterations
+    # against 1 (158 barriers apart), at the largest grid of the three
+    xs, faces, v_faces, fn, scale, steps, g_out, kw = calls[0]
+    grid = max(ms.adjoint_grid(dev, c[0].shape[1], c[3].shape[0], c[5] * c[4]) for c in calls)
+    tx = xs[:1, :1]
+    tf = torch.zeros((16, 3), dtype=torch.int32, device=dev)
+    tv = torch.full((1, 25), -1, dtype=torch.int32, device=dev)
+    tv[0, 0] = 0
+    tfn = fn[:1].contiguous()
+    one = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    tmaps = dict(face_slots=(one, torch.zeros(1, dtype=torch.int32, device=dev)),
+                 corners=(torch.tensor([0, 48], dtype=torch.int32, device=dev),
+                          torch.arange(16, dtype=torch.int32, device=dev).repeat_interleave(3)))
+    tg = g_out[:1].contiguous()
+    xs80 = tx.expand(81, 1, 3).contiguous()
+    t80 = cuda_ms(lambda: ms.naive_scale_backward(xs80, tf, tv, tfn, 2, 2, tg, grid=grid,
+                                                  **tmaps), 20)[0]
+    t1 = cuda_ms(lambda: ms.naive_scale_backward(xs80[:2].contiguous(), tf, tv, tfn, 2, 2, tg,
+                                                 grid=grid, **tmaps), 20)[0]
+    barrier_us = 1e3 * (t80 - t1) / 158
+    print(f"  one grid barrier at {grid} blocks: {barrier_us:.4f} us (a 1-iteration launch "
+          f"{1e3 * t1:.3f} us)")
+    return worst, {"ms": totals["ms"], "plain_ms": totals["plain_ms"], "bound_ms": b_ms,
+                   "barrier_us": barrier_us}, b_by
+
+
+def budget_phase(dev, vertex_trained, naive_cfg, graph_bytes):
+    """``train_with_vertices`` under the naive solver through the graph on
+    the vertex training set with a cache budget of 1.5 graphs of the
+    largest patch (``graph_bytes``, the graph training phase's), so that a
+    new patch's graph evicts the one before: the captures and evictions,
+    what the cache held at most, and the card's peak allocated and reserved
+    memory against the eager run's on the same set plus the budget."""
+    import torch
+
+    from facet_graph_convolution_torch.training.graph_step import GraphCache
+    from facet_graph_convolution_torch.training.trainer import train_with_vertices
+
+    train_set = vertex_trained["train_set"]
+    steps, per_call = 24, 2
+
+    def run(name, **kw):
+        cfg = naive_cfg.replace(train={"net_name": name, "save_every": 1000})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+        train_with_vertices(cfg, train_set, num_iterations=steps, device=str(dev), **kw)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base[0],
+                torch.cuda.max_memory_reserved() - base[1])
+
+    eager = run("budget_eager")
+    cache = GraphCache(budget_bytes=graph_bytes * 3 // 2)
+    t0 = time.perf_counter()
+    graphs = run("budget_graphs", steps_per_call=per_call, graph_cache=cache)
+    run_s = time.perf_counter() - t0
+    cache.observe()
+    rng = np.random.default_rng(naive_cfg.train.seed)
+    visited = len({int(rng.integers(len(train_set.patches))) for _ in range(steps // per_call)})
+    limit = max(cache.budget_bytes, cache.peak_held)
+    print(f"budget phase: {steps} naive vertex steps at {per_call} a call over "
+          f"{len(train_set.patches)} patches ({visited} visited), cache budget "
+          f"{cache.budget_bytes / 2**20:.1f} MiB (1.5 graphs of the largest patch): "
+          f"{cache.captures} captures, {cache.evictions} evictions, at most "
+          f"{cache.peak_held / 2**20:.1f} MiB held, {run_s:.2f} s")
+    print(f"  peak memory growth, allocated / reserved: through the graphs "
+          f"{graphs[0] / 2**20:.1f} / {graphs[1] / 2**20:.1f} MiB, eager {eager[0] / 2**20:.1f} / "
+          f"{eager[1] / 2**20:.1f} MiB; limit eager + {limit / 2**20:.1f} MiB")
+    if cache.evictions < 1 or cache.captures <= visited:
+        raise AssertionError(f"budget phase: {cache.captures} captures and {cache.evictions} "
+                             f"evictions for {visited} patches: the budget forced none")
+    if graphs[0] > eager[0] + limit or graphs[1] > eager[1] + limit:
+        raise AssertionError(f"budget phase: peak memory growth {graphs} past the eager run's "
+                             f"{eager} plus {limit}")
+    return {"captures": cache.captures, "evictions": cache.evictions}
 
 
 def pool_bound_ms(x, out, steps):
@@ -1787,9 +2123,12 @@ def main() -> int:
         vertex_launches, vertex_records, vertex_cfg, vertex_params = vertex_serving_phase(
             dev, workdir)
         vertex_trained = vertex_training_phase(dev, workdir)
-        graph_training_phase(dev, trained, vertex_trained)
+        naive = naive_training_phase(dev, vertex_trained)
+        graphs = graph_training_phase(dev, trained, vertex_trained, naive["cfg"])
+        budget_phase(dev, vertex_trained, naive["cfg"], graphs["vertex naive"]["held_bytes"])
         err5, totals5, bound_by5 = solver_kernel_phase(dev, vertex_records, vertex_cfg,
                                                        vertex_params)
+        err6, totals6, bound_by6 = adjoint_kernel_phase(dev, vertex_trained, naive["cfg"])
         err4, totals4, bound_by4 = pool_kernel_phase(
             dev, vertex_records, default_config().eval.ms_solver_iterations)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
@@ -1865,6 +2204,21 @@ def main() -> int:
         "bound_ms": totals5["bound_ms"],
         "bound_by": bound_by5,
         # no single PyTorch call runs the solver's loop
+        "library_ms": None,
+    }, {
+        "name": "ms_solver_naive_bwd",
+        "route": "cuda",
+        "source": "facet_graph_convolution_torch/csrc/ms_solver_naive_bwd.cu",
+        # jax.grad of the naive solver's loop body, which XLA differentiates
+        "replaces": "facet_graph_convolution_tpu/ops/vertex_update.py:260",
+        "launches": naive["launches"]["adjoint"],
+        "max_abs_err": err6,
+        # per train step of the largest vertex patch: its 3 launches
+        "ms": totals6["ms"],
+        "plain_ms": totals6["plain_ms"],
+        "bound_ms": totals6["bound_ms"],
+        "bound_by": bound_by6,
+        # no single PyTorch call computes the loop's adjoint
         "library_ms": None,
     }]}))
     print(card)

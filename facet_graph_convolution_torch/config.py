@@ -263,6 +263,10 @@ def add_cli_overrides(parser: argparse.ArgumentParser) -> argparse.ArgumentParse
                         choices=("degree", "reference"))
     parser.add_argument("--solver_adaptive_tol", type=float, default=None)
     parser.add_argument("--solver_trust", type=float, default=None)
+    # the multi-scale vertex solver of the vertex pipeline (EvalConfig.
+    # vertex_solver), for serving and for training with --include_vertices
+    parser.add_argument("--vertex_solver", type=str, default=None,
+                        choices=("operator", "naive"))
     return parser
 
 
@@ -304,6 +308,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
         eval_updates["solver_adaptive_tol"] = args.solver_adaptive_tol
     if getattr(args, "solver_trust", None) is not None:
         eval_updates["solver_trust"] = args.solver_trust
+    if getattr(args, "vertex_solver", None):
+        eval_updates["vertex_solver"] = args.vertex_solver
     sections = {}
     if train_updates:
         sections["train"] = train_updates

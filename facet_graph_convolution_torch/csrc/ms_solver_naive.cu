@@ -54,80 +54,17 @@
 // sum by shuffles. Data written inside the kernel (x, t) is read through L2
 // (__ldcg), never from a possibly stale L1 line; the read-only tables go
 // through __ldg.
+//
+// Training: the launch with a store (ms_solver_naive_kernel<true>) also
+// writes every iterate into [iters + 1, V, 3], ~14.8 MB a step over the three
+// scales at the largest training patch (10,027 vertices), which the adjoint
+// kernel (ms_solver_naive_bwd.cu) reads back in reverse. The arithmetic is
+// the same with or without the store: serving's launch, without it, gives
+// the same bits as before the store existed.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-
-namespace cg = cooperative_groups;
+#include "ms_solver_naive.cuh"
 
 namespace {
-
-constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kThreads = 1024;
-constexpr int kVertexTeam = 8;     // phase B: lanes a vertex
-constexpr int kSlotsInFlight = 4;  // phase B: slots a lane loads at once
-constexpr int kMaxShift = 30;
-// a lane pools at most 2^(kMaxShift - 5) leaves with a stack this deep
-constexpr int kStack = kMaxShift - 5 + 1;
-
-__device__ __forceinline__ bool all_zero(const float c[3]) {
-  return c[0] == 0.f && c[1] == 0.f && c[2] == 0.f;
-}
-
-// K4's pair rule: an all-zero row takes its partner's value, then (a + b) / 2.
-__device__ __forceinline__ void pair_mean(const float a[3], bool za, const float b[3], bool zb,
-                                          float r[3]) {
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    const float ca = za ? b[ch] : a[ch];
-    const float cb = zb ? a[ch] : b[ch];
-    r[ch] = __fmul_rn(__fadd_rn(ca, cb), 0.5f);
-  }
-}
-
-// Centroid of fine face `face`; a -1 corner reads a zero vertex.
-__device__ __forceinline__ void leaf_center(const float* x, const int* __restrict__ faces,
-                                            int face, float c[3]) {
-  const int* corners = faces + (size_t)face * 3;
-  float s[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int vid = __ldg(corners + j);
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      const float v = vid >= 0 ? __ldcg(x + (size_t)vid * 3 + ch) : 0.f;
-      s[ch] = j == 0 ? v : __fadd_rn(s[ch], v);
-    }
-  }
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) c[ch] = __fdiv_rn(s[ch], 3.f);
-}
-
-// The pooled centre of `count` consecutive leaves starting at `first`, in
-// tree order: K4's stack rule (csrc/tree_pool_iz.cu). Only for shift > 5.
-__device__ __noinline__ void leaf_block_center(const float* x, const int* __restrict__ faces,
-                                               int first, int count, float c[3]) {
-  float stack[kStack][3];
-  unsigned zero = 0u;  // bit d: stack row d is all zero
-  int depth = 0;
-  for (int leaf = 0; leaf < count; ++leaf) {
-    leaf_center(x, faces, first + leaf, stack[depth]);
-    zero = all_zero(stack[depth]) ? zero | (1u << depth) : zero & ~(1u << depth);
-    ++depth;
-    for (int t = leaf + 1; (t & 1) == 0; t >>= 1) {
-      float r[3];
-      pair_mean(stack[depth - 2], (zero >> (depth - 2)) & 1u, stack[depth - 1],
-                (zero >> (depth - 1)) & 1u, r);
-      --depth;
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) stack[depth - 1][ch] = r[ch];
-      zero = all_zero(r) ? zero | (1u << (depth - 1)) : zero & ~(1u << (depth - 1));
-    }
-  }
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) c[ch] = stack[0][ch];
-}
 
 // Phase A over the level-s nodes, grid-stride by warp. With CENTERS the team
 // leader writes the node's centre to out [F_s, 3], else t = <fn[f], c_f> to
@@ -185,11 +122,13 @@ __device__ __forceinline__ void phase_a(const float* x, const int* __restrict__ 
 // Phase B: a team of kVertexTeam lanes a vertex. Lane i of a team walks
 // slots i, i + kVertexTeam, ..., loading kSlotsInFlight slots' indices, then
 // their normals and t, at once; the team sums its partial updates and slot
-// counts by __shfl_xor_sync, and its first lane moves x_v. The loop bounds are
-// warp-uniform: every lane reaches the shuffles.
+// counts by __shfl_xor_sync, and its first lane moves x_v (and, with STORE,
+// writes the new x_v to `stored` too). The loop bounds are warp-uniform: every
+// lane reaches the shuffles.
+template <bool STORE>
 __device__ __forceinline__ void phase_b(float* x, const int* __restrict__ v_faces,
                                         const float* __restrict__ fn, const float* t,
-                                        int num_vertices, int k, int shift) {
+                                        float* stored, int num_vertices, int k, int shift) {
   const int lane = threadIdx.x & 31;
   const int warp = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
   const int warps = (int)((gridDim.x * blockDim.x) >> 5);
@@ -241,21 +180,27 @@ __device__ __forceinline__ void phase_b(float* x, const int* __restrict__ v_face
       const float lmbd = real > 0 ? __fdiv_rn(1.f, (float)real) : 0.f;
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
-        x[(size_t)v * 3 + ch] = __fadd_rn(xv[ch], __fmul_rn(lmbd, a[ch]));
+        const float moved = __fadd_rn(xv[ch], __fmul_rn(lmbd, a[ch]));
+        x[(size_t)v * 3 + ch] = moved;
+        if constexpr (STORE) stored[(size_t)v * 3 + ch] = moved;
       }
     }
   }
 }
 
+// With STORE, iteration `it` also writes its new x to store[it + 1] (store
+// [iters + 1, V, 3]; the caller writes store[0]), for the adjoint kernel.
+template <bool STORE>
 __global__ void __launch_bounds__(kThreads)
 ms_solver_naive_kernel(float* x, const int* __restrict__ faces, const int* __restrict__ v_faces,
-                       const float* __restrict__ fn, float* t, int num_vertices, int k,
-                       int nodes, int shift, int iters) {
+                       const float* __restrict__ fn, float* t, float* store, int num_vertices,
+                       int k, int nodes, int shift, int iters) {
   cg::grid_group grid = cg::this_grid();
   for (int it = 0; it < iters; ++it) {
     phase_a<false>(x, faces, fn, t, nodes, shift);
     grid.sync();
-    phase_b(x, v_faces, fn, t, num_vertices, k, shift);
+    phase_b<STORE>(x, v_faces, fn, t, STORE ? store + (size_t)(it + 1) * num_vertices * 3
+                                            : nullptr, num_vertices, k, shift);
     if (it + 1 < iters) grid.sync();
   }
 }
@@ -276,43 +221,34 @@ extern "C" {
 int ms_solver_naive_blocks_per_sm(void) {
   int per_sm = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ms_solver_naive_kernel, kThreads, 0);
+      &per_sm, ms_solver_naive_kernel<false>, kThreads, 0);
   return err == cudaSuccess ? per_sm : -(int)err;
 }
 
-// The solver kernel's grid for one scale: enough blocks for the work (a
-// team of min(2^shift, 32) lanes a level-s node, kVertexTeam lanes a vertex)
-// and at most one an SM; or minus a cudaError_t. More blocks an SM measured
-// slower: every block arrives at each barrier, and the phases slow too.
+// The solver kernel's grid for one scale (solver_grid's rule).
 int ms_solver_naive_grid(int num_vertices, int nodes, int shift) {
-  if (num_vertices < 0 || nodes < 0 || shift < 0 || shift > kMaxShift)
-    return -(int)cudaErrorInvalidValue;
-  const int per_sm = ms_solver_naive_blocks_per_sm();
-  if (per_sm < 1) return per_sm < 0 ? per_sm : -(int)cudaErrorCooperativeLaunchTooLarge;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return -(int)err;
-  const long long lanes_a = (long long)nodes << (shift < 5 ? shift : 5);
-  const long long lanes_b = (long long)num_vertices * kVertexTeam;
-  const long long grid = ((lanes_a > lanes_b ? lanes_a : lanes_b) + kThreads - 1) / kThreads;
-  return grid < 1 ? 1 : (grid > sms ? sms : (int)grid);
+  return solver_grid(ms_solver_naive_blocks_per_sm(), num_vertices, nodes, shift);
 }
 
 // One scale: `iters` iterations on x [num_vertices, 3] in place, t [nodes]
-// scratch, in one cooperative launch of `grid` blocks on `stream`. Returns
-// the launch's cudaError_t (0 when accepted; cudaErrorCooperativeLaunchTooLarge
+// scratch, in one cooperative launch of `grid` blocks on `stream`; with
+// `store` (else null) also each iteration's new x into store[1..iters]
+// ([iters + 1, num_vertices, 3]; the caller writes store[0]). Returns the
+// launch's cudaError_t (0 when accepted; cudaErrorCooperativeLaunchTooLarge
 // when `grid` blocks cannot all be resident).
 int ms_solver_naive_f32(float* x, const int* faces, const int* v_faces, const float* fn,
-                        float* t, int num_vertices, int k, int nodes, int shift, int iters,
-                        int grid, void* stream) {
+                        float* t, float* store, int num_vertices, int k, int nodes, int shift,
+                        int iters, int grid, void* stream) {
   if (num_vertices < 0 || k < 0 || nodes < 0 || shift < 0 || shift > kMaxShift || iters < 0 ||
       grid < 1)
     return (int)cudaErrorInvalidValue;
-  void* args[] = {&x, &faces, &v_faces, &fn, &t, &num_vertices, &k, &nodes, &shift, &iters};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)ms_solver_naive_kernel, dim3((unsigned)grid), dim3(kThreads), args, 0,
-      (cudaStream_t)stream);
+  void* args[] = {&x,    &faces, &v_faces, &fn,    &t,    &store,
+                  &num_vertices, &k, &nodes, &shift, &iters};
+  const void* kernel = store ? (const void*)ms_solver_naive_kernel<true>
+                             : (const void*)ms_solver_naive_kernel<false>;
+  const cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3((unsigned)grid),
+                                                      dim3(kThreads), args, 0,
+                                                      (cudaStream_t)stream);
   // a refused launch also leaves its error as the last one: clear it, or the
   // next accepted launch would read it back below
   const cudaError_t last = cudaGetLastError();

@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface under ``csrc/build/`` (listed in
 ``.gitignore``), at first use or when the source is newer than the library,
-and loaded with ``ctypes``. :func:`build` starts one ``nvcc`` per stale
+and loaded with ``ctypes``; a shared header (``csrc/*.cuh``) newer than a
+library makes it stale too. :func:`build` starts one ``nvcc`` per stale
 source, all at once, and waits for them. Nothing is compiled or loaded at
 import time: a machine without a card or ``nvcc`` imports this module.
 """
@@ -20,7 +21,7 @@ from typing import Dict, Iterable, List
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 KERNELS = ("facet_conv_fwd", "facet_conv_bwd", "tree_pool_iz", "weighted_aggregate",
-           "ms_solver_naive")
+           "ms_solver_naive", "ms_solver_naive_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,8 +49,12 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """No library yet, or one older than its source or a header of ``csrc/``."""
     src, lib, _ = _paths(name)
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    headers = [os.path.join(CSRC, h) for h in os.listdir(CSRC) if h.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(p) for p in [src, *headers])
 
 
 def build(names: Iterable[str] = KERNELS) -> List[str]:

@@ -16,7 +16,7 @@
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -141,6 +141,72 @@ def face_centers_pyramid(
     return out
 
 
+class NaiveMaps(NamedTuple):
+    """The transpose tables of the naive solver's backward kernel, CSR
+    (``offsets [rows + 1]``, ``ids``), int32, built on the host by
+    :func:`build_naive_maps`."""
+
+    face_slots: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # a scale each, fine first
+    corners: Tuple[torch.Tensor, torch.Tensor]
+
+
+def _csr(rows: np.ndarray, ids: np.ndarray, num_rows: int) -> Tuple[np.ndarray, np.ndarray]:
+    """CSR of (row, id) pairs: each row's ids in the order given."""
+    order = np.argsort(rows, kind="stable")
+    offsets = np.zeros(num_rows + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=num_rows), out=offsets[1:])
+    return offsets.astype(np.int32), ids[order].astype(np.int32)
+
+
+def naive_map_arrays(faces, v_faces, levels: int, coarsening_steps: int):
+    """NumPy tables of :class:`NaiveMaps`: per scale s the face→slot map
+    (for each level-s node f, the flat slots ``v·K + k`` whose
+    ``v_faces[v, k] >> (coarsening_steps·s) == f``), and the vertex→corner
+    map (for each vertex, the fine faces whose corners name it, a face once
+    a corner, in face order).
+
+    The corner map is built from ``faces``, not from ``v_faces``: the
+    centroids read every corner that is not −1, while a ``v_faces`` row is
+    cut at K slots and skips a face whose first corner is −1. What holds,
+    and is checked here, is that each row of ``v_faces`` is a sub-multiset
+    of the vertex's corner list; the two are equal where no row was cut and
+    every face is either real or all −1."""
+    faces = np.asarray(faces, np.int64)
+    v_faces = np.asarray(v_faces, np.int64)
+    num_v, k = v_faces.shape
+    f0 = faces.shape[0]
+    real = v_faces >= 0
+    slot_v, slot_k = np.nonzero(real)
+    slot_f = v_faces[real]
+    face_slots = []
+    for s in range(levels):
+        shift = coarsening_steps * s
+        face_slots.append(_csr(slot_f >> shift, slot_v * k + slot_k, f0 >> shift))
+    live = faces >= 0
+    corner_v = faces[live]
+    corner_f = np.broadcast_to(np.arange(f0)[:, None], faces.shape)[live]
+    corners = _csr(corner_v, corner_f, num_v)
+    pairs, counts = np.unique(corner_v * f0 + corner_f, return_counts=True)
+    need, need_counts = np.unique(slot_v * f0 + slot_f, return_counts=True)
+    at = np.searchsorted(pairs, need)
+    inside = at < pairs.size
+    if not (inside.all() and (pairs[at] == need).all() and (counts[at] >= need_counts).all()):
+        raise ValueError("v_faces names a face whose corners do not name the vertex")
+    return face_slots, corners
+
+
+def build_naive_maps(faces, v_faces, levels: int, coarsening_steps: int = 2,
+                     device: Union[str, torch.device] = "cpu") -> NaiveMaps:
+    """:func:`naive_map_arrays` as tensors on ``device``, built once a patch
+    (a host copy inside a captured step would break its capture)."""
+    face_slots, corners = naive_map_arrays(faces, v_faces, levels, coarsening_steps)
+
+    def tensors(pair):
+        return tuple(torch.as_tensor(a, device=device) for a in pair)
+
+    return NaiveMaps(tuple(tensors(p) for p in face_slots), tensors(corners))
+
+
 def update_positions_multiscale(
     x: torch.Tensor,
     face_normals_list: Sequence[torch.Tensor],
@@ -148,6 +214,8 @@ def update_positions_multiscale(
     v_faces: torch.Tensor,
     coarsening_steps: int = 2,
     iter_nums: Sequence[int] = (80, 20, 20),
+    checkpoint: bool = False,
+    maps: Optional[NaiveMaps] = None,
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Coarse→fine vertex projection solver (reference
     ``update_position_MS``, train.py:1668-1765).
@@ -162,6 +230,13 @@ def update_positions_multiscale(
     :func:`~facet_graph_convolution_torch.ops.ms_solver_kernel.naive_scale`:
     one kernel launch on the card, the plain loop on the CPU. Returns the
     final x and the per-scale displacements, coarse first.
+
+    Under autograd each scale's backward is the scale kernel's adjoint
+    kernel on the card, which reads ``maps`` (:func:`build_naive_maps`),
+    and the plain adjoint on the CPU. ``checkpoint``
+    (``cfg.eval.solver_remat``, JAX ``checkpoint=solver_remat``) keeps only
+    each scale's start point and reruns its forward in the backward; the
+    gradients are the same bits.
     """
     levels = len(face_normals_list)
     faces = faces.to(torch.int32).contiguous()
@@ -172,8 +247,10 @@ def update_positions_multiscale(
         cur_scale = levels - 1 - s
         fn = face_normals_list[cur_scale].reshape(-1, 3).contiguous()
         x_init = x
-        x = ms_solver_kernel.naive_scale(x, faces, v_faces, fn, cur_scale, coarsening_steps,
-                                         int(iter_nums[s]))
+        x = ms_solver_kernel.naive_scale(
+            x, faces, v_faces, fn, cur_scale, coarsening_steps, int(iter_nums[s]),
+            face_slots=None if maps is None else maps.face_slots[cur_scale],
+            corners=None if maps is None else maps.corners, checkpoint=checkpoint)
         dx_list.append(x - x_init)
     return x, dx_list
 

@@ -25,12 +25,19 @@ A failed capture raises: there is no eager fallback on the card.
 
 On the CPU the same step runs eagerly, once a step, on the same buffers and
 counter (the caller asked for the CPU; the tests drive this path).
+
+Each graph keeps its step's activations in a memory pool of its own, ~1 GiB
+for a full-width vertex step. :class:`GraphCache` holds a trainer's graphs
+(one a vertex patch) least recently used first, within a byte budget: it
+releases the oldest graphs before a new one is captured, and a released
+patch is captured again at its next use.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional
+from collections import OrderedDict
+from typing import Callable, Dict, Hashable, Optional
 
 import numpy as np
 import torch
@@ -73,8 +80,9 @@ class GraphStep:
     advanced by N.
 
     After the first call on the card: ``capture_s`` (the capture's host
-    seconds) and ``graph_bytes`` (the device memory the capture allocated,
-    ``torch.cuda.max_memory_allocated`` around it)."""
+    seconds), ``graph_bytes`` (the device memory the capture allocated,
+    ``torch.cuda.max_memory_allocated`` around it) and ``pool_bytes`` (what
+    its pool reserved, ``torch.cuda.memory_reserved`` around it)."""
 
     def __init__(self, state, loss_fn: Callable[..., torch.Tensor], steps_per_call: int):
         if steps_per_call < 1:
@@ -89,7 +97,25 @@ class GraphStep:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.capture_s: Optional[float] = None
         self.graph_bytes: Optional[int] = None
+        self.pool_bytes: Optional[int] = None
         self._state = state
+
+    @property
+    def held_bytes(self) -> int:
+        """The device memory the captured graph holds (its pool, at least
+        its capture's peak); 0 before a capture or after :meth:`release`."""
+        if self.graph is None:
+            return 0
+        return max(self.graph_bytes, self.pool_bytes)
+
+    def release(self) -> None:
+        """Drop the captured graph, once the device has run every replay
+        enqueued: its pool goes back to the allocator. The next call captures
+        again."""
+        if self.graph is not None:
+            torch.cuda.synchronize(self.device)
+            self.graph.reset()
+            self.graph = None
 
     def _step(self) -> None:
         """One train step on the draws at the counter; it advances the
@@ -109,13 +135,14 @@ class GraphStep:
     def _capture(self) -> None:
         """The call's first step eagerly on a side stream, then the capture
         of one step (executed only by replays)."""
-        side = torch.cuda.Stream(self.device)
+        side = _side_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             self._step()
         torch.cuda.current_stream(self.device).wait_stream(side)
         torch.cuda.synchronize(self.device)
         before = torch.cuda.memory_allocated(self.device)
+        reserved = torch.cuda.memory_reserved(self.device)
         torch.cuda.reset_peak_memory_stats(self.device)
         # the gradients are made in the graph's pool, written by its backward
         self._state.optimizer.zero_grad(set_to_none=True)
@@ -126,6 +153,7 @@ class GraphStep:
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
         self.graph_bytes = torch.cuda.max_memory_allocated(self.device) - before
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph = graph
 
     def __call__(self, state, draws: Dict[str, torch.Tensor]):
@@ -164,3 +192,74 @@ class GraphStep:
         event = torch.cuda.Event()
         event.record()
         return state, CallLosses(host, event)
+
+
+_SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """One side stream a device for every capture's warm-up step: the
+    allocator caches a stream's freed blocks for that stream alone, so a new
+    stream a capture would keep another step's worth of blocks each."""
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
+
+
+class GraphCache:
+    """:class:`GraphStep` s by key (a vertex patch each), least recently used
+    first, held to ``budget_bytes`` of device memory (None: no budget, as on
+    the CPU, where nothing is captured).
+
+    :meth:`get` returns the key's entry, or makes one with ``make()``; before
+    making one it releases the least recently used entries until what they
+    hold plus the new one's size fits the budget, sizing the new one as the
+    largest ``held_bytes`` it has seen (0 before any capture). A released
+    key is made, and on the card captured, again at its next use.
+    ``captures`` counts the entries made (on the card, each captures its
+    graph at its first call) and ``evictions`` the entries released;
+    ``peak_held`` is the most its entries held at once (past the budget
+    only where a new graph outgrew every one before it)."""
+
+    def __init__(self, budget_bytes: Optional[int] = None):
+        self.budget_bytes = budget_bytes
+        self.entries: "OrderedDict[Hashable, GraphStep]" = OrderedDict()
+        self.captures = 0
+        self.evictions = 0
+        self.largest = 0
+        self.peak_held = 0
+
+    def held_bytes(self) -> int:
+        return sum(e.held_bytes for e in self.entries.values())
+
+    def observe(self) -> None:
+        """Take in what the entries hold now (a capture happens at an
+        entry's first call, after :meth:`get`)."""
+        for entry in self.entries.values():
+            self.largest = max(self.largest, entry.held_bytes)
+        self.peak_held = max(self.peak_held, self.held_bytes())
+
+    def get(self, key: Hashable, make: Callable[[], GraphStep]) -> GraphStep:
+        self.observe()
+        entry = self.entries.pop(key, None)
+        if entry is None:
+            if self.budget_bytes is not None:
+                evicted = False
+                while self.entries and self.held_bytes() + self.largest > self.budget_bytes:
+                    self.entries.popitem(last=False)[1].release()
+                    self.evictions += 1
+                    evicted = True
+                if evicted:
+                    torch.cuda.empty_cache()    # the released pools, back to the device
+            entry = make()
+            self.captures += 1
+        self.entries[key] = entry
+        return entry
+
+
+def default_graph_budget(device: torch.device) -> Optional[int]:
+    """Half the card's free memory now (the rest for the eager warm-up of a
+    capture, the tables and the optimizer), or None on the CPU."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[0] // 2

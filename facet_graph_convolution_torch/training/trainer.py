@@ -26,10 +26,14 @@ the chamfer loss through the solver's iterations into the U-Net, Adam.
 the card each step is one replay of a captured CUDA graph, on the CPU the
 same step runs eagerly. The normals loop stacks the patches
 (:func:`stack_patch_tensors`) and picks each step's patch on the device;
-the vertex loop pins one patch a chunk, with a graph a patch.
+the vertex loop pins one patch a chunk, with a graph a patch, held by a
+:class:`..graph_step.GraphCache` within a memory budget.
 
-Not ported yet (each raises): bf16 compute, and vertex training under the
-naive solver on the card (the scale kernel has no backward yet).
+Under the naive solver the vertex step's backward runs the scale kernel's
+adjoint kernel on the card (``ops/ms_solver_kernel.py::NaiveScale``), over
+per-patch maps built once before the loop.
+
+Not ported yet (raises): bf16 compute.
 """
 
 from __future__ import annotations
@@ -65,11 +69,18 @@ from facet_graph_convolution_torch.models.unet import (
 from facet_graph_convolution_torch.ops.conv import FacetConvVariant
 from facet_graph_convolution_torch.ops.normalization import normalize_tensor
 from facet_graph_convolution_torch.ops.vertex_update import (
+    NaiveMaps,
+    build_naive_maps,
     update_positions_multiscale,
     update_positions_multiscale_operator,
 )
 from facet_graph_convolution_torch.training.checkpoint import CheckpointManager
-from facet_graph_convolution_torch.training.graph_step import GraphStep, set_learning_rate
+from facet_graph_convolution_torch.training.graph_step import (
+    GraphCache,
+    GraphStep,
+    default_graph_budget,
+    set_learning_rate,
+)
 
 ADAM_BETAS = (0.9, 0.999)   # optax.adam defaults
 ADAM_EPS = 1e-8             # added outside the square root, as optax does
@@ -530,13 +541,15 @@ class VertexTensors(NamedTuple):
     v_faces: torch.Tensor            # [V, k_vertices], −1 padded
     gt_normals: Optional[torch.Tensor]
     tables: Optional[tuple]          # the operator solver's, None for the naive one
+    naive_maps: Optional[NaiveMaps] = None   # the naive solver's, None for the operator
 
 
 def vertex_patch_tensors(cfg: Config, patch: FacetPatch, device: str) -> VertexTensors:
     """:class:`VertexTensors` of one vertex patch, built once before the
     loop: the U-Net's kernel tables and, under ``vertex_solver="operator"``,
     the solver's tables of ``build_solver_tables(..., faces=...)`` (the JAX
-    package's ``_solver_tables``)."""
+    package's ``_solver_tables``), or under ``"naive"`` the maps of the
+    scale kernel's adjoint (``build_naive_maps``)."""
     if cfg.eval.vertex_solver not in ("operator", "naive"):
         raise ValueError(f"unknown vertex_solver {cfg.eval.vertex_solver!r} "
                          "(use 'operator' or 'naive')")
@@ -549,7 +562,10 @@ def vertex_patch_tensors(cfg: Config, patch: FacetPatch, device: str) -> VertexT
         tensor(patch.inputs), adjs, adj_ts, rows, tensor(patch.vertices),
         tensor(patch.gt_vertices), tensor(patch.faces), tensor(patch.v_faces),
         tensor(patch.gt_normals),
-        solver_tables(cfg, patch, device) if cfg.eval.vertex_solver == "operator" else None)
+        solver_tables(cfg, patch, device) if cfg.eval.vertex_solver == "operator" else None,
+        build_naive_maps(patch.faces, patch.v_faces, cfg.model.coarsening_levels,
+                         cfg.model.coarsening_steps, device)
+        if cfg.eval.vertex_solver == "naive" else None)
 
 
 def vertex_loss(params, cfg: Config, t: VertexTensors, rot: torch.Tensor,
@@ -563,7 +579,7 @@ def vertex_loss(params, cfg: Config, t: VertexTensors, rot: torch.Tensor,
     the GT points at ``idx1``; plus ``normals_weight`` × the angular loss of
     the fine head against the rotated GT normals, when both are there."""
     kw = dict(coarsening_steps=cfg.model.coarsening_steps,
-              iter_nums=cfg.eval.ms_solver_iterations)
+              iter_nums=cfg.eval.ms_solver_iterations, checkpoint=cfg.eval.solver_remat)
     heads = unet_apply(params, rotate_inputs(rot, t.x), t.adjs, t.rows,
                        coarsening_steps=cfg.model.coarsening_steps, alpha=cfg.model.lrelu_alpha,
                        variant=_config_variant(cfg), adj_ts=t.adj_ts, multi_scale=True)
@@ -571,10 +587,10 @@ def vertex_loss(params, cfg: Config, t: VertexTensors, rot: torch.Tensor,
     vertices = rotate_vec3(rot, t.vertices)
     if t.tables is not None:
         refined, _ = update_positions_multiscale_operator(
-            vertices, normals, t.faces, t.v_faces, t.tables,
-            checkpoint=cfg.eval.solver_remat, **kw)
+            vertices, normals, t.faces, t.v_faces, t.tables, **kw)
     else:
-        refined, _ = update_positions_multiscale(vertices, normals, t.faces, t.v_faces, **kw)
+        refined, _ = update_positions_multiscale(vertices, normals, t.faces, t.v_faces,
+                                                 maps=t.naive_maps, **kw)
     loss = full_chamfer_loss(refined, rotate_vec3(rot, t.gt_vertices), idx0, idx1)
     if normals_weight > 0 and t.gt_normals is not None:
         loss = loss + normals_weight * face_normals_loss(normals[0],
@@ -655,6 +671,7 @@ def train_with_vertices(
     steps_per_call: int = 1,
     log_every: int = 10,
     device: str = "cuda",
+    graph_cache: Optional[GraphCache] = None,
 ) -> Tuple[TrainState, np.ndarray]:
     """End-to-end vertex training (reference ``trainAccuracyNet``,
     train.py:636-914): the gradients flow from the chamfer loss through the
@@ -666,9 +683,9 @@ def train_with_vertices(
     the first non-finite loss without a final save of the poisoned state,
     and the loss history (a row a step: the loss and the last validation
     loss) appended to ``<network_path>/<net_name>.csv``. Runs on CUDA unless
-    ``device="cpu"``; there ``vertex_solver="naive"`` is refused before any
-    step, since the naive solver's scale kernel has no backward yet.
-    Returns ``(state, history [rows, 2])``.
+    ``device="cpu"``, under either solver: on the card the naive one runs
+    the scale kernel forward and its adjoint kernel backward. Returns
+    ``(state, history [rows, 2])``.
 
     ``steps_per_call > 1`` runs the JAX package's chunk loop (trainer.py:
     1017-1043): one ``rng.integers(num_patches)`` a chunk pins its patch
@@ -676,14 +693,15 @@ def train_with_vertices(
     chunk runs through that patch's ``step.scanned`` (on the card a CUDA
     graph a patch, captured at its first use, each graph in its own memory
     pool), a shorter last chunk, a history row a chunk (its mean loss), and
-    validation, checkpoints and the NaN abort at chunk boundaries."""
+    validation, checkpoints and the NaN abort at chunk boundaries. The
+    patches' graphs are held by ``graph_cache`` (default: a
+    :class:`..graph_step.GraphCache` held to half the card's free memory at
+    the start; on the CPU it holds every patch): past its budget it releases
+    the least recently used graphs, and a released patch is captured again
+    at its next chunk."""
     dev = resolve_device(device)
-    if cfg.eval.vertex_solver == "naive" and dev.type == "cuda":
-        raise NotImplementedError(
-            "train_with_vertices: vertex_solver='naive' cannot train on the card: the naive "
-            "solver's scale kernel (csrc/ms_solver_naive.cu) has no backward yet (ROADMAP "
-            "queue 1, the scale kernel's backward); train with vertex_solver='operator', "
-            "or on the CPU")
+    if graph_cache is None:
+        graph_cache = GraphCache(default_graph_budget(dev))
     dev = str(dev)
     iters = num_iterations or cfg.train.num_iterations
     state = create_train_state(cfg, num_steps=iters, device=dev, multi_scale=True)
@@ -705,18 +723,16 @@ def train_with_vertices(
     aborted = False
     t_start = time.time()
     save_every = min(cfg.train.save_every, 500)
-    graphs: Dict[int, GraphStep] = {}     # a patch's step.scanned, made at its first chunk
 
     def run_chunk(chunk):
         idx = int(rng.integers(len(arrays)))
-        if idx not in graphs:
-            graphs[idx] = step_fn.scanned(state, arrays[idx], steps_per_call)
-        graph = graphs[idx]
+        graph = graph_cache.get(idx, lambda: step_fn.scanned(state, arrays[idx], steps_per_call))
         captured = graph.graph is None
         _, losses = graph(state, step_fn.draw(arrays[idx], chunk))
         if captured and graph.capture_s is not None:
             print(f"patch {idx}: step graph captured in {graph.capture_s:.3f} s, "
-                  f"{graph.graph_bytes / 2**20:.1f} MiB")
+                  f"{graph.graph_bytes / 2**20:.1f} MiB ({graph_cache.captures} captures, "
+                  f"{graph_cache.evictions} evictions so far)")
         return losses
 
     def finish_chunk(it, chunk, losses):
@@ -738,6 +754,11 @@ def train_with_vertices(
         aborted = not _chunk_loop(
             iters, steps_per_call, run_chunk, finish_chunk,
             [save_every] + ([cfg.train.valid_every] if valid_arrays else []))
+        if graph_cache.budget_bytes is not None:
+            graph_cache.observe()
+            print(f"step graphs: {graph_cache.captures} captures, {graph_cache.evictions} "
+                  f"evictions, at most {graph_cache.peak_held / 2**20:.1f} MiB held of a "
+                  f"{graph_cache.budget_bytes / 2**20:.1f} MiB budget")
     else:
         for it in range(iters):
             if it > 0 and it % save_every == 0:

@@ -15,7 +15,11 @@ atol 1e-4 degrees and its gradients atol 1e-4 on each gradient scaled to max
 1 (the backward through 8 convs, summed in another order); a vertex request's
 normals and points atol 1e-4; a vertex train step's loss rtol 1e-4 and its
 gradients atol 1e-4 scaled to max 1; the operator solver's points atol 1e-5
-+ rtol 1e-4 and its gradients atol 1e-4 scaled to max 1.
++ rtol 1e-4 and its gradients atol 1e-4 scaled to max 1; the scale kernel's
+adjoint against the plain adjoint (float32, and float64 on the same
+iterates) atol 1e-5 scaled to max 1 (float32 sums in another order; on a
+full-width patch both float32 adjoints stay within 8e-6 of float64) and bit
+for bit against itself.
 """
 
 import numpy as np
@@ -591,14 +595,23 @@ def test_solver_phase_a_pools_bit_for_bit(cuda, rng, shift):
 
 
 def test_solver_kernel_raises_under_grad(cuda, rng):
+    """Under grad the scale needs its adjoint kernel's maps: without them it
+    raises, naming them; with them it runs and gives a gradient."""
+    from facet_graph_convolution_torch.ops.vertex_update import build_naive_maps
+
     x, faces, v_f = _solver_patch()
     xt = torch.as_tensor(x, device=cuda).requires_grad_()
     ft, vt = torch.as_tensor(faces, device=cuda), torch.as_tensor(v_f, device=cuda)
     fn = torch.as_tensor(_unit_normals(rng, faces.shape[0]), device=cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(ValueError, match="maps"):
         ms.naive_scale(xt, ft, vt, fn, 0, 2, 3)
     with torch.no_grad():
         assert ms.naive_scale(xt, ft, vt, fn, 0, 2, 3).shape == xt.shape
+    maps = build_naive_maps(faces, v_f, 3, 2, device=cuda)
+    out = ms.naive_scale(xt, ft, vt, fn, 0, 2, 3, face_slots=maps.face_slots[0],
+                         corners=maps.corners)
+    out.sum().backward()
+    assert torch.isfinite(xt.grad).all() and float(xt.grad.abs().max()) > 0
 
 
 def test_solver_kernel_refuses_what_it_does_not_take(cuda, rng):
@@ -623,6 +636,144 @@ def test_solver_kernel_grid_strides_over_a_million_faces(cuda, rng):
         grid = ms.default_grid(torch.device(cuda), x.shape[0], nodes, 2 * scale)
         assert grid * 1024 < 8 * x.shape[0]      # 1024-thread blocks, 8 lanes a vertex
         _solver_check(cuda, rng, x, faces, v_f, scale, 2, 3)
+
+
+def _adjoint_check(cuda, rng, x, faces, v_f, scale, steps, iters):
+    """The adjoint kernel at one scale against the plain adjoint on the same
+    iterates (float32 and float64), and against itself; returns its grads."""
+    from facet_graph_convolution_torch.ops.vertex_update import build_naive_maps
+
+    xt, ft, vt = (torch.as_tensor(a, device=cuda) for a in (x, faces, v_f))
+    fn = torch.as_tensor(_unit_normals(rng, faces.shape[0] >> (steps * scale)), device=cuda)
+    maps = build_naive_maps(faces, v_f, 3, steps, device=cuda)
+    g = torch.as_tensor(rng.normal(size=x.shape).astype(np.float32), device=cuda)
+    xs = ms.naive_scale_plain(xt, ft, vt, fn, scale, steps, iters, store=True)
+    before = ms.naive_scale_backward.launches
+    kw = dict(face_slots=maps.face_slots[scale], corners=maps.corners)
+    ours = ms.naive_scale_backward(xs, ft, vt, fn, scale, steps, g, **kw)
+    assert ms.naive_scale_backward.launches == before + 1
+    again = ms.naive_scale_backward(xs, ft, vt, fn, scale, steps, g, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(ours, again))          # no atomics
+    for ref in (ms.naive_scale_backward_plain(xs, ft, vt, fn, scale, steps, g),
+                ms.naive_scale_backward_plain(xs.double(), ft, vt, fn.double(), scale, steps,
+                                              g.double())):
+        for a, b in zip(ours, ref):
+            scale_b = b.abs().max().clamp_min(1e-30)
+            torch.testing.assert_close(a.double() / scale_b, b.double() / scale_b, atol=1e-5,
+                                       rtol=0)
+    return ours
+
+
+@pytest.mark.parametrize("iters", [1, 80])
+@pytest.mark.parametrize("scale", [0, 1, 2])
+def test_solver_adjoint_kernel_matches_plain(cuda, rng, scale, iters):
+    x, faces, v_f = _solver_patch()
+    g_x, g_fn = _adjoint_check(cuda, rng, x, faces, v_f, scale, 2, iters)
+    assert float(g_fn.abs().max()) > 0
+
+
+@pytest.mark.parametrize("scale", [0, 1, 2])
+def test_solver_adjoint_kernel_on_fake_faces_empty_and_full_rows(cuda, rng, scale):
+    """Fake faces (their leaves take a share only beside other fake ones,
+    and no vertex reads it), a vertex without faces (λ = 0: its cotangent
+    passes through) and a vertex in more faces than K (its corner list
+    keeps them all)."""
+    x, faces, v_f = _synthetic_solver_case(rng, 300, 16 * 64)
+    _adjoint_check(cuda, rng, x, faces, v_f, scale, 2, 20)
+
+
+@pytest.mark.parametrize("steps,scale", [(3, 2), (4, 2)])
+def test_solver_adjoint_kernel_pools_more_leaves_than_a_warp(cuda, rng, steps, scale):
+    """2^shift > 32 leaves a node: each lane walks its block's tree."""
+    x, faces, v_f = _synthetic_solver_case(rng, 300, 256 * 8)
+    _adjoint_check(cuda, rng, x, faces, v_f, scale, steps, 5)
+
+
+def test_solver_adjoint_kernel_grid_strides_over_a_million_faces(cuda, rng):
+    x, faces, v_f = _synthetic_solver_case(rng, 1 << 19, 1 << 20)
+    _adjoint_check(cuda, rng, x, faces, v_f, 2, 2, 3)
+
+
+def _solve_leaves(cuda, rng):
+    from facet_graph_convolution_torch.ops.vertex_update import build_naive_maps
+
+    x, faces, v_f = _solver_patch()
+    ft, vt = torch.as_tensor(faces, device=cuda), torch.as_tensor(v_f, device=cuda)
+    normals = [torch.as_tensor(_unit_normals(rng, faces.shape[0] >> (2 * s)), device=cuda)
+               for s in range(3)]
+    leaves = [torch.as_tensor(x, device=cuda).requires_grad_()] + [
+        n.requires_grad_() for n in normals]
+    r = torch.as_tensor(rng.normal(size=x.shape).astype(np.float32), device=cuda)
+    return leaves, ft, vt, build_naive_maps(faces, v_f, 3, 2, device=cuda), r
+
+
+def test_naive_solver_gradients_launch_the_kernels_and_match_plain_autograd(cuda, rng):
+    """The solve under autograd: 3 scale-kernel launches forward and 3
+    adjoint launches backward (6 forward with the checkpoint, the same
+    gradients bit for bit); the gradients against autograd through the
+    plain loop on the card (atol 1e-4 scaled, the solver's bar)."""
+    from facet_graph_convolution_torch.ops.vertex_update import update_positions_multiscale
+
+    leaves, ft, vt, maps, r = _solve_leaves(cuda, rng)
+    runs = []
+    for ck in (False, True):
+        before = (ms.naive_scale.launches, ms.naive_scale_backward.launches)
+        out, _ = update_positions_multiscale(leaves[0], leaves[1:], ft, vt, 2, (80, 20, 20),
+                                             checkpoint=ck, maps=maps)
+        grads = torch.autograd.grad((out * r).sum(), leaves)
+        runs.append(grads)
+        assert (ms.naive_scale.launches - before[0],
+                ms.naive_scale_backward.launches - before[1]) == ((6, 3) if ck else (3, 3))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    kernels = (ms.naive_scale, k4.tree_pool_ignore_zeros)
+    try:
+        ms.naive_scale = lambda x, f, v, n, s, c, i, **kw: ms.naive_scale_plain(x, f, v, n, s, c,
+                                                                                 i)
+        k4.tree_pool_ignore_zeros = k4.tree_pool_ignore_zeros_plain
+        out, _ = update_positions_multiscale(plain[0], plain[1:], ft, vt, 2, (80, 20, 20))
+        ref = torch.autograd.grad((out * r).sum(), plain)
+    finally:
+        ms.naive_scale, k4.tree_pool_ignore_zeros = kernels
+    for a, b in zip(runs[0], ref):
+        scale = b.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(a / scale, b / scale, atol=1e-4, rtol=0)
+
+
+def test_naive_solver_forward_and_adjoint_capture_into_a_graph(cuda, rng):
+    """Both cooperative launches inside a CUDA graph: a replay gives the
+    eager gradients bit for bit, and the wrappers count the capture's
+    launches only."""
+    from facet_graph_convolution_torch.ops.vertex_update import update_positions_multiscale
+
+    leaves, ft, vt, maps, r = _solve_leaves(cuda, rng)
+    grads = [torch.zeros_like(t) for t in leaves]
+
+    def solve():
+        out, _ = update_positions_multiscale(leaves[0], leaves[1:], ft, vt, 2, (80, 20, 20),
+                                             maps=maps)
+        for buf, g in zip(grads, torch.autograd.grad((out * r).sum(), leaves)):
+            buf.copy_(g)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        solve()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    eager = [g.clone() for g in grads]
+    graph = torch.cuda.CUDAGraph()
+    before = (ms.naive_scale.launches, ms.naive_scale_backward.launches)
+    with torch.cuda.graph(graph):
+        solve()
+    for g in grads:
+        g.zero_()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (ms.naive_scale.launches - before[0], ms.naive_scale_backward.launches - before[1]) == (
+        3, 3)
+    assert all(torch.equal(a, b) for a, b in zip(grads, eager))
 
 
 @pytest.mark.parametrize("solver", ["operator", "naive"])
@@ -743,16 +894,21 @@ def test_operator_solver_gradients_on_card_match_cpu(cuda, rng):
         torch.testing.assert_close(a / scale, b / scale, atol=1e-4, rtol=0)
 
 
-def test_train_with_vertices_refuses_the_naive_solver_on_card(cuda, tmp_path):
-    """The scale kernel has no backward: train_with_vertices under the naive
-    solver raises before any step, naming the cause."""
+def test_train_with_vertices_trains_the_naive_solver_on_card(cuda, tmp_path):
+    """train_with_vertices under the naive solver on the card: finite
+    losses, the scale kernel 3 and its adjoint 3 launches a step, and a
+    written checkpoint."""
+    from facet_graph_convolution_torch.training.checkpoint import CheckpointManager
     from facet_graph_convolution_torch.training.trainer import train_with_vertices
 
     ds, cfg = _vertex_training_case("naive")
-    cfg = cfg.replace(train={"network_path": str(tmp_path) + "/"})
-    with pytest.raises(NotImplementedError, match="no backward"):
-        train_with_vertices(cfg, ds, num_iterations=1, device=str(cuda))
-    assert not any(tmp_path.rglob("*.pt"))
+    cfg = cfg.replace(train={"network_path": str(tmp_path) + "/", "save_every": 2})
+    before = (ms.naive_scale.launches, ms.naive_scale_backward.launches)
+    state, hist = train_with_vertices(cfg, ds, num_iterations=3, device=str(cuda))
+    assert (ms.naive_scale.launches - before[0], ms.naive_scale_backward.launches - before[1]) == (
+        9, 9)
+    assert state.step == 3 and hist.shape == (3, 2) and np.isfinite(hist[:, 0]).all()
+    assert CheckpointManager(cfg.train.network_path, cfg.train.net_name).steps() == [2, 3]
 
 
 # ---------------------------------------------------------------------------
@@ -798,7 +954,7 @@ def _same_state(a, b):
             assert torch.equal(sa[key], sb[key]), key
 
 
-@pytest.mark.parametrize("kind", ["default", "rotation_invariant", "vertex"])
+@pytest.mark.parametrize("kind", ["default", "rotation_invariant", "vertex", "vertex_naive"])
 def test_graph_call_equals_eager_steps(cuda, kind):
     """Two calls of 5 steps through the captured graph (the first: one eager
     warm-up step, the capture, 4 replays; the second: 5 replays, with no
@@ -818,8 +974,8 @@ def test_graph_call_equals_eager_steps(cuda, kind):
         vertex_patch_tensors,
     )
 
-    if kind == "vertex":
-        ds, cfg = _vertex_training_case()
+    if kind.startswith("vertex"):
+        ds, cfg = _vertex_training_case("naive" if kind == "vertex_naive" else "operator")
         patch = ds.patches[0]
         tensors = vertex_patch_tensors(cfg, patch, str(cuda))
         step = make_vertex_train_step(cfg, generator=torch.Generator().manual_seed(7))
@@ -845,7 +1001,8 @@ def test_graph_call_equals_eager_steps(cuda, kind):
         def eager(state, d, j):
             return normals_step(state, *tensors, rot=d["rot"][j], sample_idx=d["sample_idx"][j])
 
-    counters = [k1.facet_conv_fwd, k1.facet_conv_bwd, k3.weighted_aggregate]
+    counters = [k1.facet_conv_fwd, k1.facet_conv_bwd, k3.weighted_aggregate, ms.naive_scale,
+                ms.naive_scale_backward]
     before = [fn.launches for fn in counters]
     _, first = scanned(graph_state, calls[0])
     after_capture = [fn.launches for fn in counters]
@@ -855,7 +1012,8 @@ def test_graph_call_equals_eager_steps(cuda, kind):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert [fn.launches for fn in counters] == after_capture     # replays count nothing
-    per_step = {"default": [8, 8, 0], "rotation_invariant": [7, 7, 1], "vertex": [8, 8, 0]}
+    per_step = {"default": [8, 8, 0, 0, 0], "rotation_invariant": [7, 7, 1, 0, 0],
+                "vertex": [8, 8, 0, 0, 0], "vertex_naive": [8, 8, 0, 3, 3]}
     assert [a - b for a, b in zip(after_capture, before)] == [2 * n for n in per_step[kind]]
     graph_losses = np.concatenate([first.numpy(), second.numpy()])
     eager_losses = []
@@ -961,3 +1119,63 @@ def test_capture_that_synchronises_raises(cuda):
         step(state, {"scale": torch.ones(3, 1)})
     assert step.graph is None
     torch.cuda.synchronize()
+
+
+def test_vertex_graphs_beyond_a_budget_are_evicted_and_recaptured(cuda, tmp_path):
+    """train_with_vertices through the graph on three patches with a budget
+    of about two graphs: the cache evicts and captures patches again, what
+    it holds stays within the budget (past it only by a newcomer larger than
+    every graph before), the card's reserved memory within the budget plus
+    the eager run's, and the trained state equals the same chunks' draws
+    run as eager steps, bit for bit."""
+    from facet_graph_convolution_torch.data.dataset import TrainingSet
+    from facet_graph_convolution_torch.training.graph_step import GraphCache
+    from facet_graph_convolution_torch.training.trainer import (
+        create_train_state,
+        make_vertex_train_step,
+        train_with_vertices,
+        vertex_patch_tensors,
+    )
+
+    v, f = icosphere(2)
+    ds = TrainingSet(max_patch_size=200, coarsening_steps=2, coarsening_levels=3, k_faces=23,
+                     seed=0)
+    ds.add_mesh_with_vertices(add_vertex_noise(v, f, 0.2, np.random.default_rng(1)), f,
+                              gt_vertices=v)
+    assert len(ds.patches) == 3
+    _, cfg = _vertex_training_case("naive")
+    iters, spc = 24, 2
+
+    def run(name, **kw):
+        c = cfg.replace(train={"network_path": str(tmp_path / name) + "/", "save_every": 1000})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_reserved()
+        state, _ = train_with_vertices(c, ds, num_iterations=iters, device=str(cuda), **kw)
+        torch.cuda.synchronize()
+        return state, torch.cuda.max_memory_reserved() - base
+
+    probe = GraphCache()
+    run("probe", steps_per_call=spc, graph_cache=probe)
+    probe.observe()
+    graph = probe.largest
+    _, eager_bytes = run("eager")
+    cache = GraphCache(budget_bytes=2 * graph + graph // 2)
+    state, graph_run_bytes = run("bounded", steps_per_call=spc, graph_cache=cache)
+    cache.observe()
+    distinct = len(probe.entries)
+    assert distinct == 3 and cache.evictions >= 1 and cache.captures > distinct
+    assert cache.peak_held <= cache.budget_bytes
+    assert graph_run_bytes <= eager_bytes + cache.budget_bytes
+
+    ref = create_train_state(cfg, num_steps=iters, device=str(cuda), multi_scale=True)
+    step = make_vertex_train_step(cfg, generator=torch.Generator().manual_seed(cfg.train.seed))
+    arrays = [vertex_patch_tensors(cfg, p, str(cuda)) for p in ds.patches]
+    rng = np.random.default_rng(cfg.train.seed)
+    for _ in range(iters // spc):
+        t = arrays[int(rng.integers(len(arrays)))]
+        d = step.draw(t, spc)
+        for j in range(spc):
+            ref, _ = step(ref, t, d["rot"][j], d["idx0"][j], d["idx1"][j])
+    _same_state(state, ref)
