@@ -5,7 +5,8 @@
 Phases, each fatal on failure:
 
 1. build: compile every CUDA kernel of the port from ``csrc/`` (one ``nvcc``
-   per source, in parallel);
+   per source, in parallel) and, beside them, the C++ host library
+   ``csrc/graphlib.cpp`` (``g++``; the phase fails if it does not load);
 2. kernel: the facet-conv forward kernel (K1) against its plain PyTorch
    version on the card, at the 8 conv shapes of the largest patch of a
    noisy subdivision-5 icosphere (20,480 faces, two patches), on the real
@@ -24,7 +25,21 @@ Phases, each fatal on failure:
    32/64/128, M = 9, fc 1024, random weights from a seed); checks the written
    meshes, that K1 ran 8 times per patch, and that each patch's forward
    through the kernel matches the same forward through the plain version;
-5. training: noisy/GT OBJ pairs of the same 3 shapes → ``preprocess_directory``
+5. batched serving: the same 3 requests through one ``InferenceServer``
+   (``inference/serving.py``) with the C++ host library in use
+   (``graph.native.available()``): each request's preprocessing seconds,
+   native and under ``FGC_DISABLE_NATIVE=1``; one ``denoise_batch`` of the 4
+   patches, K1 8 launches for the call, each mesh's normals and vertices
+   within 1e-4 of ``infer_directory``'s with the same coarsening seed; a
+   second call that captures no graph and gives the same bits; the graph's
+   memory, the busy share of a capturing and of a replaying forward (K1 8
+   times in a replay's profile), the largest patch's host tables with and
+   without transpose maps, and K1 timed at the batched shapes; then
+   ``denoise_batch_with_vertices`` (K1 8, the scale kernel 3 launches a
+   patch) within 2e-4 of the naive-solver driver, and ``export_forward`` →
+   ``load_forward`` on the card (K1 8 launches) within 1e-5 of the direct
+   forward;
+6. training: noisy/GT OBJ pairs of the same 3 shapes → ``preprocess_directory``
    → ``train_normals`` at full width for 50 steps with a mid-run and a final
    checkpoint; checks finite, falling losses, that K1 and K2 each ran 8
    times per step, that one step's gradients through the kernels match the
@@ -32,7 +47,7 @@ Phases, each fatal on failure:
    through ``infer_normals``; then times the train step on the whole
    subdivision-5 icosphere (one patch, as ``bench.py`` builds it) and
    profiles one step;
-6. rotation-invariant training: ``train_normals`` with
+7. rotation-invariant training: ``train_normals`` with
    ``rotation_invariance=True`` on the training phase's set, at full width
    for 50 steps; checks finite, falling losses, that the weighted
    aggregation (K3) ran once a step (conv1) and K1 and K2 7 times a step,
@@ -40,10 +55,10 @@ Phases, each fatal on failure:
    through K3 match the same step through the plain K3; then times and
    profiles the step on the whole subdivision-5 icosphere, as for the
    default step;
-7. aggregate kernel: K3 against its plain version, bitwise repeatable, at
+8. aggregate kernel: K3 against its plain version, bitwise repeatable, at
    conv1 of that step (the inputs the path gave it) and at the JAX kernel
    test's shape; prints its times, bound and ``torch.einsum``'s time;
-8. vertex serving: ``infer_directory(with_vertices=True)`` answers the same 3
+9. vertex serving: ``infer_directory(with_vertices=True)`` answers the same 3
    requests at full width with random multi-scale weights, once under the
    operator solver and once under the naive one; checks the 7 written meshes
    of each request, that K1 ran 8 times per patch, that the naive solver's
@@ -54,7 +69,7 @@ Phases, each fatal on failure:
    scale kernel against the plain solve (atol 1e-5) and against itself (the
    same bits), and the operator points against the naive points on the same
    patches;
-9. vertex training: noisy/GT pairs of the same 3 shapes →
+10. vertex training: noisy/GT pairs of the same 3 shapes →
    ``preprocess_directory(with_vertices=True)`` → ``train_with_vertices``
    at full width for 30 steps under the operator solver (the default:
    schedule (80, 20, 20), 500 chamfer samples, Adam at 1e-3); checks finite
@@ -67,14 +82,14 @@ Phases, each fatal on failure:
    the step reports for the same draws; prints the preprocessing seconds,
    the step's median time over 20 steps, one profiled step, and the
    solver's share of its device time;
-10. naive training: ``train_with_vertices(vertex_solver="naive")`` on the
+11. naive training: ``train_with_vertices(vertex_solver="naive")`` on the
    same set for 30 eager steps at full width: finite losses, the
    checkpoints, K1 8, K2 8, the scale kernel 3 and its adjoint
    (``csrc/ms_solver_naive_bwd.cu``) 3 launches a step; the same gradient
    check on the largest vertex patch, through K1/K2 against the plain conv
    (the solver's kernels in both) and against the plain step in float64
    (the plain solver loop under autograd);
-11. graph training: ``train_normals`` (default and rotation-invariant) and
+12. graph training: ``train_normals`` (default and rotation-invariant) and
    ``train_with_vertices`` (operator and naive) at ``steps_per_call=10``
    for 30 steps each, at full width on the two training sets, each call
    replaying a captured CUDA graph of the step; checks finite losses, the
@@ -91,23 +106,23 @@ Phases, each fatal on failure:
    eager step's, the device busy share and activities a step of each, the
    capture time and the graph's memory; last ``cli.train`` on the card with
    its default ``--steps_per_call`` (100) for 150 steps;
-12. budget: the naive vertex step through the graph on the vertex set with
+13. budget: the naive vertex step through the graph on the vertex set with
    a graph cache held to 1.5 graphs of the largest patch: evictions and
    captures again, and the peak allocated and reserved memory within the
    eager run's plus the budget;
-13. solver kernel: the scale kernel against its plain version at the three
+14. solver kernel: the scale kernel against its plain version at the three
    launches of the largest served patch's solve (the inputs the path gave
    it), and its launch with the iterate store (training's) against its
    serving launch, bit for bit, with its times per scale and per patch at the default grid and at
    one block an SM, the plain loop's times (pure PyTorch, and with the
    standalone K4 as before the redesign), the cost of one grid barrier, and
    its bound;
-14. adjoint kernel: the scale kernel's adjoint against the plain adjoint
+15. adjoint kernel: the scale kernel's adjoint against the plain adjoint
    (float32, and float64 on the same iterates) at the three launches of
    the largest vertex patch's naive solve under autograd, bitwise
    repeatable, with its times per scale and per patch, the plain adjoint's,
    one grid barrier's, and its bound;
-15. pool kernel: K4 against its plain version, bit for bit, at the solver's
+16. pool kernel: K4 against its plain version, bit for bit, at the solver's
    two pools of the largest served patch, at C = 3 and N = 1,048,576, on
    rows of zeros, groups of zeros and -0.0 rows, and at steps 1, 2 and 3;
    prints its times and bound; the scale kernel's phase A alone at the
@@ -124,6 +139,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -529,6 +545,251 @@ def serving_phase(dev, workdir):
         device_profile(lambda: forward_patch(params, largest, cfg, dev),
                        f"one forward of a {largest.num_nodes}-node patch")
     return launches, records
+
+
+SERVE_ATOL = 1e-4           # batched serving against the per-mesh driver
+SERVE_VERTEX_ATOL = 2e-4    # batched vertex serving against the naive-solver driver
+EXPORT_ATOL = 1e-5          # the exported program against the direct forward
+
+
+def host_ms(fn, reps=5):
+    """Median host milliseconds of ``reps`` calls of ``fn``."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def batched_serving_phase(dev, workdir, k1_patch_ms, patch_nodes):
+    """The serving phase's 3 requests through one ``InferenceServer``: the
+    native host library in use, each request's preprocessing native and
+    NumPy, one batched forward (K1 8 launches for the 4 patches) against
+    ``infer_directory`` with the same coarsening seed, a second call that
+    replays the captured graph (the same bits), K1 at the batched shapes,
+    the busy share of a capturing and of a replaying forward, the forward's
+    tables with and without transpose maps, the vertex pipeline through
+    ``denoise_batch_with_vertices`` (the scale kernel 3 launches a patch)
+    against the naive-solver driver, and the exported forward on the card
+    (K1 8 launches) against the direct forward. ``k1_patch_ms`` is K1's time
+    a forward of the kernel phase's patch of ``patch_nodes`` nodes."""
+    import types
+
+    import torch
+
+    from facet_graph_convolution_torch.config import default_config
+    from facet_graph_convolution_torch.data.dataset import bucket_size, pad_patch_to
+    from facet_graph_convolution_torch.geometry.obj_io import load_obj
+    from facet_graph_convolution_torch.graph import native
+    from facet_graph_convolution_torch.inference.driver import infer_directory, predict_normals
+    from facet_graph_convolution_torch.inference.serving import (
+        InferenceServer,
+        _build_mesh,
+        export_forward,
+        load_forward,
+    )
+    from facet_graph_convolution_torch.models.unet import (
+        batched_graph_tensors,
+        graph_tensors,
+        init_unet,
+        train_graph_tensors,
+        unet_apply,
+    )
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
+    from facet_graph_convolution_torch.ops.normalization import normalize_tensor
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the C++ host library is not in use: graph.native.available() "
+                             "is False")
+    in_dir = os.path.join(workdir, "requests")
+    names = sorted(f[:-4] for f in os.listdir(in_dir) if f.endswith(".obj"))
+    meshes = [load_obj(os.path.join(in_dir, n + ".obj"))[:2] for n in names]
+    cfg = default_config(workdir).replace(
+        eval={"results_path": os.path.join(workdir, "batched_driver") + "/"})
+    params = init_unet(seed=0, device=str(dev))     # the serving phase's weights
+    print(f"batched serving phase: {len(names)} requests through one InferenceServer, "
+          "full width, the C++ host library in use")
+
+    for name, (v, f) in zip(names, meshes):
+        t0 = time.perf_counter()
+        mesh = _build_mesh(v, f, cfg)
+        t_native = time.perf_counter() - t0
+        os.environ["FGC_DISABLE_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            _build_mesh(v, f, cfg)
+            t_numpy = time.perf_counter() - t0
+        finally:
+            del os.environ["FGC_DISABLE_NATIVE"]
+        print(f"  request {name:<14s} faces {f.shape[0]:6d} patches {len(mesh.patches)}  "
+              f"preprocess {t_native:.3f} s native, {t_numpy:.3f} s NumPy")
+
+    # the per-mesh driver on the same files and coarsening seed
+    t0 = time.perf_counter()
+    records = {r["name"]: r for r in infer_directory(in_dir, cfg, params=params,
+                                                     device=str(dev), seed=0)}
+    driver_s = time.perf_counter() - t0
+    drv_points = {n: load_obj(records[n]["path"])[0] for n in names}
+    drv_normals = {n: predict_normals(records[n]["mesh"], cfg, params, dev) for n in names}
+    patches = sum(records[n]["patches"] for n in names)
+
+    server = InferenceServer(cfg, params=params, device=str(dev))
+    k1.facet_conv_fwd.launches = 0
+    t0 = time.perf_counter()
+    first = server.denoise_batch(meshes)
+    first_s = time.perf_counter() - t0
+    launches = k1.facet_conv_fwd.launches
+    first_timings = dict(server.timings)
+    if launches != 8:
+        raise AssertionError(f"K1 launched {launches} times for one batched call of {patches} "
+                             "patches (want 8)")
+    err_n = err_v = 0.0
+    for name, (refined, normals) in zip(names, first):
+        if not (np.isfinite(refined).all() and np.isfinite(normals).all()):
+            raise AssertionError(f"{name}: non-finite batched output")
+        err_n = max(err_n, float(np.abs(normals - drv_normals[name]).max()))
+        err_v = max(err_v, float(np.abs(refined - drv_points[name]).max()))
+    if max(err_n, err_v) > SERVE_ATOL:
+        raise AssertionError(f"batched serving differs from infer_directory: normals {err_n}, "
+                             f"vertices {err_v}")
+    print(f"  one denoise_batch call, {patches} patches: K1 launches {launches}; against "
+          f"infer_directory (seed 0): normals max abs err {err_n:.3e}, vertices {err_v:.3e} "
+          f"(atol {SERVE_ATOL})")
+
+    captures = server._cache.captures
+    k1.facet_conv_fwd.launches = 0
+    t0 = time.perf_counter()
+    second = server.denoise_batch(meshes)
+    second_s = time.perf_counter() - t0
+    if server._cache.captures != captures:
+        raise AssertionError("the second call captured a new graph")
+    for (a, b), (c, d) in zip(first, second):
+        if not (np.array_equal(a, c) and np.array_equal(b, d)):
+            raise AssertionError("the replayed call gave other bits than the first")
+    entry = next(iter(server._compiled.values()))
+    print(f"  second call: no new capture ({captures} captured), the same bits; K1 through "
+          f"the wrapper {k1.facet_conv_fwd.launches} (the graph launches it)")
+    print(f"  graph: captured in {entry.capture_s:.3f} s, {entry.graph_bytes / 2**20:.1f} MiB "
+          f"allocated, {entry.pool_bytes / 2**20:.1f} MiB reserved")
+    drv_ms = {n: 1e3 * (records[n]["preprocess_s"] + records[n]["forward_s"]
+                        + records[n]["solver_s"]) for n in names}
+    print("  wall ms a request: batched %.1f (first call, capture) and %.1f (second call, "
+          "replay), per-mesh driver %.1f (its %s; %.1f with its file writes)" % (
+              1e3 * first_s / len(names), 1e3 * second_s / len(names),
+              sum(drv_ms.values()) / len(names),
+              ", ".join(f"{n} {ms_:.1f}" for n, ms_ in drv_ms.items()),
+              1e3 * driver_s / len(names)))
+    print("  second call's seconds: preprocess %s, tables %.4f, forward %.4f, solver %.4f" % (
+        [round(s, 4) for s in server.timings["preprocess_s"]], server.timings["tables_s"],
+        server.timings["forward_s"], server.timings["solver_s"]))
+
+    built = [_build_mesh(v, f, cfg) for v, f in meshes]
+    padded, x_b, adjs_b = server._stack_batch(built)
+    fresh = InferenceServer(cfg, params=params, device=str(dev))
+    busy_capture, acts = device_busy(lambda: fresh._forward(x_b, adjs_b))
+    print(f"  capturing forward: device busy {busy_capture:.3f} ms in {acts} activities, "
+          f"{100 * busy_capture / (1e3 * first_timings['forward_s']):.1f}% of the first call's "
+          f"forward ({1e3 * first_timings['forward_s']:.3f} ms wall, tables to host output)")
+    del fresh
+    wall, busy, _ = device_profile(lambda: server._forward(x_b, adjs_b),
+                                   f"one replayed batched forward, {len(padded)} patches of "
+                                   f"{x_b.shape[1]} nodes (tables built on the host included)")
+    seen = [sum(GRAPH_KERNELS["K1"] in name for name, _ in
+                warm_profile(lambda: server._forward(x_b, adjs_b)))
+            for _ in range(GRAPH_PROFILES)]
+    if max(seen) != 8:
+        raise AssertionError(f"a replayed batched forward ran K1 {seen} times in "
+                             f"{GRAPH_PROFILES} profiles (want 8)")
+    print(f"  a replayed forward runs K1 8 times (the most of {GRAPH_PROFILES} profiles: {seen})")
+
+    largest = max((p for n in names for p in records[n]["mesh"].patches),
+                  key=lambda p: p.num_nodes)
+    without = host_ms(lambda: graph_tensors(largest.adjs, "cpu"))
+    with_t = host_ms(lambda: train_graph_tensors(largest.adjs, "cpu"))
+    print(f"  host tables of the largest patch ({largest.num_nodes} nodes): {without:.3f} ms "
+          f"without the transpose maps, {with_t:.3f} ms with them (median of 5); the batch's "
+          f"block-diagonal tables {1e3 * server.timings['tables_s']:.3f} ms")
+
+    # K1 at the batched forward's shapes
+    steps = cfg.model.coarsening_steps
+    adjs, mult_rows = batched_graph_tensors(adjs_b, steps, dev)
+    flat = types.SimpleNamespace(adjs=[a.reshape(-1, a.shape[-1]) for a in adjs_b],
+                                 inputs=x_b.reshape(-1, x_b.shape[-1]))
+    rng = np.random.default_rng(2)
+    total_ms, worst = 0.0, 0.0
+    print("  K1 at the batched forward's shapes (device ms: 50 calls replayed from a graph)")
+    for name, level, c_in in CONVS:
+        adj_sm, rows = adjs[level], mult_rows[level][:, :, 0].contiguous()
+        cat, ux, c = conv_inputs(flat, level, c_in, 9, adj_sm.shape[1], rng, dev)
+        args = (cat, ux, adj_sm, rows, c)
+        z, err = fwd_check(k1, args, f"batched {name}")
+        ms_, _, _ = cuda_ms(lambda: k1.facet_conv_fwd(*args), 50)
+        b_ms, b_by = bound_ms(cat, ux, adj_sm, rows, c, z)
+        total_ms += ms_
+        worst = max(worst, err)
+        print("    %-8s N' %6d C %4d K' %3d  err %.3e  %.5f ms  bound %.5f ms (%s)" % (
+            name, adj_sm.shape[1], c_in, adj_sm.shape[0], err, ms_, b_ms, b_by))
+    print(f"  K1 a batched forward: {total_ms:.5f} ms for {len(padded)} patches of "
+          f"{x_b.shape[1]} nodes ({total_ms / 8:.5f} ms a launch), against {k1_patch_ms:.5f} ms "
+          f"a forward of the kernel phase's {patch_nodes}-node patch")
+
+    # the vertex pipeline, batched, against the naive-solver driver
+    vparams = init_unet(seed=1, multi_scale=True, device=str(dev))
+    naive_cfg = cfg.replace(eval={"vertex_solver": "naive", "results_path": os.path.join(
+        workdir, "batched_vertex_driver") + "/"})
+    vrecords = {r["name"]: r for r in infer_directory(in_dir, naive_cfg, with_vertices=True,
+                                                      params=vparams, device=str(dev),
+                                                      seed=0)}
+    vpatches = sum(vrecords[n]["patches"] for n in names)
+    # the server runs the naive solver whatever the config names (cfg: operator)
+    vserver = InferenceServer(cfg, params=vparams, include_vertices=True, device=str(dev))
+    k1.facet_conv_fwd.launches = 0
+    ms.naive_scale.launches = 0
+    vout = vserver.denoise_batch(meshes)
+    vlaunches = {"K1": k1.facet_conv_fwd.launches, "solver": ms.naive_scale.launches}
+    if vlaunches != {"K1": 8, "solver": 3 * vpatches}:
+        raise AssertionError(f"batched vertex serving launched {vlaunches} for {vpatches} "
+                             f"patches, want K1 8 and the scale kernel {3 * vpatches}")
+    err = 0.0
+    for name, res in zip(names, vout):
+        for key, value in res.items():
+            if not np.isfinite(value).all():
+                raise AssertionError(f"{name}: non-finite {key}")
+            err = max(err, float(np.abs(value - vrecords[name]["outputs"][key]).max()))
+    if err > SERVE_VERTEX_ATOL:
+        raise AssertionError(f"batched vertex serving differs from the naive driver by {err}")
+    print(f"  denoise_batch_with_vertices, {vpatches} patches: launches {vlaunches}; against "
+          f"the naive-solver driver: max abs err {err:.3e} (atol {SERVE_VERTEX_ATOL}, "
+          f"points and the three normals); wall {1e3 * sum(vserver.timings['preprocess_s']):.1f} "
+          f"ms preprocess, {1e3 * vserver.timings['forward_s']:.1f} ms forward, "
+          f"{1e3 * vserver.timings['solver_s']:.1f} ms solver")
+
+    # the exported forward, run on the card
+    patch = pad_patch_to(largest, bucket_size(largest.num_nodes, server.bucket_align))
+    t0 = time.perf_counter()
+    data = export_forward(cfg, params, patch.num_nodes, [a.shape[1] for a in patch.adjs])
+    export_s = time.perf_counter() - t0
+    fn = load_forward(data, device=str(dev))
+    k1.facet_conv_fwd.launches = 0
+    y = fn(params, patch.inputs[None], *(a[None] for a in patch.adjs))
+    torch.cuda.synchronize()
+    exp_launches = k1.facet_conv_fwd.launches
+    t_adjs, t_rows = graph_tensors(patch.adjs, dev)
+    with torch.no_grad():
+        y_ref = normalize_tensor(unet_apply(params, torch.as_tensor(patch.inputs, device=dev),
+                                            t_adjs, t_rows, coarsening_steps=steps))
+    err = float((y[0] - y_ref).abs().max())
+    if exp_launches != 8 or err > EXPORT_ATOL:
+        raise AssertionError(f"the exported forward: K1 launches {exp_launches} (want 8), "
+                             f"max abs err {err} against the direct forward")
+    print(f"  exported forward ({len(data)} bytes, {export_s:.1f} s to export) at "
+          f"{patch.num_nodes} nodes: K1 launches {exp_launches}, max abs err {err:.3e} against "
+          f"the direct forward (atol {EXPORT_ATOL})")
+    print(f"  batched serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "k1_ms": total_ms, "k1_err": worst}
 
 
 def device_profile(fn, label):
@@ -2102,9 +2363,18 @@ def main() -> int:
     card = card_line()
     print(card)
 
+    from facet_graph_convolution_torch.graph import native
+
     t0 = time.perf_counter()
+    host_lib = []
+    gxx = threading.Thread(target=lambda: host_lib.append(native.available()))
+    gxx.start()
     built = cuda_library.build()
-    print(f"build: {built} in {time.perf_counter() - t0:.1f} s")
+    gxx.join()
+    if host_lib != [True]:
+        raise AssertionError("the C++ host library csrc/graphlib.cpp did not build or load")
+    print(f"build: {built} and {os.path.basename(native.LIBRARY)} in "
+          f"{time.perf_counter() - t0:.1f} s")
     for name in built:
         with open(os.path.join(cuda_library.BUILD_DIR, name + ".log")) as fh:
             print(fh.read().strip())
@@ -2117,6 +2387,7 @@ def main() -> int:
     err2, totals2, bound_by2 = backward_kernel_phase(dev, patch)
     with tempfile.TemporaryDirectory() as workdir:
         launches, _ = serving_phase(dev, workdir)
+        batched_serving_phase(dev, workdir, totals["ms"], patch.num_nodes)
         train_launches, trained = training_phase(dev, workdir)
         k3_launches, k3_inputs = rotinv_training_phase(dev, trained)
         err3, totals3, bound_by3 = aggregate_kernel_phase(dev, k3_inputs)

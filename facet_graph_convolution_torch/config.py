@@ -283,6 +283,19 @@ def parse_device(arg: Optional[str]) -> str:
     return f"{name}:{index}" if index and name == "cuda" else name
 
 
+def resolve_device(device: str):
+    """``device`` as a torch device; raises for CUDA when no card is present
+    (the entry points never fall back to the CPU on their own)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA device is available; "
+            "pass device='cpu' (or --device cpu) to run on the CPU")
+    return dev
+
+
 def config_from_args(args: argparse.Namespace) -> Config:
     cfg = default_config(args.base_path)
     train_updates, eval_updates, model_updates = {}, {}, {}

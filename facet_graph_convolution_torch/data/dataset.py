@@ -417,7 +417,8 @@ def load_dataset(path: str) -> MeshDataset:
 def pad_patch_to(patch: FacetPatch, target: int) -> FacetPatch:
     """Pad a patch's fine level to ``target`` nodes with self-only fake nodes
     (zero signal, zero GT → masked by the fake-node discipline everywhere).
-    Coarser levels pad proportionally."""
+    Coarser levels pad proportionally; a vertex patch's faces get ``-1``
+    rows, the fake faces' mark."""
     n = patch.num_nodes
     if n == target:
         return patch
@@ -440,7 +441,11 @@ def pad_patch_to(patch: FacetPatch, target: int) -> FacetPatch:
         if group == 1:
             break
         size //= group
-    return dataclasses.replace(patch, inputs=inputs, gt_normals=gt, adjs=adjs)
+    faces = None
+    if patch.faces is not None:
+        faces = np.full((target, 3), -1, dtype=patch.faces.dtype)
+        faces[:n] = patch.faces
+    return dataclasses.replace(patch, inputs=inputs, gt_normals=gt, adjs=adjs, faces=faces)
 
 
 def bucket_size(n: int, align: int = 1024) -> int:

@@ -1,7 +1,8 @@
 """Wavefront OBJ I/O and the normal-colored visualization mesh (host).
 
-The port's own copy of the NumPy paths of
-``facet_graph_convolution_tpu/geometry/obj_io.py``: reference ``load_mesh``
+The port's own copy of ``facet_graph_convolution_tpu/geometry/obj_io.py``
+(its parser in C++, :mod:`..graph.native`, where the library loaded):
+reference ``load_mesh``
 (utils.py:476-639), ``write_mesh`` (utils.py:659-697), ``getColoredMesh``
 (utils.py:1973-1999).
 """
@@ -31,6 +32,14 @@ def load_obj(path: str, filename: Optional[str] = None):
     normals[V,3] float32)``.
     """
     full = os.path.join(path, filename) if filename is not None else path
+    try:    # the C++ parser (graph.native), the same output as the loop below
+        from facet_graph_convolution_torch.graph.native import parse_obj_native
+
+        verts, tris = parse_obj_native(full)
+        dtype = np.uint16 if verts.shape[0] < 65536 else np.uint32
+        return verts, tris.astype(dtype), compute_vertex_normals(verts, tris)
+    except (ImportError, OSError):
+        pass
     vertices = []
     face_idx = []
     with open(full, "r") as fh:

@@ -1,7 +1,8 @@
-"""Facet-graph adjacency K-list (host, NumPy).
+"""Facet-graph adjacency K-list (host).
 
-The port's own copy of the NumPy branch of
-``facet_graph_convolution_tpu/graph/adjacency.py::face_adjacency_klist``.
+The port's own copy of
+``facet_graph_convolution_tpu/graph/adjacency.py::face_adjacency_klist``:
+the C++ builder of :mod:`.native` where it loaded, else NumPy.
 
 The graph format is the padded K-list ``fadj[F, K]``: one-indexed, slot 0 =
 self, 0 = padding. Two faces are adjacent iff they share a vertex, so
@@ -27,6 +28,9 @@ def face_adjacency_klist(
     The same insertion sequence is reproduced with a global order key and a
     stable grouped rank. A degenerate face that repeats a vertex is recorded
     once per occurrence (the reference records a phantom face-0 neighbour).
+
+    The C++ single-pass builder (:mod:`.native`) gives the same K-list where
+    it loaded; the sort-based construction below is the fallback.
     """
     faces = np.asarray(faces, dtype=np.int64)
     fnum = faces.shape[0]
@@ -34,6 +38,16 @@ def face_adjacency_klist(
     fadj[:, 0] = np.arange(fnum, dtype=np.int32) + 1
     if fnum == 0:
         return (fadj, 0) if return_dropped else fadj
+
+    try:
+        from facet_graph_convolution_torch.graph.native import face_adjacency_native
+
+        fadj_n, dropped = face_adjacency_native(faces, int(faces.max()) + 1, k)
+        if dropped:
+            warnings.warn(f"face_adjacency_klist: {dropped // 2} connections dropped (K={k})")
+        return (fadj_n, dropped) if return_dropped else fadj_n
+    except (ImportError, OSError):
+        pass
 
     vids = faces.reshape(-1)
     fids = np.repeat(np.arange(fnum), 3)

@@ -1,8 +1,9 @@
 """Graclus heavy-edge coarsening with binary-tree node ordering (host).
 
-The port's own copy of the NumPy paths of
-``facet_graph_convolution_tpu/graph/coarsen.py``, itself the semantics of the
-reference's ``lib/coarsening.py`` (from mdeff/cnn_graph):
+The port's own copy of ``facet_graph_convolution_tpu/graph/coarsen.py``,
+itself the semantics of the reference's ``lib/coarsening.py`` (from
+mdeff/cnn_graph); the matching pass runs in C++ (:mod:`.native`) where the
+library loaded:
 
 - :func:`graclus_levels`: multi-level randomized heavy-edge matching, 3
   trials per level keeping the best total association;
@@ -33,7 +34,16 @@ def _match_one_level(
     lib/coarsening.py:135-192): nodes are visited in ``rid`` order, and an
     unmarked node pairs with the unmarked neighbour maximizing
     ``w_edge · (1/deg_i + 1/deg_j)``. Returns (cluster id per node, total
-    association)."""
+    association). The C++ library (:mod:`.native`) runs it where it loaded,
+    with the inverse weights in float64 (its docstring says how that
+    changes the pyramid); the loop below is the fallback."""
+    try:
+        from facet_graph_convolution_torch.graph.native import match_one_level_native
+
+        return match_one_level_native(rr, cc, vv, rid, weights, num_nodes)
+    except Exception:
+        pass
+
     nnz = rr.shape[0]
     marked = np.zeros(num_nodes, dtype=bool)
     rowstart = np.zeros(num_nodes, dtype=np.int64)

@@ -105,17 +105,19 @@ def dedupe_klist(adj: np.ndarray):
 
 
 def split_self_klist(
-    adj_u: np.ndarray, mult: np.ndarray
+    adj_u: np.ndarray, mult: np.ndarray, row_ids: Optional[np.ndarray] = None
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Split the self slot out of a deduped K-list: the self contribution
     needs no gather, its features are the row's own.
 
     Returns ``(adj_nbr [N, K''], mult_nbr [N, K''], self_mult [N])``: the
     compacted neighbours-only one-indexed K-list, its multiplicities, and the
-    self multiplicity.
+    self multiplicity. ``row_ids`` names the node of each row (default: row
+    i is node i).
     """
     n, _ = adj_u.shape
-    self_col = np.arange(n, dtype=np.int64) + 1
+    self_col = (np.arange(n, dtype=np.int64) if row_ids is None
+                else np.asarray(row_ids, dtype=np.int64)) + 1
     is_self = adj_u.astype(np.int64) == self_col[:, None]
     self_mult = np.sum(mult * is_self, axis=1).astype(np.float32)
     nbr = np.where(is_self, 0, adj_u)
@@ -183,29 +185,98 @@ def lane_tables(
     return adj_t, np.ascontiguousarray(adj_t_t.T)
 
 
-def slot_major_arrays(
+def slot_major_tables(
     adj_nbr: np.ndarray, mult_nbr: np.ndarray, self_mult: np.ndarray
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Host tables of the facet-conv kernel from the self-split deduped
-    K-list (:func:`split_self_klist`): ``(adj_sm [K, N'], adj_t_sm,
-    mult_rows [K+1, N', 1])``.
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The forward's host tables of the facet-conv kernel from the self-split
+    deduped K-list (:func:`split_self_klist`): ``(adj_sm [K, N'], mult_rows
+    [K+1, N', 1])``, the first and last tables of :func:`slot_major_arrays`,
+    without the transpose map that only the backward reads.
 
-    ``adj_sm`` is the slot-major one-indexed neighbour list, ``adj_t_sm`` its
-    transpose map over the flat slots ``k·N' + n`` (for the backward), and
-    ``mult_rows`` the fused multiplicity/degree rows. The node axis is padded
-    to N' (a multiple of 256, or of 8 below 256 nodes); padded nodes have
-    all-pad adjacency and zero mult rows, so their outputs are zero rows.
+    ``adj_sm`` is the slot-major one-indexed neighbour list and ``mult_rows``
+    the fused multiplicity/degree rows. The node axis is padded to N' (a
+    multiple of 256, or of 8 below 256 nodes); padded nodes have all-pad
+    adjacency and zero mult rows, so their outputs are zero rows.
     """
     adj_sm = np.ascontiguousarray(adj_nbr.T.astype(np.int32))
     n = adj_nbr.shape[0]
     rows = fused_mult_rows(mult_nbr, self_mult)                # [K+1, N]
-    # pad before building the transpose map: its flat slots are strided by N'
     target = -(-n // 256) * 256 if n >= 256 else -(-n // 8) * 8
     if target != n:
         adj_sm = np.pad(adj_sm, ((0, 0), (0, target - n)))
         rows = np.pad(rows, ((0, 0), (0, target - n)))
-    adj_t_sm = transpose_adjacency(adj_sm, num_targets=target)
-    return adj_sm, adj_t_sm, rows[:, :, None].astype(np.float32)
+    return adj_sm, rows[:, :, None].astype(np.float32)
+
+
+def slot_major_arrays(
+    adj_nbr: np.ndarray, mult_nbr: np.ndarray, self_mult: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host tables of the facet-conv kernel, forward and backward:
+    ``(adj_sm [K, N'], adj_t_sm, mult_rows [K+1, N', 1])``, those of
+    :func:`slot_major_tables` and ``adj_t_sm``, the transpose map of
+    ``adj_sm`` over the flat slots ``k·N' + n`` (for the backward), built
+    on the padded table: its flat slots are strided by N'.
+    """
+    adj_sm, rows = slot_major_tables(adj_nbr, mult_nbr, self_mult)
+    adj_t_sm = transpose_adjacency(adj_sm, num_targets=adj_sm.shape[1])
+    return adj_sm, adj_t_sm, rows
+
+
+def level_tables(adj: np.ndarray, width: Optional[int] = None,
+                 block: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`slot_major_tables` of a raw one-indexed K-list ``adj`` [N, K]
+    (slot 0 = self, 0 = pad), deduped and self-split first.
+
+    ``block`` (default N) reads ``adj`` as N / block blocks of ``block``
+    rows, each a K-list over its own nodes: block b's entries are offset by
+    b·block after the dedupe, its pads stay 0, so the tables are those of
+    the block-diagonal graph, no edge crossing from one block to another.
+    ``width`` pads the neighbour slots to that many (pad slots, zero mult
+    rows), so that every batch of one bucket gets tables of one shape; it
+    must be at least the K-list's most distinct non-self neighbours of a
+    node (K − 1 always is). A node whose row is its self slot alone (a fake
+    or padding node) skips the dedupe: its tables are one self slot."""
+    adj = np.asarray(adj)
+    n = adj.shape[0]
+    local = np.arange(n, dtype=np.int64) % (block or max(n, 1))
+    alone = (adj[:, 0] == local + 1) & ~adj[:, 1:].any(axis=1)
+    rows = np.flatnonzero(~alone)
+    nbr, mult, self_rows = split_self_klist(*dedupe_klist(adj[rows]), row_ids=local[rows])
+    k = nbr.shape[1] if width is None else width
+    if k < nbr.shape[1]:
+        raise ValueError(f"width {width} < the {nbr.shape[1]} neighbour slots this K-list needs")
+    adj_nbr = np.zeros((n, k), np.int32)
+    mult_nbr = np.zeros((n, k), np.float32)
+    self_mult = np.ones(n, np.float32)
+    adj_nbr[rows, :nbr.shape[1]] = np.where(nbr > 0, nbr + (rows - local[rows])[:, None], 0)
+    mult_nbr[rows, :nbr.shape[1]] = mult
+    self_mult[rows] = self_rows
+    return slot_major_tables(adj_nbr, mult_nbr, self_mult)
+
+
+def batched_level_tables(klists_by_level, group: int, widths=None):
+    """The forward's tables of B patches padded to one bucket, as one graph:
+    per level, ``(adj_sm, mult_rows)`` of :func:`level_tables` over the B
+    K-lists ``klists_by_level[l]`` [B, N_l, K_l] as blocks of N_l rows
+    (``widths[l]`` neighbour slots when given). The node axis is padded once,
+    after the last patch.
+
+    The network pools and unpools groups of ``group`` contiguous nodes; the
+    blocks line up with them only where N_l = group · N_{l+1} at every level
+    (a bucket is a multiple of the tree's groups), which is checked: then
+    patch b's nodes b·N_l .. (b+1)·N_l − 1 pool into its own nodes at the
+    next level and no group mixes two patches."""
+    sizes = [np.shape(k)[1] for k in klists_by_level]
+    batch = np.shape(klists_by_level[0])[0]
+    for lvl in range(len(sizes) - 1):
+        if sizes[lvl] != group * sizes[lvl + 1]:
+            raise ValueError(f"level sizes {sizes} are not a tree of {group}-node groups: "
+                             "the batch's blocks would not pool into their own patches")
+    if any(np.shape(k)[0] != batch for k in klists_by_level):
+        raise ValueError("every level needs the same batch")
+    return [level_tables(np.reshape(k, (-1, np.shape(k)[2])),
+                         None if widths is None else widths[lvl], block=np.shape(k)[1])
+            for lvl, k in enumerate(klists_by_level)]
 
 
 def invert_permutation(perm: np.ndarray) -> np.ndarray:

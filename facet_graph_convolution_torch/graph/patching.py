@@ -1,7 +1,8 @@
 """Masked BFS patch extraction over the facet graph (host).
 
-The port's own copy of the NumPy paths of
+The port's own copy of
 ``facet_graph_convolution_tpu/graph/patching.py::grow_graph_patch_masked``
+(in C++, :mod:`.native`, where the library loaded)
 (reference ``getGraphPatch_wMask``, utils.py:1508-1696) and
 ``grow_mesh_patch`` (reference ``getMeshPatch``, utils.py:1298-1411).
 """
@@ -30,7 +31,17 @@ def grow_graph_patch_masked(
     - Returns (local K-list one-indexed, local→global indices, next seed):
       the next seed is an unvisited, unmasked neighbour seen while completing
       the frontier's adjacency rows, or −1.
+
+    The C++ library (:mod:`.native`) runs it where it loaded; the loop below
+    is the fallback and its oracle.
     """
+    try:
+        from facet_graph_convolution_torch.graph.native import grow_patch_native
+
+        return grow_patch_native(adj, nodes_num, seed, mask, min_size)
+    except Exception:
+        pass
+
     k = adj.shape[1]
     total = adj.shape[0]
     adj0 = adj.astype(np.int64) - 1          # zero-indexed, -1 = pad

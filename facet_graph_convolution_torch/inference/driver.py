@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from facet_graph_convolution_torch import params as params_io
-from facet_graph_convolution_torch.config import Config, default_config
+from facet_graph_convolution_torch.config import Config, default_config, resolve_device
 from facet_graph_convolution_torch.data.dataset import InferenceMesh
 from facet_graph_convolution_torch.geometry.mesh_math import normalize_rows
 from facet_graph_convolution_torch.geometry.obj_io import (
@@ -46,17 +46,6 @@ from facet_graph_convolution_torch.ops.vertex_update import (
 )
 
 MULTI_SCALE_HEADS = ("fc_mid", "out1", "fc_coarse", "out2")
-
-
-def resolve_device(device: str) -> torch.device:
-    """``device`` as a torch device; raises for CUDA when no card is present
-    (the entry points never fall back to the CPU on their own)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but no CUDA device is available; "
-            "pass device='cpu' (or --device cpu) to run on the CPU")
-    return dev
 
 
 def _restore_params(cfg: Config, device: torch.device):
@@ -259,6 +248,7 @@ def infer_directory(
     with_vertices: Optional[bool] = None,
     params=None,
     device: str = "cuda",
+    seed: Optional[int] = None,
 ) -> List[Dict]:
     """Denoise every ``.obj`` in a directory (reference ``infer``,
     infer.py:32-123): skip existing results unless ``overwrite_results``,
@@ -270,7 +260,8 @@ def infer_directory(
     heads' colored meshes (``_fine_normals_s.obj``, ``_mid_normals_s.obj``,
     ``_coarse_normals_s.obj``); otherwise the normals pipeline
     (:func:`infer_normals`, ``_inferred_normals.obj``). Both write
-    ``_original_normals.obj``.
+    ``_original_normals.obj``. ``seed`` fixes each mesh's coarsening seed
+    (unseeded by default, as in the JAX package).
 
     Returns one record per mesh processed: its name, face and patch counts,
     the solver's iterations, the seconds spent in preprocessing, forward and
@@ -307,6 +298,7 @@ def infer_directory(
             k_faces=cfg.data.k_faces,
             k_vertices=cfg.data.k_vertices,
             max_edges=cfg.data.max_edges,
+            seed=seed,
         )
         record = {"name": stem, "path": denoised_path, "faces": int(faces.shape[0]),
                   "mesh": mesh}

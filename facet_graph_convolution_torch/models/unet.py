@@ -29,7 +29,9 @@ import numpy as np
 import torch
 
 from facet_graph_convolution_torch.graph.convert import (
+    batched_level_tables,
     dedupe_klist,
+    level_tables,
     slot_major_arrays,
     split_self_klist,
 )
@@ -190,24 +192,29 @@ def unet_apply_rowmajor(
     return _network(params, x, conv, len(adjs), coarsening_steps, alpha, multi_scale)
 
 
-def _level_tables(adjs_raw: Sequence[np.ndarray]):
-    for a in adjs_raw:
-        a_u, mult = dedupe_klist(np.asarray(a))
-        # slot_major_arrays pads the node axis before it builds the transpose
-        # map, whose flat slots k·N' + n are strided by the padded N'
-        yield slot_major_arrays(*split_self_klist(a_u, mult))
+def _tensors(tables, device: str):
+    """``(adjs, mult_rows)`` on ``device`` from per-level ``(adj_sm,
+    mult_rows)`` host tables."""
+    return ([torch.as_tensor(adj_sm, device=device) for adj_sm, _ in tables],
+            [torch.as_tensor(rows, device=device) for _, rows in tables])
 
 
 def graph_tensors(adjs_raw: Sequence[np.ndarray], device: str):
     """Kernel tables of a patch's raw one-indexed K-lists, as tensors on
     ``device``: ``(adjs, mult_rows)`` for :func:`unet_apply` (the JAX
     package's ``_graph_arrays(..., pallas=True)``, without the backward's
-    transpose maps)."""
-    adjs, rows = [], []
-    for adj_sm, _, mult_rows in _level_tables(adjs_raw):
-        adjs.append(torch.as_tensor(adj_sm, device=device))
-        rows.append(torch.as_tensor(mult_rows, device=device))
-    return adjs, rows
+    transpose maps, which are not built)."""
+    return _tensors([level_tables(a) for a in adjs_raw], device)
+
+
+def batched_graph_tensors(adjs_batch: Sequence[np.ndarray], coarsening_steps: int,
+                          device: str, widths: Optional[Sequence[int]] = None):
+    """Kernel tables of B patches padded to one bucket, ``adjs_batch[l]``
+    [B, N_l, K_l] per level, as the one block-diagonal graph of
+    :func:`..graph.convert.batched_level_tables`: :func:`unet_apply` on
+    their inputs ``[B·N, C]`` runs each patch's network at once, one launch
+    a conv for the batch. ``widths`` fixes each level's neighbour slots."""
+    return _tensors(batched_level_tables(adjs_batch, 2 ** coarsening_steps, widths), device)
 
 
 def train_graph_tensors(adjs_raw: Sequence[np.ndarray], device: str):
@@ -215,7 +222,11 @@ def train_graph_tensors(adjs_raw: Sequence[np.ndarray], device: str):
     mult_rows)``, with each level's transpose map for the backward (the JAX
     package's ``_graph_arrays(..., pallas=True)``)."""
     adjs, adj_ts, rows = [], [], []
-    for adj_sm, adj_t_sm, mult_rows in _level_tables(adjs_raw):
+    for a in adjs_raw:
+        a_u, mult = dedupe_klist(np.asarray(a))
+        # slot_major_arrays pads the node axis before it builds the transpose
+        # map, whose flat slots k·N' + n are strided by the padded N'
+        adj_sm, adj_t_sm, mult_rows = slot_major_arrays(*split_self_klist(a_u, mult))
         adjs.append(torch.as_tensor(adj_sm, device=device))
         adj_ts.append(torch.as_tensor(adj_t_sm, device=device))
         rows.append(torch.as_tensor(mult_rows, device=device))

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from facet_graph_convolution_torch.ops.aggregate import WeightedAggregate
-from facet_graph_convolution_torch.ops.facet_conv import FacetConvEpilogue
+from facet_graph_convolution_torch.ops.facet_conv import facet_conv_epilogue
 from facet_graph_convolution_torch.ops.gather import (
     gather_neighbors,
     gather_slots,
@@ -186,7 +186,7 @@ def facet_conv(
     else:
         proj = -u if variant == FacetConvVariant.TRANSLATION_INVARIANT else params["v"]
         cat = torch.cat([x, x @ proj.T], dim=-1).contiguous()
-        z = FacetConvEpilogue.apply(cat, (x @ u.T).contiguous(), c, adj_sm, adj_t_sm, rows)
+        z = facet_conv_epilogue(cat, (x @ u.T).contiguous(), c, adj_sm, adj_t_sm, rows)
     # z columns are m-major (m·C + ch)
     w_flat = w.permute(1, 0, 2).reshape(out_ch, m * in_ch)
     y = z @ w_flat.T

@@ -30,6 +30,13 @@ with ``cat = [x | vx]`` [N, C+M], ``ux`` [N, M], ``adj_sm`` [K', N] int32,
 (``jax.custom_vjp`` of ``conv_epilogue`` in the JAX package): forward K1,
 backward K2, on every device. It saves the inputs and recomputes the softmax
 in the backward, as the TPU kernel does.
+
+K1 is also the operator ``torch.ops.facet_graph_convolution.facet_conv_fwd``
+(:func:`facet_conv_fwd_op`, registered when this module is imported, with a
+fake that gives z's shape), so that ``torch.export`` traces the forward
+through it; :func:`facet_conv_epilogue` calls the operator where no
+gradient is taken and :class:`FacetConvEpilogue` where one is. Both run
+whatever :func:`facet_conv_fwd` the module holds at the call.
 """
 
 from __future__ import annotations
@@ -203,6 +210,40 @@ def facet_conv_fwd(cat, ux, adj_sm, mult_rows, c):
 facet_conv_fwd.launches = 0
 
 
+K1_OP = "facet_graph_convolution::facet_conv_fwd"
+# defined with torch.library's define/impl rather than custom_op, whose
+# kernels import torch._dynamo (seconds) at a process's first call
+torch.library.define(K1_OP, "(Tensor cat, Tensor ux, Tensor adj_sm, Tensor mult_rows, "
+                            "Tensor c) -> Tensor")
+
+
+@torch.library.impl(K1_OP, ("cpu", "cuda"))
+def _facet_conv_fwd_impl(cat, ux, adj_sm, mult_rows, c):
+    # the module attribute, looked up at each call: a swap for the plain
+    # version is what runs
+    return facet_conv_fwd(cat, ux, adj_sm, mult_rows, c)
+
+
+@torch.library.register_fake(K1_OP)
+def _facet_conv_fwd_fake(cat, ux, adj_sm, mult_rows, c):
+    n, m = ux.shape
+    return cat.new_empty((n, m * (cat.shape[1] - m)))
+
+
+# K1 as an operator, with no autograd formula (FacetConvEpilogue holds the
+# backward); torch.export keeps it opaque in the programs it writes
+facet_conv_fwd_op = torch.ops.facet_graph_convolution.facet_conv_fwd
+
+
+def facet_conv_epilogue(cat, ux, c, adj_sm, adj_t_sm, mult_rows):
+    """``z`` of K1: through :class:`FacetConvEpilogue` (K2 its backward)
+    where autograd records, else the operator alone (no autograd there, as
+    under ``torch.no_grad`` and in an exported program)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (cat, ux, c)):
+        return FacetConvEpilogue.apply(cat, ux, c, adj_sm, adj_t_sm, mult_rows)
+    return facet_conv_fwd_op(cat, ux, adj_sm, mult_rows, c)
+
+
 def facet_conv_bwd(cat, ux, adj_sm, adj_t_sm, mult_rows, c, dz):
     """K2 on ``cat``'s device: ``(dcat, dux)`` from the CUDA kernel for CUDA
     tensors, from the plain version for CPU tensors. Raises on any other
@@ -254,7 +295,7 @@ class FacetConvEpilogue(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cat, ux, c, adj_sm, adj_t_sm, mult_rows):
         ctx.save_for_backward(cat, ux, c, adj_sm, adj_t_sm, mult_rows)
-        return facet_conv_fwd(cat, ux, adj_sm, mult_rows, c)
+        return facet_conv_fwd_op(cat, ux, adj_sm, mult_rows, c)
 
     @staticmethod
     def backward(ctx, dz):

@@ -71,34 +71,19 @@ class CallLosses:
         return self._host.numpy()
 
 
-class GraphStep:
-    """Up to ``steps_per_call`` train steps a call of ``loss_fn(params,
-    **draw) → loss`` on ``state`` (a ``trainer.TrainState``; its Adam must be
-    capturable on the card). ``__call__(state, draws) → (state, losses)``:
-    ``draws`` maps names to CPU tensors ``[N, ...]``, one row a step, the
-    same names every call; the state is updated in place and its ``step``
-    advanced by N.
+class CapturedGraph:
+    """A captured ``torch.cuda.CUDAGraph`` (``graph``, None before the
+    capture) with what its capture allocated: ``graph_bytes`` (the device
+    memory, ``torch.cuda.max_memory_allocated`` around it) and
+    ``pool_bytes`` (what its pool reserved, ``torch.cuda.memory_reserved``
+    around it)."""
 
-    After the first call on the card: ``capture_s`` (the capture's host
-    seconds), ``graph_bytes`` (the device memory the capture allocated,
-    ``torch.cuda.max_memory_allocated`` around it) and ``pool_bytes`` (what
-    its pool reserved, ``torch.cuda.memory_reserved`` around it)."""
-
-    def __init__(self, state, loss_fn: Callable[..., torch.Tensor], steps_per_call: int):
-        if steps_per_call < 1:
-            raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
-        self.loss_fn = loss_fn
-        self.steps_per_call = steps_per_call
-        self.device = next(iter(next(iter(state.params.values())).values())).device
-        self.on_card = self.device.type == "cuda"
-        self.buffers: Optional[Dict[str, torch.Tensor]] = None
-        self.losses = torch.zeros(steps_per_call, device=self.device)
-        self.counter = torch.zeros(1, dtype=torch.int64, device=self.device)
+    def __init__(self, device: torch.device):
+        self.device = device
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.capture_s: Optional[float] = None
         self.graph_bytes: Optional[int] = None
         self.pool_bytes: Optional[int] = None
-        self._state = state
 
     @property
     def held_bytes(self) -> int:
@@ -116,6 +101,62 @@ class GraphStep:
             torch.cuda.synchronize(self.device)
             self.graph.reset()
             self.graph = None
+
+    def capture(self, body: Callable[[], None],
+                before_capture: Optional[Callable[[], None]] = None,
+                warm_up: bool = True) -> None:
+        """Run ``body`` once eagerly on the device's side stream (the warm-up
+        a capture needs: lazy state, cuBLAS workspaces; ``warm_up=False``
+        where the caller has run the same code eagerly before), then
+        ``before_capture`` and the capture of ``body``, which only replays
+        execute."""
+        if warm_up:
+            side = _side_stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                body()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        before = torch.cuda.memory_allocated(self.device)
+        reserved = torch.cuda.memory_reserved(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        if before_capture is not None:
+            before_capture()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            body()
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+        self.graph_bytes = torch.cuda.max_memory_allocated(self.device) - before
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.graph = graph
+
+
+class GraphStep(CapturedGraph):
+    """Up to ``steps_per_call`` train steps a call of ``loss_fn(params,
+    **draw) → loss`` on ``state`` (a ``trainer.TrainState``; its Adam must be
+    capturable on the card). ``__call__(state, draws) → (state, losses)``:
+    ``draws`` maps names to CPU tensors ``[N, ...]``, one row a step, the
+    same names every call; the state is updated in place and its ``step``
+    advanced by N.
+
+    After the first call on the card: ``capture_s`` (the capture's host
+    seconds), ``graph_bytes`` (the device memory the capture allocated,
+    ``torch.cuda.max_memory_allocated`` around it) and ``pool_bytes`` (what
+    its pool reserved, ``torch.cuda.memory_reserved`` around it)."""
+
+    def __init__(self, state, loss_fn: Callable[..., torch.Tensor], steps_per_call: int):
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+        super().__init__(next(iter(next(iter(state.params.values())).values())).device)
+        self.loss_fn = loss_fn
+        self.steps_per_call = steps_per_call
+        self.on_card = self.device.type == "cuda"
+        self.buffers: Optional[Dict[str, torch.Tensor]] = None
+        self.losses = torch.zeros(steps_per_call, device=self.device)
+        self.counter = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self._state = state
 
     def _step(self) -> None:
         """One train step on the draws at the counter; it advances the
@@ -135,26 +176,8 @@ class GraphStep:
     def _capture(self) -> None:
         """The call's first step eagerly on a side stream, then the capture
         of one step (executed only by replays)."""
-        side = _side_stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._step()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        before = torch.cuda.memory_allocated(self.device)
-        reserved = torch.cuda.memory_reserved(self.device)
-        torch.cuda.reset_peak_memory_stats(self.device)
         # the gradients are made in the graph's pool, written by its backward
-        self._state.optimizer.zero_grad(set_to_none=True)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            self._step()
-        torch.cuda.synchronize(self.device)
-        self.capture_s = time.perf_counter() - t0
-        self.graph_bytes = torch.cuda.max_memory_allocated(self.device) - before
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.graph = graph
+        self.capture(self._step, lambda: self._state.optimizer.zero_grad(set_to_none=True))
 
     def __call__(self, state, draws: Dict[str, torch.Tensor]):
         if state is not self._state:
@@ -207,23 +230,26 @@ def _side_stream(device: torch.device) -> "torch.cuda.Stream":
 
 
 class GraphCache:
-    """:class:`GraphStep` s by key (a vertex patch each), least recently used
-    first, held to ``budget_bytes`` of device memory (None: no budget, as on
-    the CPU, where nothing is captured).
+    """:class:`CapturedGraph` s by key (a vertex patch's :class:`GraphStep`
+    each, or a server's batched forward), least recently used first, held to
+    ``budget_bytes`` of device memory (None: no budget, as on the CPU, where
+    nothing is captured) and to ``max_entries`` entries (None: no bound).
 
     :meth:`get` returns the key's entry, or makes one with ``make()``; before
-    making one it releases the least recently used entries until what they
-    hold plus the new one's size fits the budget, sizing the new one as the
-    largest ``held_bytes`` it has seen (0 before any capture). A released
-    key is made, and on the card captured, again at its next use.
+    making one it releases the least recently used entries until one more
+    fits ``max_entries`` and what they hold plus the new one's size fits the
+    budget, sizing the new one as the largest ``held_bytes`` it has seen (0
+    before any capture). A released key is made, and on the card captured,
+    again at its next use.
     ``captures`` counts the entries made (on the card, each captures its
     graph at its first call) and ``evictions`` the entries released;
     ``peak_held`` is the most its entries held at once (past the budget
     only where a new graph outgrew every one before it)."""
 
-    def __init__(self, budget_bytes: Optional[int] = None):
+    def __init__(self, budget_bytes: Optional[int] = None, max_entries: Optional[int] = None):
         self.budget_bytes = budget_bytes
-        self.entries: "OrderedDict[Hashable, GraphStep]" = OrderedDict()
+        self.max_entries = max_entries
+        self.entries: "OrderedDict[Hashable, CapturedGraph]" = OrderedDict()
         self.captures = 0
         self.evictions = 0
         self.largest = 0
@@ -239,18 +265,23 @@ class GraphCache:
             self.largest = max(self.largest, entry.held_bytes)
         self.peak_held = max(self.peak_held, self.held_bytes())
 
-    def get(self, key: Hashable, make: Callable[[], GraphStep]) -> GraphStep:
+    def _full(self) -> bool:
+        """No room for one more entry."""
+        if self.max_entries is not None and len(self.entries) >= self.max_entries:
+            return True
+        return (self.budget_bytes is not None
+                and self.held_bytes() + self.largest > self.budget_bytes)
+
+    def get(self, key: Hashable, make: Callable[[], CapturedGraph]) -> CapturedGraph:
         self.observe()
         entry = self.entries.pop(key, None)
         if entry is None:
-            if self.budget_bytes is not None:
-                evicted = False
-                while self.entries and self.held_bytes() + self.largest > self.budget_bytes:
-                    self.entries.popitem(last=False)[1].release()
-                    self.evictions += 1
-                    evicted = True
-                if evicted:
-                    torch.cuda.empty_cache()    # the released pools, back to the device
+            held = self.held_bytes()
+            while self.entries and self._full():
+                self.entries.popitem(last=False)[1].release()
+                self.evictions += 1
+            if self.held_bytes() < held:
+                torch.cuda.empty_cache()        # the released pools, back to the device
             entry = make()
             self.captures += 1
         self.entries[key] = entry

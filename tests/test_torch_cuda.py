@@ -19,7 +19,9 @@ gradients atol 1e-4 scaled to max 1; the operator solver's points atol 1e-5
 adjoint against the plain adjoint (float32, and float64 on the same
 iterates) atol 1e-5 scaled to max 1 (float32 sums in another order; on a
 full-width patch both float32 adjoints stay within 8e-6 of float64) and bit
-for bit against itself.
+for bit against itself; the batched server's normals and points against the
+server on the CPU atol 1e-4, a replayed call bit for bit against the first,
+and the exported forward atol 1e-4 against the direct forward on the CPU.
 """
 
 import numpy as np
@@ -1179,3 +1181,83 @@ def test_vertex_graphs_beyond_a_budget_are_evicted_and_recaptured(cuda, tmp_path
         for j in range(spc):
             ref, _ = step(ref, t, d["rot"][j], d["idx0"][j], d["idx1"][j])
     _same_state(state, ref)
+
+
+def _served_meshes():
+    rng = np.random.default_rng(0)
+    v, f = icosphere(2)
+    v2, f2 = icosphere(3)
+    return [(add_vertex_noise(v, f, 0.1, rng), f), (add_vertex_noise(v2, f2, 0.1, rng), f2)]
+
+
+def test_server_replays_one_batched_forward_and_matches_cpu(cuda):
+    """A batch's first call captures its forward (K1 8 launches, as the graph
+    records them) and replays it; the second replays the same graph (no
+    launch through the wrapper) with the same bits; both match the server
+    on the CPU."""
+    from facet_graph_convolution_torch.inference.serving import InferenceServer
+
+    cfg = default_config().replace(eval={"solver_iterations": 5})
+    params = init_unet(0, device=str(cuda), **SMALL)
+    meshes = _served_meshes()
+    server = InferenceServer(cfg, params=params, bucket_align=256, device=str(cuda))
+    k1.facet_conv_fwd.launches = 0
+    first = server.denoise_batch(meshes)
+    assert k1.facet_conv_fwd.launches == 8 and server._cache.captures == 1
+    k1.facet_conv_fwd.launches = 0
+    second = server.denoise_batch(meshes)
+    assert k1.facet_conv_fwd.launches == 0 and server._cache.captures == 1
+    cpu_params = {layer: {n: t.cpu() for n, t in leaves.items()}
+                  for layer, leaves in params.items()}
+    ref = InferenceServer(cfg, params=cpu_params, bucket_align=256,
+                          device="cpu").denoise_batch(meshes)
+    for (a, b), (c, d), (e, g) in zip(first, second, ref):
+        assert np.array_equal(a, c) and np.array_equal(b, d)
+        np.testing.assert_allclose(b, g, atol=1e-4)
+        np.testing.assert_allclose(a, e, atol=1e-4)
+
+
+def test_server_cache_releases_its_graphs_past_max_compiled(cuda):
+    from facet_graph_convolution_torch.inference.serving import InferenceServer
+
+    cfg = default_config().replace(eval={"solver_iterations": 5})
+    server = InferenceServer(cfg, params=init_unet(0, device=str(cuda), **SMALL),
+                             bucket_align=256, max_compiled=1, device=str(cuda))
+    mesh = _served_meshes()[:1]
+    first = server.denoise_batch(mesh)
+    entry = next(iter(server._compiled.values()))
+    server.denoise_batch(mesh * 2)
+    assert entry.graph is None and entry.held_bytes == 0 and server._cache.evictions == 1
+    again = server.denoise_batch(mesh)
+    assert server._cache.captures == 3
+    np.testing.assert_allclose(again[0][1], first[0][1], atol=1e-6)
+
+
+def test_exported_forward_launches_k1_on_card(cuda):
+    """The exported program runs the registered K1 operator on the card
+    (8 launches) and matches the direct forward on the CPU."""
+    from facet_graph_convolution_torch.inference.serving import export_forward, load_forward
+    from facet_graph_convolution_torch.models.unet import graph_tensors, unet_apply
+    from facet_graph_convolution_torch.ops.normalization import normalize_tensor
+
+    params = init_unet(0, device=str(cuda), **SMALL)
+    fn = load_forward(export_forward(default_config(), params, 256, (23, 23, 23)),
+                      device=str(cuda))
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(1, 256, 6)).astype(np.float32)
+    adjs = []
+    for n in (256, 64, 16):
+        a = np.zeros((1, n, 23), np.int32)
+        a[0, :, 0] = np.arange(n) + 1
+        a[0, :, 1] = (np.arange(n) + 1) % n + 1
+        adjs.append(a)
+    k1.facet_conv_fwd.launches = 0
+    y = fn(params, x, *adjs)
+    torch.cuda.synchronize()
+    assert k1.facet_conv_fwd.launches == 8 and y.device.type == "cuda"
+    cpu_params = {layer: {n: t.cpu() for n, t in leaves.items()}
+                  for layer, leaves in params.items()}
+    t_adjs, t_rows = graph_tensors([a[0] for a in adjs], "cpu")
+    with torch.no_grad():
+        ref = normalize_tensor(unet_apply(cpu_params, torch.as_tensor(x[0]), t_adjs, t_rows))
+    np.testing.assert_allclose(y[0].cpu().numpy(), ref.numpy(), atol=1e-4)

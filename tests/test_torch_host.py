@@ -1,8 +1,9 @@
 """The port's host copies against the JAX package's NumPy paths.
 
-``FGC_DISABLE_NATIVE=1`` forces the JAX package onto its NumPy paths (its
-C++ fast paths coarsen to other patches for the same seed); the port has
-only the NumPy paths. Integer tables must match exactly, floats to 1e-6.
+``FGC_DISABLE_NATIVE=1`` forces both packages onto their NumPy paths
+(their C++ fast paths coarsen to other patches for the same seed; the
+native builds are held to each other in tests/test_torch_native.py).
+Integer tables must match exactly, floats to 1e-6.
 """
 
 import contextlib

@@ -4,8 +4,8 @@ both multi-scale solvers, the three-head forward, ``infer_with_vertices``
 and ``cli.infer --include_vertices``.
 
 Small widths (channels 8/16/32, M = 4, fc 32), solver schedule (8, 4, 4);
-inputs from numpy seeds. ``FGC_DISABLE_NATIVE=1`` keeps the JAX package on
-its NumPy host paths, as tests/test_torch_host.py does; its Pallas kernels
+inputs from numpy seeds. ``FGC_DISABLE_NATIVE=1`` keeps both packages on
+their NumPy host paths, as tests/test_torch_host.py does; the JAX kernels
 run in interpret mode. Tolerances: host tables exact, host floats 1e-6; the
 pool bit for bit (atol 0); the solvers atol 2e-5 + rtol 1e-4 (the bar of
 tests/test_ops.py, 80 iterations of float32 sums in another order); each
