@@ -120,8 +120,8 @@ Phases, each fatal on failure:
 15. adjoint kernel: the scale kernel's adjoint against the plain adjoint
    (float32, and float64 on the same iterates) at the three launches of
    the largest vertex patch's naive solve under autograd, bitwise
-   repeatable, with its times per scale and per patch, the plain adjoint's,
-   one grid barrier's, and its bound;
+   repeatable, with its times per scale and per patch, the plain adjoint's
+   and its bound (a barrier's cost alone: ``tools/adjoint_cluster_probe.py``);
 16. pool kernel: K4 against its plain version, bit for bit, at the solver's
    two pools of the largest served patch, at C = 3 and N = 1,048,576, on
    rows of zeros, groups of zeros and -0.0 rows, and at steps 1, 2 and 3;
@@ -2092,7 +2092,7 @@ def adjoint_kernel_phase(dev, vertex_trained, naive_cfg):
     iterates, normals and cotangents the path gave it), in float32 and
     against the plain adjoint in float64 on the same iterates; bitwise
     repeatable; times per scale and per patch by CUDA-graph replay, the
-    plain adjoint's, one grid barrier's, and the bound. Returns (worst error
+    plain adjoint's, and the bound. Returns (worst error
     against the float32 plain adjoint, per patch {ms, plain_ms, bound_ms},
     bound kind)."""
     import torch
@@ -2174,30 +2174,7 @@ def adjoint_kernel_phase(dev, vertex_trained, naive_cfg):
     b_ms, b_by = adjoint_bound_ms(bounds)
     print("  %-5s %6s %5s %5s %21s %21s %21s %9.5f %9.5f %9.6f %s" % (
         "patch", "", "", "", "", "", "", totals["ms"], totals["plain_ms"], b_ms, b_by))
-    # one grid barrier: a node of 16 faces on one vertex, 80 iterations
-    # against 1 (158 barriers apart), at the largest grid of the three
-    xs, faces, v_faces, fn, scale, steps, g_out, kw = calls[0]
-    grid = max(ms.adjoint_grid(dev, c[0].shape[1], c[3].shape[0], c[5] * c[4]) for c in calls)
-    tx = xs[:1, :1]
-    tf = torch.zeros((16, 3), dtype=torch.int32, device=dev)
-    tv = torch.full((1, 25), -1, dtype=torch.int32, device=dev)
-    tv[0, 0] = 0
-    tfn = fn[:1].contiguous()
-    one = torch.tensor([0, 1], dtype=torch.int32, device=dev)
-    tmaps = dict(face_slots=(one, torch.zeros(1, dtype=torch.int32, device=dev)),
-                 corners=(torch.tensor([0, 48], dtype=torch.int32, device=dev),
-                          torch.arange(16, dtype=torch.int32, device=dev).repeat_interleave(3)))
-    tg = g_out[:1].contiguous()
-    xs80 = tx.expand(81, 1, 3).contiguous()
-    t80 = cuda_ms(lambda: ms.naive_scale_backward(xs80, tf, tv, tfn, 2, 2, tg, grid=grid,
-                                                  **tmaps), 20)[0]
-    t1 = cuda_ms(lambda: ms.naive_scale_backward(xs80[:2].contiguous(), tf, tv, tfn, 2, 2, tg,
-                                                 grid=grid, **tmaps), 20)[0]
-    barrier_us = 1e3 * (t80 - t1) / 158
-    print(f"  one grid barrier at {grid} blocks: {barrier_us:.4f} us (a 1-iteration launch "
-          f"{1e3 * t1:.3f} us)")
-    return worst, {"ms": totals["ms"], "plain_ms": totals["plain_ms"], "bound_ms": b_ms,
-                   "barrier_us": barrier_us}, b_by
+    return worst, {"ms": totals["ms"], "plain_ms": totals["plain_ms"], "bound_ms": b_ms}, b_by
 
 
 def budget_phase(dev, vertex_trained, naive_cfg, graph_bytes):

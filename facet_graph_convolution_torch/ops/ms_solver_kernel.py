@@ -349,8 +349,9 @@ class NaiveScale(torch.autograd.Function):
                           True, on_cpu)[1]
         maps = {} if on_cpu else dict(face_slots=(slot_off, slot_ids),
                                       corners=(corner_off, corner_ids))
+        # the adjoint takes its own grid (adjoint_grid), not the forward's
         g_x, g_fn = naive_scale_backward(xs, faces, v_faces, fn_s, scale, coarsening_steps,
-                                         g_out.contiguous(), grid=grid, **maps)
+                                         g_out.contiguous(), **maps)
         return (g_x, g_fn) + (None,) * 11
 
 
