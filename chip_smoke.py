@@ -127,7 +127,29 @@ Phases, each fatal on failure:
    rows of zeros, groups of zeros and -0.0 rows, and at steps 1, 2 and 3;
    prints its times and bound; the scale kernel's phase A alone at the
    largest patch's two coarse levels, bit for bit against the plain K4 of
-   its own level-0 centroids (those within 1e-6 of the plain gather-mean).
+   its own level-0 centroids (those within 1e-6 of the plain gather-mean);
+17. parity: ``init_unet`` at seed 0, single- and multi-scale, through
+   ``export_unet_to_tf`` (a reference-format TF1 checkpoint) and
+   ``load_reference_unet`` onto the card, bit for bit, with the write and
+   read seconds; ``capture_activations`` of the single-scale network on the
+   largest served patch (the subdivision-5 icosphere's first, as
+   ``cli.parity`` takes it) through K1 against the same capture through the
+   plain K1, per layer within 1e-4 (each layer's max |Δ| printed); its out0
+   against ``unet_apply`` on the same tables within 1e-5; K1 8 launches a
+   capture, by its wrapper and in profiles; then ``cli.parity`` in a new
+   process against the plain export, which must print PASS;
+18. wang: ``cli.wang --device cuda --num_iterations 250`` in-process on a
+   synthetic Wang tree (train/ and test/ of the three request shapes, each
+   with ``_n1`` and ``_n2`` noise, 0.1 and 0.2 of the mean edge length):
+   preprocess, 2 calls of 100 steps and a partial call of 50 through the
+   step's CUDA graph, serving and scoring the 6 test meshes; 6 CSV rows
+   with angles finite in (0, 90), finite falling losses, the wrappers'
+   launches (K1 and K2 8 at the warm-up step and 8 at the capture, K1 8 a
+   served patch), at most 256 MiB left allocated on the card after the run,
+   and K1/K2 8/8 a step through a graph of the run's training set and K1 8
+   a served patch in profiles; prints each stage's seconds, the summary
+   table and, a noise level, the noisy input's mean angular error beside
+   the denoised one's.
 
 Then it prints the kernels' JSON line, the card's ``nvidia-smi`` name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -1691,6 +1713,20 @@ def warm_profile(fn):
     return device_events(prof)
 
 
+def profiled_launches(fn, steps):
+    """Launches a step of each kernel of GRAPH_KERNELS in GRAPH_PROFILES
+    warm profiles of ``fn`` (``steps`` steps a call); returns (launches,
+    profiles, launches each profile saw). The profiler can drop a call's
+    device activities (the same call's count varies by a few; once 8 of a
+    2-step call's 16 K1 launches went missing) but never adds one. So each
+    kernel's launches is the most that any profile saw: a kernel launched
+    more or fewer times than its callers want fails in every profile."""
+    profiles = [warm_profile(fn) for _ in range(GRAPH_PROFILES)]
+    seen = [{k: sum(kernel in name for name, _ in events) / steps
+             for k, kernel in GRAPH_KERNELS.items()} for events in profiles]
+    return {k: max(s[k] for s in seen) for k in GRAPH_KERNELS}, profiles, seen
+
+
 def graph_vs_eager(label, scanned, graph_state, eager_state, eager_step, draw, per_step,
                    profile_steps):
     """One train step through its captured CUDA graph against the eager step:
@@ -1762,15 +1798,7 @@ def graph_vs_eager(label, scanned, graph_state, eager_state, eager_step, draw, p
     t0 = time.perf_counter()
     one_call()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    # The profiler can drop a call's device activities (the same call's count
-    # varies by a few; once 8 of a 2-step call's 16 K1 launches went missing)
-    # but never adds one. So each kernel's launches is the most that any of
-    # GRAPH_PROFILES profiles saw, and it must still equal ``per_step``: a
-    # kernel launched more or fewer times than that fails in every profile.
-    profiles = [warm_profile(one_call) for _ in range(GRAPH_PROFILES)]
-    seen = [{k: sum(kernel in name for name, _ in events) / profile_steps
-             for k, kernel in GRAPH_KERNELS.items()} for events in profiles]
-    launches = {k: max(s[k] for s in seen) for k in GRAPH_KERNELS}
+    launches, profiles, seen = profiled_launches(one_call, profile_steps)
     if launches != per_step:
         raise AssertionError(f"{label}: kernel launches a step through the graph {launches} "
                              f"(the most of {GRAPH_PROFILES} profiles: {seen}), want {per_step}")
@@ -2326,6 +2354,249 @@ def pool_kernel_phase(dev, records, schedule):
     return worst, per_patch, ("bytes" if kinds == {"bytes"} else "operations")
 
 
+PARITY_ATOL = 1e-5          # the capture's out0 against unet_apply on the same tables
+WANG_STEPS = 250            # cli.wang: 2 calls of 100 and a last partial call of 50
+WANG_NOISE = (("_n1", 0.1), ("_n2", 0.2))    # of the mean edge length
+
+
+def parity_phase(dev, workdir):
+    """The reference-checkpoint parity path at full width: ``init_unet``
+    (seed 0, single- and multi-scale) through ``export_unet_to_tf`` and
+    ``load_reference_unet`` onto the card, bit for bit; the single-scale
+    one's ``capture_activations`` on the largest served patch (the
+    subdivision-5 icosphere's first patch, as ``cli.parity`` takes it)
+    through K1 and through the plain K1, per layer within FORWARD_ATOL; its
+    out0 against ``unet_apply`` within PARITY_ATOL; K1's launches of one
+    capture in profiles; then ``cli.parity --reference <the plain export>``
+    as a subprocess, which must print PASS. Returns K1's wrapper launches."""
+    import torch
+
+    from facet_graph_convolution_torch.cli.parity import parity_patch
+    from facet_graph_convolution_torch.data.synthetic import add_vertex_noise, icosphere
+    from facet_graph_convolution_torch.evaluation.parity import (
+        capture_activations,
+        compare_activations,
+        export_activations,
+    )
+    from facet_graph_convolution_torch.evaluation.tf_checkpoint import (
+        export_unet_to_tf,
+        load_reference_unet,
+    )
+    from facet_graph_convolution_torch.geometry.obj_io import write_obj
+    from facet_graph_convolution_torch.models.unet import graph_tensors, init_unet, unet_apply
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "parity")
+    print("parity phase: reference-format TF1 checkpoints, full width")
+    for multi in (False, True):
+        params = init_unet(seed=0, device=str(dev), multi_scale=multi)
+        prefix = os.path.join(root, "multi" if multi else "single", "net-0")
+        t0 = time.perf_counter()
+        export_unet_to_tf(prefix, params)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, got_multi = load_reference_unet(prefix, device=str(dev))
+        read_s = time.perf_counter() - t0
+        if got_multi != multi or back.keys() != params.keys():
+            raise AssertionError(f"checkpoint round trip: multi-scale {got_multi}, layers "
+                                 f"{sorted(back)} vs {sorted(params)}")
+        for layer in params:
+            for name, t in params[layer].items():
+                got = back[layer][name]
+                if got.device != t.device or not torch.equal(got, t):
+                    raise AssertionError(f"checkpoint round trip: {layer}/{name} differs")
+        nbytes = sum(os.path.getsize(prefix + ext) for ext in (".index", ".data-00000-of-00001"))
+        print(f"  {'multi' if multi else 'single'}-scale: {len(params)} layers, {nbytes} bytes; "
+              f"write {write_s:.3f} s, read onto the card {read_s:.3f} s; bit for bit")
+        if not multi:
+            single_prefix, single = prefix, back
+
+    mesh = os.path.join(root, "icosphere5_n2.obj")
+    v, f = icosphere(5)
+    write_obj(add_vertex_noise(v, f, 0.2, np.random.default_rng(0)), f, mesh)
+    patch = parity_patch(mesh)
+    ours, plain = os.path.join(root, "k1.npz"), os.path.join(root, "plain.npz")
+    k1.facet_conv_fwd.launches = 0
+    t0 = time.perf_counter()
+    acts = export_activations(ours, single, patch.inputs, patch.adjs, device=str(dev))
+    export_s = time.perf_counter() - t0
+    launches = k1.facet_conv_fwd.launches
+    kernel = k1.facet_conv_fwd
+    try:
+        k1.facet_conv_fwd = k1.facet_conv_fwd_plain
+        export_activations(plain, single, patch.inputs, patch.adjs, device=str(dev))
+    finally:
+        k1.facet_conv_fwd = kernel
+    if launches != 8:
+        raise AssertionError(f"the capture launched K1 {launches} times (want 8)")
+    report = compare_activations(ours, plain, atol=FORWARD_ATOL)
+    print(f"  capture of a {patch.num_nodes}-node patch through K1 ({export_s:.2f} s with its "
+          f"npz) vs through the plain K1, max |Δ| a layer (atol {FORWARD_ATOL}):")
+    for name, diff in report.items():
+        print(f"    {name:10s} {diff:.3e}")
+    adjs, rows = graph_tensors(patch.adjs, dev)
+    with torch.no_grad():
+        y = unet_apply(single, torch.as_tensor(patch.inputs, device=dev), adjs, rows)
+    err = float(np.abs(acts["out0"] - y.cpu().numpy()).max())
+    if err > PARITY_ATOL:
+        raise AssertionError(f"the capture's out0 differs from unet_apply's by {err}")
+    seen, _, _ = profiled_launches(
+        lambda: capture_activations(single, patch.inputs, patch.adjs, device=str(dev)), 1)
+    if seen["K1"] != 8 or seen["K2"] != 0:
+        raise AssertionError(f"one capture launched {seen} in profiles (want K1 8, K2 0)")
+    print(f"  out0 vs unet_apply on the same tables: max |Δ| {err:.3e} (atol {PARITY_ATOL}); "
+          f"K1 launches a capture {launches} (wrapper), {seen['K1']:.0f} (the most of "
+          f"{GRAPH_PROFILES} profiles)")
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "facet_graph_convolution_torch.cli.parity", "--device", "cuda",
+         "--checkpoint", single_prefix, "--mesh", mesh, "--out", os.path.join(root, "cli.npz"),
+         "--reference", plain], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines or json.loads(lines[-1]).get("parity") != "PASS":
+        raise AssertionError(f"cli.parity failed ({out.returncode}): {out.stdout[-2000:]}"
+                             f"{out.stderr[-2000:]}")
+    print(f"  cli.parity --reference <plain export>: PASS, max |Δ| "
+          f"{json.loads(lines[-1])['max_abs_diff']:.3e}, {time.perf_counter() - t0:.1f} s "
+          f"(a new process)")
+    print(f"  parity phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def wang_phase(dev, workdir):
+    """``cli.wang --device cuda --num_iterations WANG_STEPS`` in-process on
+    a synthetic Wang tree of the three request shapes (train/ and test/,
+    each GT with its ``_n1`` and ``_n2`` noise): 2 full calls of 100 steps
+    and a partial call through the step's CUDA graph, then serving and
+    scoring the 6 test meshes. Checks the artifacts (6 CSV rows, angles
+    finite in (0, 90)), finite falling chunk losses, the wrappers' launches
+    (K1 and K2 8 at the warm-up step and 8 at the capture, K1 8 a served
+    patch), the card's memory after the run back to where it was, and K1/K2
+    launches a step through a graph on the run's training set and K1's of a
+    served patch in profiles. Prints the stage seconds and, a noise level,
+    the noisy input's mean angular error beside the denoised one's.
+    Returns the wrappers' launches."""
+    import torch
+
+    from facet_graph_convolution_torch.cli import wang
+    from facet_graph_convolution_torch.config import default_config
+    from facet_graph_convolution_torch.data.dataset import bucket_size, load_dataset, pad_patch_to
+    from facet_graph_convolution_torch.data.synthetic import (
+        add_vertex_noise,
+        chamfered_box,
+        icosphere,
+        torus,
+    )
+    from facet_graph_convolution_torch.evaluation.metrics import angular_error_stats
+    from facet_graph_convolution_torch.geometry.mesh_math import compute_face_normals
+    from facet_graph_convolution_torch.geometry.obj_io import load_obj, write_obj
+    from facet_graph_convolution_torch.inference.driver import _restore_params, forward_patch
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.training.trainer import (
+        create_train_state,
+        make_scanned_train_step,
+        normals_draws,
+        stack_patch_tensors,
+    )
+
+    t_phase = time.perf_counter()
+    root, base = os.path.join(workdir, "wang_data"), os.path.join(workdir, "wang_run")
+    rng = np.random.default_rng(5)
+    shapes = {"icosphere5": icosphere(5), "torus": torus(nu=128, nv=64),
+              "chamfered_box": chamfered_box(24)}
+    noisy_err = {level: [] for level, _ in WANG_NOISE}
+    for split in ("train", "test"):
+        os.makedirs(os.path.join(root, split, "noisy"))
+        os.makedirs(os.path.join(root, split, "original"))
+        for name, (v, f) in shapes.items():
+            write_obj(v, f, os.path.join(root, split, "original", name + ".obj"))
+            for level, sigma in WANG_NOISE:
+                path = os.path.join(root, split, "noisy", name + level + ".obj")
+                write_obj(add_vertex_noise(v, f, sigma, rng), f, path)
+                if split == "test":
+                    noisy = load_obj(path)[0]
+                    noisy_err[level].append(angular_error_stats(
+                        compute_face_normals(noisy, f), compute_face_normals(v, f))[0])
+
+    k1.facet_conv_fwd.launches = 0
+    k1.facet_conv_bwd.launches = 0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = wang.run(["--data_root", root, "--base_path", base, "--device", "cuda",
+                    "--num_iterations", str(WANG_STEPS)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"fwd": k1.facet_conv_fwd.launches, "bwd": k1.facet_conv_bwd.launches}
+    held = torch.cuda.memory_allocated() - mem0
+
+    records = res["records"]
+    patches = sum(r["patches"] for r in records)
+    want = {"fwd": 16 + 8 * patches, "bwd": 16}
+    if len(records) != 6 or launches != want:
+        raise AssertionError(f"cli.wang served {len(records)} of 6 meshes; wrapper launches "
+                             f"{launches}, want {want} ({patches} patches)")
+    rows = open(os.path.join(base, "Results", "results_heat.csv")).read().strip().splitlines()
+    angles = {r.split()[0]: float(r.split()[3]) for r in rows}
+    if len(rows) != 6 or not all(np.isfinite(a) and 0.0 < a < 90.0 for a in angles.values()):
+        raise AssertionError(f"cli.wang: bad results_heat.csv {rows}")
+    hist = np.loadtxt(os.path.join(base, "Networks", "wang.csv"), delimiter=",", ndmin=2)
+    losses = hist[:, 0]
+    if hist.shape != (3, 2) or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"cli.wang: chunk losses {losses} (want 3 finite, falling)")
+    if held > 256 * 2**20:
+        raise AssertionError(f"cli.wang left {held / 2**20:.1f} MiB allocated on the card")
+    secs = res["seconds"]
+    print(f"wang phase: cli.wang --device cuda --num_iterations {WANG_STEPS} in {wall_s:.2f} s: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
+    print(f"  chunk losses {np.array2string(losses, precision=3)} (calls of 100, 100, 50); "
+          f"wrapper launches K1 {launches['fwd']}, K2 {launches['bwd']} ({patches} served "
+          f"patches); {held / 2**20:.1f} MiB allocated on the card after the run than before")
+    print("  mean angular error a noise level (degrees; 3 test meshes each): noisy input vs "
+          f"denoised after {WANG_STEPS} steps")
+    for level, _ in WANG_NOISE:
+        denoised = [a for n, a in angles.items() if f"{level}_denoised" in n]
+        print(f"    {level}: {np.mean(noisy_err[level]):.3f} vs {np.mean(denoised):.3f} "
+              f"(denoised per mesh {[round(a, 3) for a in denoised]})")
+
+    # launches a step through a graph of the run's training set, and a
+    # served patch's, in profiles
+    cfg = default_config(base + "/").replace(train={
+        "network_path": os.path.join(base, "Networks") + "/", "net_name": "wang"})
+    params = _restore_params(cfg, dev)
+    train_set = load_dataset(os.path.join(base, "Preprocessed_Data", "trainingSet.npz"))
+    padded = [pad_patch_to(p, bucket_size(p.num_nodes, 1024)) for p in train_set.patches]
+    target = max(p.num_nodes for p in padded)
+    state = create_train_state(cfg, num_steps=100, device=str(dev), params=params)
+    scanned = make_scanned_train_step(
+        state, cfg, stack_patch_tensors([pad_patch_to(p, target) for p in padded], str(dev)),
+        GRAPH_STEPS)
+    gen = torch.Generator().manual_seed(13)
+
+    def one_call(steps=2):
+        idxs = rng.integers(len(padded), size=steps)
+        return scanned(state, normals_draws(cfg, gen, idxs, target))[1].numpy()
+
+    one_call()
+    step_seen, _, _ = profiled_launches(one_call, 2)
+    del scanned, state
+    largest = max((p for r in records for p in r["mesh"].patches), key=lambda p: p.num_nodes)
+    with torch.no_grad():
+        serve_seen, _, _ = profiled_launches(lambda: forward_patch(params, largest, cfg, dev), 1)
+    if (step_seen["K1"], step_seen["K2"], serve_seen["K1"], serve_seen["K2"]) != (8, 8, 8, 0):
+        raise AssertionError(f"launches in profiles: a graph step {step_seen}, a served patch "
+                             f"{serve_seen} (want K1/K2 8/8 and 8/0)")
+    print(f"  launches in profiles (the most of {GRAPH_PROFILES}): a step through the graph on "
+          f"the run's {len(padded)} patches K1 {step_seen['K1']:.0f}, K2 "
+          f"{step_seen['K2']:.0f}; a served {largest.num_nodes}-node patch K1 "
+          f"{serve_seen['K1']:.0f}")
+    print(f"  wang phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2379,6 +2650,8 @@ def main() -> int:
         err6, totals6, bound_by6 = adjoint_kernel_phase(dev, vertex_trained, naive["cfg"])
         err4, totals4, bound_by4 = pool_kernel_phase(
             dev, vertex_records, default_config().eval.ms_solver_iterations)
+        parity_launches = parity_phase(dev, workdir)
+        wang_launches = wang_phase(dev, workdir)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -2386,7 +2659,8 @@ def main() -> int:
         "route": "cuda",
         "source": "facet_graph_convolution_torch/csrc/facet_conv_fwd.cu",
         "replaces": "facet_graph_convolution_tpu/ops/pallas_conv.py:92",
-        "launches": launches,
+        # serving, the parity capture and cli.wang (warm-up, capture, serving)
+        "launches": launches + parity_launches + wang_launches["fwd"],
         "max_abs_err": err,
         # per patch forward: the sum over the 8 conv launches of the largest
         # subdivision-5 patch
@@ -2400,7 +2674,8 @@ def main() -> int:
         "route": "cuda",
         "source": "facet_graph_convolution_torch/csrc/facet_conv_bwd.cu",
         "replaces": "facet_graph_convolution_tpu/ops/pallas_conv.py:111",
-        "launches": train_launches["bwd"],
+        # training, and cli.wang's warm-up step and capture
+        "launches": train_launches["bwd"] + wang_launches["bwd"],
         "max_abs_err": err2,
         # per train step: the sum over the 8 conv launches at the same shapes
         "ms": totals2["ms"],

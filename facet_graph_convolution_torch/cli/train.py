@@ -44,7 +44,8 @@ def main(argv=None):
     cfg = config_from_args(args)
     if args.stream_dir:
         raise NotImplementedError(
-            "--stream_dir: streaming training (ROADMAP queue 1, item 9) is not ported yet")
+            "--stream_dir: streaming training (ROADMAP queue 1, item \"Streaming\") "
+            "is not ported yet")
     suffix = "WithVertices" if cfg.model.include_vertices else ""
     train_set = load_dataset(os.path.join(cfg.data.binary_dump_path, f"trainingSet{suffix}.npz"))
     valid_path = os.path.join(cfg.data.binary_dump_path, f"validSet{suffix}.npz")

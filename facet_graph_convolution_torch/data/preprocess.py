@@ -86,7 +86,7 @@ def preprocess_directory(cfg: Optional[Config] = None,
     if shard_size:
         raise NotImplementedError(
             "preprocess_directory: streaming shards (shard_size) are not ported yet "
-            "(streaming, ROADMAP queue 1, item 9)")
+            "(ROADMAP queue 1, item \"Streaming\")")
     os.makedirs(cfg.data.binary_dump_path, exist_ok=True)
     suffix = "WithVertices" if with_vertices else ""
 

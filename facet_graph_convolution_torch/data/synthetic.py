@@ -1,7 +1,7 @@
 """Synthetic meshes for the port's tests and ``chip_smoke.py``.
 
-The port's own copy of ``icosphere``, ``torus``, ``chamfered_box`` and
-``add_vertex_noise`` from ``facet_graph_convolution_tpu/data/synthetic.py``:
+The port's own copy of ``icosphere``, ``torus``, ``box``,
+``chamfered_box``, ``cylinder_on_plate`` and ``add_vertex_noise`` from ``facet_graph_convolution_tpu/data/synthetic.py``:
 smooth and sharp-edged shapes, and Gaussian vertex noise at σ = level ·
 average edge length (the Wang et al. convention of the reference's data,
 README.md:61-72).
@@ -102,6 +102,44 @@ def torus(
     return verts, np.asarray(faces, dtype=np.int32)
 
 
+def box(
+    nx: int = 8, ny: int = 8, nz: int = 8, size=(1.0, 1.0, 1.0)
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Axis-aligned box with an (nx, ny, nz)-subdivided surface grid — sharp
+    edges exercise the feature-preserving behavior of the denoiser."""
+    sx, sy, sz = size
+    verts = []
+    vid = {}
+
+    def vert(x, y, z):
+        key = (round(x, 9), round(y, 9), round(z, 9))
+        if key not in vid:
+            vid[key] = len(verts)
+            verts.append([x, y, z])
+        return vid[key]
+
+    faces = []
+
+    def grid_face(origin, du, dv, nu_, nv_):
+        for i in range(nu_):
+            for j in range(nv_):
+                p00 = np.asarray(origin) + du * (i / nu_) + dv * (j / nv_)
+                p10 = np.asarray(origin) + du * ((i + 1) / nu_) + dv * (j / nv_)
+                p11 = np.asarray(origin) + du * ((i + 1) / nu_) + dv * ((j + 1) / nv_)
+                p01 = np.asarray(origin) + du * (i / nu_) + dv * ((j + 1) / nv_)
+                a, b, c, d = (vert(*p00), vert(*p10), vert(*p11), vert(*p01))
+                faces.extend([[a, b, c], [a, c, d]])
+
+    ex, ey, ez = np.array([sx, 0, 0]), np.array([0, sy, 0]), np.array([0, 0, sz])
+    grid_face([0, 0, 0], ey, ex, ny, nx)          # bottom (z=0), outward −z
+    grid_face([0, 0, sz], ex, ey, nx, ny)         # top
+    grid_face([0, 0, 0], ex, ez, nx, nz)          # y=0
+    grid_face([0, sy, 0], ez, ex, nz, nx)         # y=sy
+    grid_face([0, 0, 0], ez, ey, nz, ny)          # x=0
+    grid_face([sx, 0, 0], ey, ez, ny, nz)         # x=sx
+    return np.asarray(verts, dtype=np.float32), np.asarray(faces, dtype=np.int32)
+
+
 def chamfered_box(
     n: int = 12, size: float = 1.0, chamfer: float = 0.12
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -185,6 +223,87 @@ def chamfered_box(
     tri([lo, hi, 0], [0, hi, lo], [lo, s, lo])
     tri([hi, lo, 0], [s, lo, lo], [hi, 0, lo])
     tri([lo, lo, 0], [lo, 0, lo], [0, lo, lo])
+
+    return (np.asarray(verts, dtype=np.float32),
+            np.asarray(faces, dtype=np.int32))
+
+
+def cylinder_on_plate(
+    n_theta: int = 48,
+    r_plate: float = 1.0,
+    h_plate: float = 0.2,
+    r_cyl: float = 0.45,
+    h_cyl: float = 0.8,
+    n_h: int = 4,
+    n_r: int = 4,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Cylinder standing on a circular plate — smooth curved walls meeting
+    sharp circular creases (plate rim, plate↔cylinder junction, cylinder
+    cap), a CAD-like feature-preservation test. Watertight."""
+    verts: list = []
+    vid: dict = {}
+
+    def vert(p):
+        key = (round(float(p[0]), 9), round(float(p[1]), 9), round(float(p[2]), 9))
+        if key not in vid:
+            vid[key] = len(verts)
+            verts.append([key[0], key[1], key[2]])
+        return vid[key]
+
+    faces: list = []
+    theta = np.linspace(0, 2 * np.pi, n_theta, endpoint=False)
+    ct, st = np.cos(theta), np.sin(theta)
+
+    def ring(r, z):
+        return [vert((r * ct[k], r * st[k], z)) for k in range(n_theta)]
+
+    def connect(lo_ring, hi_ring, flip=False):
+        for k in range(n_theta):
+            k2 = (k + 1) % n_theta
+            a, b, cidx, d = lo_ring[k], lo_ring[k2], hi_ring[k2], hi_ring[k]
+            if flip:
+                faces.extend([[a, cidx, b], [a, d, cidx]])
+            else:
+                faces.extend([[a, b, cidx], [a, cidx, d]])
+
+    def disk(r_out, z, r_in=0.0, up=True):
+        """Annulus (or full disk) of concentric rings; center fan if r_in=0."""
+        radii = np.linspace(r_in if r_in > 0 else r_out / n_r, r_out,
+                            n_r if r_in > 0 else n_r)
+        rings = [ring(r, z) for r in radii]
+        for lo_r, hi_r in zip(rings[:-1], rings[1:]):
+            connect(lo_r, hi_r, flip=up)
+        if r_in == 0.0:
+            center = vert((0.0, 0.0, z))
+            inner = rings[0]
+            for k in range(n_theta):
+                k2 = (k + 1) % n_theta
+                if up:
+                    faces.append([center, inner[k], inner[k2]])
+                else:
+                    faces.append([center, inner[k2], inner[k]])
+        return rings[0], rings[-1]
+
+    z0, z1, z2 = 0.0, h_plate, h_plate + h_cyl
+    # plate bottom (full disk, facing −z)
+    disk(r_plate, z0, up=False)
+    # plate wall
+    wall_lo = ring(r_plate, z0)
+    prev = wall_lo
+    for i in range(1, n_h + 1):
+        cur = ring(r_plate, z0 + (z1 - z0) * i / n_h)
+        connect(prev, cur)
+        prev = cur
+    # plate top annulus r_cyl→r_plate (facing +z): note ring order inner→outer
+    disk(r_plate, z1, r_in=r_cyl, up=True)
+    # cylinder wall
+    prev = ring(r_cyl, z1)
+    for i in range(1, n_h + 1):
+        cur = ring(r_cyl, z1 + (z2 - z1) * i / n_h)
+        connect(prev, cur)
+        prev = cur
+    # cylinder cap (full disk, facing +z)
+    disk(r_cyl, z2, up=True)
 
     return (np.asarray(verts, dtype=np.float32),
             np.asarray(faces, dtype=np.int32))

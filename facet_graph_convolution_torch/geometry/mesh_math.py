@@ -2,7 +2,7 @@
 
 The port's own copy of the functions of
 ``facet_graph_convolution_tpu/geometry/mesh_math.py`` that the inference
-path needs; reference file:line cited per function.
+and evaluation paths need; reference file:line cited per function.
 """
 
 from __future__ import annotations
@@ -72,6 +72,20 @@ def average_edge_length(vertices: np.ndarray, faces: np.ndarray):
     return float(lengths.mean()), int(lengths.shape[0])
 
 
+def triangle_areas(
+    vertices: np.ndarray, faces: np.ndarray, normalize: bool = False
+) -> np.ndarray:
+    """Triangle areas, optionally with the vertices scaled by 1 / (2 · mean
+    edge length) (reference ``getTrianglesArea``, utils.py:1242-1260)."""
+    vertices = np.asarray(vertices, dtype=np.float64)
+    if normalize:
+        el, _ = average_edge_length(vertices, faces)
+        vertices = vertices / (2.0 * el)
+    tri = vertices[faces.astype(np.int64)]
+    cp = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    return (0.5 * np.linalg.norm(cp, axis=-1)).astype(np.float32)
+
+
 def edge_map(faces: np.ndarray, max_edges: int = 50):
     """Per-edge table ``e_map[E, 4] = [v1, v2, f1, f2]`` and per-vertex edge
     list ``v_e_map[V, max_edges]`` (−1 padded), built by sorting and grouping
@@ -124,6 +138,41 @@ def edge_map(faces: np.ndarray, max_edges: int = 50):
     if nonmanifold:
         warnings.warn(f"edge_map: {nonmanifold} non-manifold edges (kept first 2 faces)")
     return e_map_arr, v_e_map
+
+
+def face_adjacency_edges(faces: np.ndarray):
+    """Edge-shared face adjacency ``fadj[F, 4]`` (slot 0 = self, one-indexed,
+    0-padded), with the edge tables of :func:`edge_map` (reference
+    ``getFacesAdj``, utils.py:188-225)."""
+    faces = faces.astype(np.int64)
+    fnum = faces.shape[0]
+    e_map_arr, v_e_map = edge_map(faces)
+    fadj = np.zeros((fnum, 4), dtype=np.int32)
+    fadj[:, 0] = np.arange(fnum) + 1
+    interior = e_map_arr[(e_map_arr[:, 2] >= 0) & (e_map_arr[:, 3] >= 0)]
+    src = np.concatenate([interior[:, 2], interior[:, 3]])
+    dst = np.concatenate([interior[:, 3], interior[:, 2]])
+    order = np.argsort(src, kind="stable")
+    src, dst = src[order], dst[order]
+    if src.size:
+        new = np.ones(src.shape[0], dtype=bool)
+        new[1:] = src[1:] != src[:-1]
+        starts = np.flatnonzero(new)
+        rank = np.arange(src.shape[0]) - np.repeat(
+            starts, np.diff(np.append(starts, src.shape[0])))
+        keep = rank < 3  # a triangle has ≤3 edge-neighbours (more ⇒ non-manifold)
+        fadj[src[keep], rank[keep] + 1] = dst[keep] + 1
+    return fadj, e_map_arr, v_e_map
+
+
+def border_faces(faces: np.ndarray) -> np.ndarray:
+    """1 for faces owning at least one border edge (reference
+    ``getBorderFaces``, utils.py:227-240)."""
+    faces = np.asarray(faces)
+    e_map_arr, _ = edge_map(faces)
+    out = np.zeros(faces.shape[0], dtype=np.int8)
+    out[e_map_arr[(e_map_arr[:, 3] < 0) & (e_map_arr[:, 2] >= 0), 2]] = 1
+    return out
 
 
 def vertex_faces(faces: np.ndarray, k_v: int, vnum: int = 0) -> np.ndarray:

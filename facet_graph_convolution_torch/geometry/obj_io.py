@@ -1,10 +1,12 @@
-"""Wavefront OBJ I/O and the normal-colored visualization mesh (host).
+"""Mesh and point-cloud I/O and the colored visualization meshes (host).
 
 The port's own copy of ``facet_graph_convolution_tpu/geometry/obj_io.py``
-(its parser in C++, :mod:`..graph.native`, where the library loaded):
-reference ``load_mesh``
-(utils.py:476-639), ``write_mesh`` (utils.py:659-697), ``getColoredMesh``
-(utils.py:1973-1999).
+(its OBJ parser in C++, :mod:`..graph.native`, where the library loaded):
+reference ``load_mesh`` (utils.py:476-639), ``write_mesh``
+(utils.py:659-697), ``write_xyz`` / ``write_coff`` (utils.py:643-657),
+``load_off_PC`` / ``load_coff_PC`` (utils.py:419-473), ``getColoredMesh``
+(utils.py:1973-1999), ``getHeatMapMesh`` (utils.py:1946-1970),
+``getHeatMapColor`` (utils.py:2002-2029).
 """
 
 from __future__ import annotations
@@ -91,6 +93,24 @@ def write_obj(vertices: np.ndarray, faces: np.ndarray, path: str) -> None:
             fh.write("f %d %d %d \n" % (row[0], row[1], row[2]))
 
 
+def write_xyz(points: np.ndarray, path: str) -> None:
+    """Plain xyz point dump (reference ``write_xyz``)."""
+    np.savetxt(path, np.asarray(points))
+
+
+def write_coff(points_with_colors: np.ndarray, path: str) -> None:
+    """Colored point cloud in COFF format (reference ``write_coff``). Columns
+    x y z r g b, colors in [0, 1] (scaled to 255) or already in [0, 255]."""
+    vec = np.array(points_with_colors, dtype=np.float64, copy=True)
+    if vec[:, 3:6].max() <= 1.0:
+        vec[:, 3:6] *= 255.0
+    with open(path, "w") as fh:
+        fh.write("COFF\n")
+        fh.write(f"{vec.shape[0]} 0 0\n")
+        for row in vec:
+            fh.write("%f %f %f %d %d %d\n" % tuple(row[:6]))
+
+
 def colored_mesh(
     vertices: np.ndarray, faces: np.ndarray, face_colors: np.ndarray
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -106,6 +126,61 @@ def colored_mesh(
     new_v = np.concatenate([corner, colors], axis=-1).reshape(-1, 6)
     new_f = np.arange(3 * faces.shape[0]).reshape(-1, 3)
     return new_v, new_f
+
+
+def heatmap_mesh(
+    vertices: np.ndarray, faces: np.ndarray, heat: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`colored_mesh` with a scalar heat a face as its gray color
+    (reference ``getHeatMapMesh``)."""
+    heat = np.asarray(heat, np.float32).reshape(-1, 1)
+    return colored_mesh(vertices, faces, np.tile(heat, (1, 3)))
+
+
+def heatmap_colors(values: np.ndarray) -> np.ndarray:
+    """Scalars in [0, 1] on the blue → cyan → green → yellow → red ramp
+    (reference ``getHeatMapColor``)."""
+    v = np.clip(np.asarray(values, np.float32), 0.0, 1.0)
+    anchors = np.array(
+        [
+            [0.0, 0.0, 1.0],
+            [0.0, 1.0, 1.0],
+            [0.0, 1.0, 0.0],
+            [1.0, 1.0, 0.0],
+            [1.0, 0.0, 0.0],
+        ],
+        dtype=np.float32,
+    )
+    seg = np.minimum((v * 4).astype(np.int32), 3)
+    coef = v * 4 - seg
+    lo = anchors[seg]
+    hi = anchors[seg + 1]
+    return lo + coef[:, None] * (hi - lo)
+
+
+def load_off_pc(path: str) -> np.ndarray:
+    """Point cloud of an OFF file: header, counts, then x y z rows read to
+    the end (reference ``load_off_PC``)."""
+    with open(path, "r") as fh:
+        header = fh.readline().strip()
+        if header != "OFF":
+            raise ValueError(f"bad OFF header: {header!r}")
+        fh.readline()
+        pts = [line.split()[0:3] for line in fh if line.strip()]
+    return np.asarray(pts, dtype=np.float32)
+
+
+def load_coff_pc(path: str):
+    """Colored point cloud of a COFF file, ``(points [N, 3], colors [N, 3])``
+    (reference ``load_coff_PC``)."""
+    with open(path, "r") as fh:
+        header = fh.readline().strip()
+        if header != "COFF":
+            raise ValueError(f"bad COFF header: {header!r}")
+        fh.readline()
+        rows = [line.split() for line in fh if line.strip()]
+    arr = np.asarray(rows, dtype=np.float32)
+    return arr[:, 0:3], arr[:, 3:6]
 
 
 def normals_to_colors(normals: np.ndarray) -> np.ndarray:

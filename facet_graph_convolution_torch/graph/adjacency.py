@@ -1,8 +1,10 @@
 """Facet-graph adjacency K-list (host).
 
 The port's own copy of
-``facet_graph_convolution_tpu/graph/adjacency.py::face_adjacency_klist``:
-the C++ builder of :mod:`.native` where it loaded, else NumPy.
+``facet_graph_convolution_tpu/graph/adjacency.py::face_adjacency_klist``
+(in C++, :mod:`.native`, where the library loaded, else NumPy) and of
+``vertex_ring_adjacency``, the ordered one-ring of the reference's
+``load_mesh`` with ``bGetAdj=True``.
 
 The graph format is the padded K-list ``fadj[F, K]``: one-indexed, slot 0 =
 self, 0 = padding. Two faces are adjacent iff they share a vertex, so
@@ -105,3 +107,44 @@ def face_adjacency_klist(
             f"face_adjacency_klist: {dropped // 2} connections dropped (K={k})"
         )
     return (fadj, dropped) if return_dropped else fadj
+
+
+def vertex_ring_adjacency(vertices: np.ndarray, faces: np.ndarray, k: int) -> np.ndarray:
+    """Ordered per-vertex one-ring adjacency (reference ``load_mesh`` with
+    ``bGetAdj=True``, utils.py:566-629): for each vertex, walk opposite edges
+    of incident faces in winding order, producing a one-indexed K-list with
+    slot 0 = self."""
+    faces = np.asarray(faces, dtype=np.int64)
+    vnum = np.asarray(vertices).shape[0]
+    adj = np.zeros((vnum, k), dtype=np.int64)
+    adj[:, 0] = np.arange(vnum) + 1
+    # opposite edge per corner, preserving winding (utils.py:586-600)
+    opp = {v: [] for v in range(vnum)}
+    dropped = 0
+    for f in range(faces.shape[0]):
+        v1, v2, v3 = faces[f]
+        for vv, e in ((v1, (v2, v3)), (v2, (v3, v1)), (v3, (v1, v2))):
+            if len(opp[vv]) >= k - 1:
+                dropped += 1
+            else:
+                opp[vv].append(e)
+    for v in range(vnum):
+        edges = opp[v]
+        if not edges:
+            continue
+        first, last = edges[0]
+        adj[v, 1] = first + 1
+        adj[v, 2] = last + 1
+        free = 3
+        heads = [e[0] for e in edges]
+        while free < k:
+            try:
+                idx = heads.index(last)
+            except ValueError:
+                break
+            last = edges[idx][1]
+            if last == first:
+                break
+            adj[v, free] = last + 1
+            free += 1
+    return adj

@@ -3,7 +3,8 @@
 The port's own copy of
 ``facet_graph_convolution_tpu/graph/patching.py::grow_graph_patch_masked``
 (in C++, :mod:`.native`, where the library loaded)
-(reference ``getGraphPatch_wMask``, utils.py:1508-1696) and
+(reference ``getGraphPatch_wMask``, utils.py:1508-1696), its unmasked form
+``grow_graph_patch`` (reference ``getGraphPatch``, utils.py:1417-1502) and
 ``grow_mesh_patch`` (reference ``getMeshPatch``, utils.py:1298-1411).
 """
 
@@ -13,6 +14,18 @@ from collections import deque
 from typing import Optional, Tuple
 
 import numpy as np
+
+
+def grow_graph_patch(
+    adj: np.ndarray, nodes_num: int, seed: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Grow a patch of up to ``nodes_num`` nodes (reference ``getGraphPatch``,
+    utils.py:1417-1502). Returns (local one-indexed K-list, local→global map).
+    """
+    patch_adj, old_idx, _ = grow_graph_patch_masked(
+        adj, nodes_num, seed, mask=None, min_size=0
+    )
+    return patch_adj, old_idx
 
 
 def grow_graph_patch_masked(

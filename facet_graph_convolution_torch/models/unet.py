@@ -110,31 +110,47 @@ def init_unet(
     return params
 
 
+def _no_record(name: str, t: torch.Tensor) -> None:
+    pass
+
+
 def _network(params: Dict, x: torch.Tensor, conv: Callable, levels: int,
-             coarsening_steps: int, alpha: float, multi_scale: bool) -> Output:
-    """The U-Net of the module docstring around ``conv(name, h, level)``."""
+             coarsening_steps: int, alpha: float, multi_scale: bool,
+             record: Callable[[str, torch.Tensor], None] = _no_record) -> Output:
+    """The U-Net of the module docstring around ``conv(name, h, level)``;
+    ``record(name, t)`` sees the intermediates of the fine path under the
+    reference's scope names (``evaluation/parity.py``)."""
     if levels == 1 and multi_scale:
         raise ValueError("multi_scale heads need the 3-level pyramid; got a single "
                          "adjacency level (the reference hard-codes 3 levels, settings.py:32)")
     h1 = lrelu(conv("conv1", x, 0), alpha)
+    record("conv1_act", h1)
     if levels == 1:
         h = lrelu(linear(params["fc1"], h1), alpha)
         return linear(params["out0"], h)
 
     p1 = tree_pool(h1, steps=coarsening_steps)
+    record("pool1", p1)
     h2 = lrelu(conv("conv2", p1, 1), alpha)
     p2 = tree_pool(h2, steps=coarsening_steps)
+    record("pool2", p2)
     h3 = lrelu(conv("conv3", p2, 2), alpha)
     d3 = lrelu(conv("dconv3", h3, 2), alpha)
 
-    u2 = conv("upconv2", tree_unpool(d3, steps=coarsening_steps), 1)
+    u2 = tree_unpool(d3, steps=coarsening_steps)
+    record("upsamp2", u2)
+    u2 = conv("upconv2", u2, 1)
     d2 = lrelu(conv("dconv2", torch.cat([u2, h2], dim=-1), 1), alpha)
 
-    u1 = conv("upconv1", tree_unpool(d2, steps=coarsening_steps), 0)
+    u1 = tree_unpool(d2, steps=coarsening_steps)
+    record("upsamp1", u1)
+    u1 = conv("upconv1", u1, 0)
     d1 = lrelu(conv("dconv1", torch.cat([u1, h1], dim=-1), 0), alpha)
 
     h = lrelu(linear(params["fc1"], d1), alpha)
+    record("fc1", h)
     y_fine = linear(params["out0"], h)
+    record("out0", y_fine)
     if not multi_scale:
         return y_fine
     y_mid = linear(params["out1"], lrelu(linear(params["fc_mid"], d2), alpha))

@@ -1,7 +1,8 @@
 """Normalization and activation (torch counterparts of
 ``facet_graph_convolution_tpu/ops/normalization.py``; reference
 ``normalizeTensor`` utils.py:1700-1715, ``tensorDotProduct`` utils.py:37-41,
-``lrelu`` model.py:828-830, ``batch_norm`` model.py:408-424)."""
+``lrelu`` model.py:828-830, ``tfComputeNormals`` utils.py:71-83,
+``batch_norm`` model.py:408-424)."""
 
 from __future__ import annotations
 
@@ -31,6 +32,14 @@ def normalize_tensor(x: torch.Tensor, epsilon: float = 1e-5) -> torch.Tensor:
 def lrelu(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
     """Leaky ReLU written like the reference: relu(x) − α·relu(−x)."""
     return torch.relu(x) - alpha * torch.relu(-x)
+
+
+def face_normals_device(points: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Facet normals of the current vertex positions, on their device
+    (reference ``tfComputeNormals``: ``cross(v1−v0, v2−v1)``, then
+    :func:`normalize_tensor`)."""
+    tri = points[faces.long()]                          # [F, 3, 3]
+    return normalize_tensor(torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 1]))
 
 
 def init_moments_norm(channels: int, seed: int = 0, std_dev: float = 0.05,

@@ -3,6 +3,9 @@
 
 - :func:`update_positions_edges`: Taubin linear anisotropic filtering over
   the edge map (reference ``update_position2``, train.py:1467-1557);
+- :func:`update_positions_depth`: the same filter with each vertex's update
+  projected on a fixed direction (reference ``update_position_with_depth``,
+  train.py:1561-1665);
 - :func:`update_positions_multiscale`: the coarse→fine projection solver
   over the per-vertex face lists and the coarsening pyramid, face centres
   recomputed from the moving vertices every iteration, each scale one launch
@@ -114,6 +117,37 @@ def update_positions_edges(
         r_pp, r_p = r_p, torch.sum(p * p)
         i += 1
     return x, i
+
+
+def update_positions_depth(
+    x: torch.Tensor,
+    face_normals: torch.Tensor,
+    edge_map: torch.Tensor,
+    v_edges: torch.Tensor,
+    depth_dir: torch.Tensor,
+    iter_num: int = 20,
+    lmbd: float = 1.0 / 18.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depth-constrained :func:`update_positions_edges`: each vertex's update
+    projected on the fixed direction ``depth_dir`` [3] before it is applied
+    (reference ``update_position_with_depth``; JAX
+    ``ops/vertex_update.py:166-199``). Returns ``(x, x − x_start)``."""
+    shift = torch.tensor([[0, 0, 1, 1]], dtype=torch.long, device=x.device)
+    emap = torch.cat([torch.zeros((1, 4), dtype=torch.long, device=x.device),
+                      edge_map.long() + shift], dim=0)
+    fn_pad = torch.cat([face_normals.new_zeros(1, 3), face_normals], dim=0)
+    n_edges = emap[v_edges.long() + 1]                  # [V, maxE, 4]
+    v_pair_idx = n_edges[..., 0:2]
+    n_f = fn_pad[n_edges[..., 2:4]]                     # [V, maxE, 2, 3]
+    d = depth_dir.reshape(1, 1, 1, 3)
+
+    x_out = x
+    for _ in range(iter_num):
+        s = torch.sum(x_out[v_pair_idx] - x_out[:, None, None, :], dim=2)
+        contrib = n_f * dot_last(n_f, s[:, :, None, :])[..., None]   # [V, maxE, 2, 3]
+        along = dot_last(contrib, d)[..., None] * d                  # on depth_dir
+        x_out = x_out + lmbd * torch.sum(along, dim=(1, 2))
+    return x_out, x_out - x
 
 
 def _solver_step_sizes(v_faces: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -21,7 +21,9 @@ iterates) atol 1e-5 scaled to max 1 (float32 sums in another order; on a
 full-width patch both float32 adjoints stay within 8e-6 of float64) and bit
 for bit against itself; the batched server's normals and points against the
 server on the CPU atol 1e-4, a replayed call bit for bit against the first,
-and the exported forward atol 1e-4 against the direct forward on the CPU.
+and the exported forward atol 1e-4 against the direct forward on the CPU;
+the parity capture through K1 against the plain capture atol 1e-4 a layer,
+and a reference-format checkpoint read onto the card bit for bit.
 """
 
 import numpy as np
@@ -175,6 +177,42 @@ def test_inference_on_card_matches_cpu(cuda):
     pts_cpu, n_cpu = infer_normals(mesh, cfg, params=params, device="cpu")
     np.testing.assert_allclose(n, n_cpu, atol=1e-4)
     np.testing.assert_allclose(pts, pts_cpu, atol=1e-4)
+
+
+def test_parity_capture_through_k1_matches_plain(cuda, monkeypatch):
+    from facet_graph_convolution_torch.evaluation.parity import capture_activations
+
+    v, f = icosphere(3)
+    mesh = InferenceMesh(max_patch_size=20000, coarsening_steps=2, coarsening_levels=3,
+                         k_faces=23, seed=0)
+    mesh.add_mesh(add_vertex_noise(v, f, 0.2, np.random.default_rng(0)), f)
+    patch = mesh.patches[0]
+    params = init_unet(0, device=str(cuda))
+    before = k1.facet_conv_fwd.launches
+    acts = capture_activations(params, patch.inputs, patch.adjs)
+    assert k1.facet_conv_fwd.launches == before + 8
+    monkeypatch.setattr(k1, "facet_conv_fwd", k1.facet_conv_fwd_plain)
+    plain = capture_activations(params, patch.inputs, patch.adjs)
+    assert acts.keys() == plain.keys()
+    for name in acts:
+        np.testing.assert_allclose(acts[name], plain[name], atol=1e-4, rtol=0, err_msg=name)
+
+
+def test_load_reference_unet_lands_on_the_card(cuda, tmp_path):
+    from facet_graph_convolution_torch.evaluation.tf_checkpoint import (
+        export_unet_to_tf,
+        load_reference_unet,
+    )
+
+    params = init_unet(0, device=str(cuda), multi_scale=True)
+    prefix = str(tmp_path / "net-1")
+    export_unet_to_tf(prefix, params)
+    back, multi = load_reference_unet(prefix)
+    assert multi and back.keys() == params.keys()
+    for layer in params:
+        for name, t in params[layer].items():
+            assert back[layer][name].device.type == "cuda"
+            assert torch.equal(back[layer][name], t), (layer, name)
 
 
 def _bwd_args(cuda, rng, n, k, c_in, m):

@@ -142,6 +142,13 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
+# the evaluation slice's modules, each of which the import check must reach
+EVALUATION_MODULES = (
+    "evaluation.metrics", "evaluation.driver", "evaluation.parity", "evaluation.tf_checkpoint",
+    "cli.metrics", "cli.parity", "cli.wang", "geometry.filters", "utils.guards",
+    "utils.profiling")
+
+
 def test_port_imports_no_jax():
     """No import statement of the port or of chip_smoke.py names jax or the
     JAX package; and every module of the port, imported in a fresh
@@ -162,6 +169,8 @@ def test_port_imports_no_jax():
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib',"
         " 'facet_graph_convolution_tpu')]\n"
         "assert not bad, bad\n"
+        f"missing = [m for m in {EVALUATION_MODULES!r} if p.__name__ + '.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print('clean', len([k for k in sys.modules if k.startswith(p.__name__)]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
