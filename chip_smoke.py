@@ -58,6 +58,21 @@ Phases, each fatal on failure:
 8. aggregate kernel: K3 against its plain version, bitwise repeatable, at
    conv1 of that step (the inputs the path gave it) and at the JAX kernel
    test's shape; prints its times, bound and ``torch.einsum``'s time;
+8b. bfloat16 (``compute_dtype="bfloat16"``, the JAX package's production
+   training configuration): K1 and K2 in bfloat16 against their plain
+   bfloat16 versions at the kernel phase's 8 conv shapes, K3 in bfloat16 at
+   conv1's inputs, each within 2^-8 of the plain output's largest magnitude
+   and bitwise repeatable, with times and bounds at bfloat16 bytes (and
+   ``torch.einsum`` in bfloat16 beside K3); ``train_normals`` under
+   bfloat16 on the training phase's set for 50 default steps (finite,
+   falling losses; K1 and K2 in bfloat16 8 times a step and never in
+   float32; one step's gradients within 0.05 of max|g| of the float32
+   step's from the same state and draws; a float32 ``params.pt`` that
+   serves a request in float32) and 30 rotation-invariant steps (K3 in
+   bfloat16 once a step, K1/K2 7 times); then both bfloat16 graph steps
+   (10 a call, the whole subdivision-5 icosphere) against their eager
+   steps bit for bit, printed at the end beside the float32 graph steps of
+   phase 12;
 9. vertex serving: ``infer_directory(with_vertices=True)`` answers the same 3
    requests at full width with random multi-scale weights, once under the
    operator solver and once under the naive one; checks the 7 written meshes
@@ -1111,11 +1126,12 @@ def rotinv_training_phase(dev, trained):
 
 def aggregate_bound_ms(q, x_slots, z):
     """Least time for K3's work on this card: q and x_slots read once and z
-    written once at the HBM rate, against its 2·S·N·M·C operations (a
-    multiply and an add per product; the contraction is dense, pad slots
-    included) at the f32 rate; the larger of the two."""
+    written once at the HBM rate (at their dtypes' sizes), against its
+    2·S·N·M·C operations (a multiply and an add per product; the contraction
+    is dense, pad slots included) at the f32 rate (the kernel computes in
+    f32 in either dtype); the larger of the two."""
     s, n, m = q.shape
-    nbytes = (q.numel() + x_slots.numel() + z.numel()) * 4
+    nbytes = sum(t.numel() * t.element_size() for t in (q, x_slots, z))
     ops = 2 * s * n * m * x_slots.shape[2]
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1165,6 +1181,236 @@ def aggregate_kernel_phase(dev, path_inputs):
             path = ({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "library_ms": library_ms}, b_by)
     return worst, path[0], path[1]
+
+
+BF16 = "bfloat16"
+BF16_KERNEL_TOL = 2.0 ** -8    # × max|plain| per output tensor: one bf16 rounding apart
+# × max|g|: bf16 against f32 gradients (the bound of tests/test_variant_matrix.py)
+BF16_GRAD_TOL = 0.05
+BF16_ROTINV_STEPS = 30
+
+
+def bf16_close(got, ref, what, label):
+    """max |got - ref| within BF16_KERNEL_TOL × max|ref| (same dtype);
+    returns the error."""
+    if got.dtype != ref.dtype:
+        raise AssertionError(f"{what} at {label}: {got.dtype}, its plain version {ref.dtype}")
+    err = float((got.float() - ref.float()).abs().max())
+    if err > BF16_KERNEL_TOL * float(ref.float().abs().max()):
+        raise AssertionError(f"{what} in bfloat16 disagrees with its plain version at {label}: "
+                             f"{err} (max |plain| {float(ref.float().abs().max())})")
+    return err
+
+
+def bf16_kernel_checks(dev, patch, k3_inputs):
+    """K1 and K2 in bfloat16 against their plain bfloat16 versions at the 8
+    conv shapes of the kernel phases' patch (random cat, ux and dz rounded
+    to bfloat16), K3 in bfloat16 at conv1's inputs of the rotation-invariant
+    step; each bitwise repeatable. Times and bounds as in the float32
+    phases, the bounds at the bfloat16 bytes. Returns {kernel: (max err,
+    totals, bound kind)}."""
+    import torch
+
+    from facet_graph_convolution_torch.models.unet import train_graph_tensors
+    from facet_graph_convolution_torch.ops import aggregate as k3
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+
+    adjs, adj_ts, mult_rows = train_graph_tensors(patch.adjs, dev)
+    rng = np.random.default_rng(8)
+    m = 9
+    out = {}
+    sums = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0, "by": set()}
+            for k in ("K1", "K2")}
+    print(f"bfloat16 kernel checks: K1, K2 vs their plain bf16 versions within "
+          f"{BF16_KERNEL_TOL:g} × max|plain| per output, bitwise repeatable; device ms by "
+          "CUDA-graph replay (50 calls; plain 10), bounds at bf16 bytes")
+    print("  %-8s %6s %4s %9s %9s %9s %9s %9s %9s %9s %9s" % (
+        "conv", "N'", "C", "K1_err", "K1_ms", "K1_plain", "K1_bound", "K2_err", "K2_ms",
+        "K2_plain", "K2_bound"))
+    for name, level, c_in in CONVS:
+        adj_sm, adj_t_sm = adjs[level], adj_ts[level]
+        rows = mult_rows[level][:, :, 0].contiguous()
+        n_pad = adj_sm.shape[1]
+        cat, ux, c = conv_inputs(patch, level, c_in, m, n_pad, rng, dev)
+        cat, ux = cat.to(torch.bfloat16), ux.to(torch.bfloat16)
+        dz = torch.as_tensor(rng.normal(size=(n_pad, m * c_in)).astype(np.float32),
+                             device=dev).to(torch.bfloat16)
+        fargs = (cat, ux, adj_sm, rows, c)
+        bargs = (cat, ux, adj_sm, adj_t_sm, rows, c, dz)
+        z, again = k1.facet_conv_fwd(*fargs), k1.facet_conv_fwd(*fargs)
+        dcat, dux = k1.facet_conv_bwd(*bargs)
+        dcat2, dux2 = k1.facet_conv_bwd(*bargs)
+        torch.cuda.synchronize()
+        if not (torch.equal(z, again) and torch.equal(dcat, dcat2) and torch.equal(dux, dux2)):
+            raise AssertionError(f"K1/K2 in bfloat16 gave different bits on the same inputs "
+                                 f"at {name}")
+        if (z.dtype, dcat.dtype, dux.dtype) != (torch.bfloat16, torch.bfloat16, torch.float32):
+            raise AssertionError(f"bf16 K1/K2 output dtypes {z.dtype}, {dcat.dtype}, {dux.dtype}")
+        e1 = bf16_close(z, k1.facet_conv_fwd_plain(*fargs), "K1 z", name)
+        ref = k1.facet_conv_bwd_plain(*bargs)
+        e2 = max(bf16_close(dcat, ref[0], "K2 dcat", name), bf16_close(dux, ref[1], "K2 dux",
+                                                                         name))
+        row = []
+        for key, err, fn, plain, args, bound in (
+                ("K1", e1, k1.facet_conv_fwd, k1.facet_conv_fwd_plain, fargs,
+                 lambda: bound_ms(*fargs, z)),
+                ("K2", e2, k1.facet_conv_bwd, k1.facet_conv_bwd_plain, bargs,
+                 lambda: bwd_bound_ms(bargs, dcat, dux))):
+            ms = cuda_ms(lambda: fn(*args), 50)[0]
+            plain_ms = cuda_ms(lambda: plain(*args), 10)[0]
+            b_ms, b_by = bound()
+            t = sums[key]
+            t["ms"] += ms
+            t["plain_ms"] += plain_ms
+            t["bound_ms"] += b_ms
+            t["err"] = max(t["err"], err)
+            t["by"].add(b_by)
+            row += [err, ms, plain_ms, b_ms]
+        print("  %-8s %6d %4d %9.2e %9.5f %9.5f %9.5f %9.2e %9.5f %9.5f %9.5f" % (
+            name, n_pad, c_in, *row))
+    for key, t in sums.items():
+        print(f"  {key} bf16, the 8 convs: {t['ms']:.5f} ms (plain {t['plain_ms']:.5f}, bound "
+              f"{t['bound_ms']:.5f}, {'/'.join(sorted(t['by']))})")
+        out[key] = (t["err"], {k: t[k] for k in ("ms", "plain_ms", "bound_ms")},
+                    "bytes" if t["by"] == {"bytes"} else "operations")
+
+    q, x_slots = (t.to(torch.bfloat16) for t in k3_inputs)
+    z, again = k3.weighted_aggregate(q, x_slots), k3.weighted_aggregate(q, x_slots)
+    torch.cuda.synchronize()
+    if not torch.equal(z, again) or z.dtype != torch.bfloat16:
+        raise AssertionError(f"K3 in bfloat16: repeatable {torch.equal(z, again)}, z {z.dtype}")
+    err = bf16_close(z, k3.weighted_aggregate_plain(q, x_slots), "K3 z", "conv1")
+    ms = cuda_ms(lambda: k3.weighted_aggregate(q, x_slots), 50)[0]
+    plain_ms = cuda_ms(lambda: k3.weighted_aggregate_plain(q, x_slots), 50)[0]
+    library_ms = cuda_ms(lambda: torch.einsum("knm,knc->nmc", q, x_slots), 50)[0]
+    b_ms, b_by = aggregate_bound_ms(q, x_slots, z)
+    s_, n, m3 = q.shape
+    print(f"  K3 bf16 at conv1 (S {s_}, N {n}, M {m3}, C {x_slots.shape[2]}): err {err:.2e}, "
+          f"{ms:.5f} ms, plain {plain_ms:.5f}, torch.einsum (bf16) {library_ms:.5f}, bound "
+          f"{b_ms:.5f} ({b_by})")
+    out["K3"] = (err, {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "library_ms": library_ms}, b_by)
+    return out
+
+
+def bf16_phase(dev, patch, trained, k3_inputs):
+    """``compute_dtype="bfloat16"`` (the JAX package's production training
+    configuration): the bf16 kernel checks; ``train_normals`` at full width
+    for TRAIN_STEPS default steps on the training phase's set (finite,
+    falling losses; K1 and K2 in bfloat16 8 times a step and never in
+    float32; one step's gradients within BF16_GRAD_TOL of the float32 step's
+    from the same state and draws; a float32 ``params.pt`` that serves a
+    request through ``infer_normals``), then BF16_ROTINV_STEPS
+    rotation-invariant steps (K3 in bfloat16 once a step, K1/K2 7 times);
+    then the bfloat16 graph step of both variants against its eager steps.
+    Returns its numbers."""
+    import torch
+
+    from facet_graph_convolution_torch import params as params_io
+    from facet_graph_convolution_torch.data.dataset import InferenceMesh
+    from facet_graph_convolution_torch.data.synthetic import add_vertex_noise, chamfered_box
+    from facet_graph_convolution_torch.inference.driver import infer_normals
+    from facet_graph_convolution_torch.ops import aggregate as k3
+    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.training.trainer import normals_loss, train_normals
+
+    t_phase = time.perf_counter()
+    print("bfloat16 phase: compute_dtype=\"bfloat16\"; "
+          "torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction} (left at "
+          "PyTorch's default; the convs' bf16 products write f32)")
+    checks = bf16_kernel_checks(dev, patch, k3_inputs)
+    counters = {"K1": k1.facet_conv_fwd, "K2": k1.facet_conv_bwd, "K3": k3.weighted_aggregate}
+    cfg = trained["cfg"].replace(model={"compute_dtype": BF16})
+    runs, launches = {}, {}
+    for label, c, steps, per_step in (
+            ("default", cfg.replace(train={"net_name": "smoke_bf16"}), TRAIN_STEPS,
+             {"K1": 8, "K2": 8, "K3": 0}),
+            ("rotation-invariant", cfg.replace(model={"rotation_invariance": True},
+                                               train={"net_name": "smoke_bf16_rotinv"}),
+             BF16_ROTINV_STEPS, {"K1": 7, "K2": 7, "K3": 1})):
+        for fn in counters.values():
+            fn.launches = fn.launches_bf16 = 0
+        t0 = time.perf_counter()
+        state, hist = train_normals(c, trained["train_set"], num_iterations=steps,
+                                    device=str(dev))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        bf16 = {k: fn.launches_bf16 for k, fn in counters.items()}
+        f32 = {k: fn.launches - fn.launches_bf16 for k, fn in counters.items()}
+        losses = hist[:, 0]
+        first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+        if len(losses) != steps or not np.isfinite(losses).all() or not last < first:
+            raise AssertionError(f"bf16 training, {label}: losses {losses}")
+        want = {k: n * steps for k, n in per_step.items()}
+        if bf16 != want or any(f32.values()) or state.step != steps:
+            raise AssertionError(f"bf16 training, {label}: bf16 launches {bf16} (want {want}), "
+                                 f"f32 launches {f32} (want none), {state.step} updates")
+        print(f"  bf16 training, {label}: {steps} steps in {train_s:.2f} s: loss {losses[0]:.3f} "
+              f"→ {losses[-1]:.3f}, mean of the first 10 {first:.3f}, of the last 10 "
+              f"{last:.3f}; bf16 launches {bf16}, f32 launches {f32}")
+        runs[label], launches[label] = (c, state), bf16
+
+    # one step's gradients in bf16 against the f32 step's, same state and draws
+    c, state = runs["default"]
+    tensors = trained["first_patch"]
+    rng = np.random.default_rng(9)
+    rot = torch.as_tensor(np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32),
+                          device=dev)
+    idx = torch.as_tensor(rng.integers(0, tensors[0].shape[0], c.train.loss_samples),
+                          device=dev)
+    leaves = [t for layer in sorted(state.params) for _, t in sorted(state.params[layer].items())]
+    got = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        loss = normals_loss(state.params, c, *tensors, idx, rot, dtype=dtype)
+        got[dtype] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
+    worst = 0.0
+    for a, b in zip(got[torch.bfloat16][1], got[torch.float32][1]):
+        if a.dtype != torch.float32 or not torch.isfinite(a).all():
+            raise AssertionError(f"bf16 step gradient {a.dtype}, finite {torch.isfinite(a).all()}")
+        worst = max(worst, float((a - b).abs().max()) / (float(b.abs().max()) or 1.0))
+    if worst > BF16_GRAD_TOL:
+        raise AssertionError(f"bf16 step gradients differ from the f32 step's by {worst} "
+                             f"(> {BF16_GRAD_TOL} of max|g|)")
+    print(f"  one default step in bf16 vs f32 (same state and draws): loss "
+          f"{got[torch.bfloat16][0]:.5f} vs {got[torch.float32][0]:.5f}; gradient max abs err "
+          f"{worst:.3e} of max|g| (bound {BF16_GRAD_TOL})")
+
+    # the checkpoint is f32 and serves a request
+    saved = params_io.load(params_io.checkpoint_path(c.train.network_path, c.train.net_name),
+                           device=str(dev))
+    dtypes = {t.dtype for leaves in saved.values() for t in leaves.values()}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"the bf16-trained params.pt holds {dtypes}")
+    v, f = chamfered_box(24)
+    mesh = InferenceMesh(max_patch_size=c.data.max_patch_size,
+                         coarsening_steps=c.model.coarsening_steps,
+                         coarsening_levels=c.model.coarsening_levels, k_faces=c.data.k_faces,
+                         max_edges=c.data.max_edges, seed=0)
+    mesh.add_mesh(add_vertex_noise(v, f, 0.2, np.random.default_rng(5)), f)
+    k1.facet_conv_fwd.launches = k1.facet_conv_fwd.launches_bf16 = 0
+    points, normals = infer_normals(mesh, c, device=str(dev))
+    if points.shape != v.shape or not (np.isfinite(points).all() and np.isfinite(normals).all()):
+        raise AssertionError("serving the bf16-trained net: bad output")
+    if k1.facet_conv_fwd.launches_bf16 != 0 or k1.facet_conv_fwd.launches == 0:
+        raise AssertionError(f"serving a bf16 config: K1 launches {k1.facet_conv_fwd.launches}, "
+                             f"bf16 {k1.facet_conv_fwd.launches_bf16} (serving runs f32)")
+    print(f"  params.pt float32; served chamfered_box ({f.shape[0]} faces) in float32 (K1 "
+          f"{k1.facet_conv_fwd.launches} f32 launches)")
+
+    # the bf16 graph step on the whole subdivision-5 icosphere
+    graphs = {}
+    for label, c in (("default", cfg), ("rotation-invariant",
+                                        cfg.replace(model={"rotation_invariance": True}))):
+        for fn in counters.values():
+            fn.launches = fn.launches_bf16 = 0
+        graphs[label] = normals_graph_vs_eager(dev, trained, label, c)
+        if any(fn.launches != fn.launches_bf16 for fn in counters.values()):
+            counts = {k: (fn.launches, fn.launches_bf16) for k, fn in counters.items()}
+            raise AssertionError(f"bf16 graph step, {label}: an f32 kernel launched (all, "
+                                 f"bf16): {counts}")
+    print(f"  bfloat16 phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"checks": checks, "launches": launches, "graphs": graphs}
 
 
 def request_shapes():
@@ -1823,6 +2069,41 @@ def graph_vs_eager(label, scanned, graph_state, eager_state, eager_step, draw, p
             "held_bytes": scanned.held_bytes}
 
 
+def normals_graph_vs_eager(dev, trained, label, cfg):
+    """:func:`graph_vs_eager` of the normals step of ``cfg`` on the whole
+    subdivision-5 icosphere (``trained["bench_patch"]``), 10 steps a call;
+    ``label`` names its launches a step in PER_STEP."""
+    import torch
+
+    from facet_graph_convolution_torch.training.trainer import (
+        create_train_state,
+        make_normals_train_step,
+        make_scanned_train_step,
+        normals_draws,
+        stack_patch_tensors,
+    )
+
+    patch = trained["bench_patch"]
+    graph_state = create_train_state(cfg, num_steps=100, device=str(dev))
+    eager_state = create_train_state(cfg, num_steps=100, device=str(dev))
+    scanned = make_scanned_train_step(graph_state, cfg, stack_patch_tensors([patch], str(dev)),
+                                      GRAPH_STEPS)
+    gen = torch.Generator().manual_seed(11)
+    step = make_normals_train_step(cfg)
+    tensors = trained["bench_tensors"]
+
+    def eager(state, d, j):
+        if d is None:
+            return step(state, *tensors)
+        return step(state, *tensors, rot=d["rot"][j], sample_idx=d["sample_idx"][j])
+
+    return graph_vs_eager(
+        f"{label} step ({cfg.model.compute_dtype}), {patch.num_nodes}-node patch", scanned,
+        graph_state, eager_state, eager,
+        lambda n: normals_draws(cfg, gen, [0] * n, patch.num_nodes),
+        PER_STEP[label], GRAPH_STEPS)
+
+
 def graph_training_phase(dev, trained, vertex_trained, naive_cfg):
     """Training with steps_per_call > 1 at full width: ``train_normals``
     (default and rotation-invariant) and ``train_with_vertices`` (operator
@@ -1844,11 +2125,7 @@ def graph_training_phase(dev, trained, vertex_trained, naive_cfg):
     from facet_graph_convolution_torch.training.checkpoint import CheckpointManager
     from facet_graph_convolution_torch.training.trainer import (
         create_train_state,
-        make_normals_train_step,
-        make_scanned_train_step,
         make_vertex_train_step,
-        normals_draws,
-        stack_patch_tensors,
         train_normals,
         train_with_vertices,
         vertex_patch_tensors,
@@ -1901,26 +2178,8 @@ def graph_training_phase(dev, trained, vertex_trained, naive_cfg):
 
     results = {}
     cfg = trained["cfg"]
-    patch = trained["bench_patch"]
     for label, model in (("default", {}), ("rotation-invariant", {"rotation_invariance": True})):
-        c = cfg.replace(model=model)
-        graph_state = create_train_state(c, num_steps=100, device=str(dev))
-        eager_state = create_train_state(c, num_steps=100, device=str(dev))
-        scanned = make_scanned_train_step(graph_state, c, stack_patch_tensors([patch], str(dev)),
-                                          GRAPH_STEPS)
-        gen = torch.Generator().manual_seed(11)
-        step = make_normals_train_step(c)
-        tensors = trained["bench_tensors"]
-
-        def eager(state, d, j, step=step, tensors=tensors):
-            if d is None:
-                return step(state, *tensors)
-            return step(state, *tensors, rot=d["rot"][j], sample_idx=d["sample_idx"][j])
-
-        results[label] = graph_vs_eager(
-            f"{label} step, {patch.num_nodes}-node patch", scanned, graph_state, eager_state,
-            eager, lambda n, c=c, gen=gen: normals_draws(c, gen, [0] * n, patch.num_nodes),
-            PER_STEP[label], GRAPH_STEPS)
+        results[label] = normals_graph_vs_eager(dev, trained, label, cfg.replace(model=model))
 
     params = vertex_trained["params"]
     for label, c in (("vertex", vcfg), ("vertex naive", naive_cfg)):
@@ -2639,6 +2898,7 @@ def main() -> int:
         train_launches, trained = training_phase(dev, workdir)
         k3_launches, k3_inputs = rotinv_training_phase(dev, trained)
         err3, totals3, bound_by3 = aggregate_kernel_phase(dev, k3_inputs)
+        bf16 = bf16_phase(dev, patch, trained, k3_inputs)
         vertex_launches, vertex_records, vertex_cfg, vertex_params = vertex_serving_phase(
             dev, workdir)
         vertex_trained = vertex_training_phase(dev, workdir)
@@ -2652,6 +2912,16 @@ def main() -> int:
             dev, vertex_records, default_config().eval.ms_solver_iterations)
         parity_launches = parity_phase(dev, workdir)
         wang_launches = wang_phase(dev, workdir)
+    print("bf16 vs f32 graph step, whole subdivision-5 icosphere (ms a step; device busy share; "
+          "activities a step; capture s; graph MiB):")
+    for label, r in bf16["graphs"].items():
+        f = graphs[label]
+        print(f"  {label}: bf16 {r['graph_ms']:.3f} vs f32 {f['graph_ms']:.3f} ms (eager "
+              f"{r['eager_ms']:.3f} vs {f['eager_ms']:.3f}); busy "
+              f"{100 * r['graph_busy_share']:.1f}% "
+              f"vs {100 * f['graph_busy_share']:.1f}%; activities {r['graph_activities']:.1f} vs "
+              f"{f['graph_activities']:.1f}; capture {r['capture_s']:.3f} vs {f['capture_s']:.3f}; "
+              f"{r['graph_mib']:.1f} vs {f['graph_mib']:.1f} MiB")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -2698,7 +2968,29 @@ def main() -> int:
         "bound_ms": totals3["bound_ms"],
         "bound_by": bound_by3,
         "library_ms": totals3["library_ms"],
-    }, {
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"facet_graph_convolution_torch/csrc/{source}.cu",
+        "replaces": replaces,
+        # bf16 training's main path: K1/K2 in its default run, K3 in its
+        # rotation-invariant run
+        "launches": bf16["launches"][run][key],
+        "max_abs_err": bf16["checks"][key][0],
+        # per train step: the 8 convs (K1, K2), conv1 (K3)
+        "ms": bf16["checks"][key][1]["ms"],
+        "plain_ms": bf16["checks"][key][1]["plain_ms"],
+        "bound_ms": bf16["checks"][key][1]["bound_ms"],
+        "bound_by": bf16["checks"][key][2],
+        "library_ms": bf16["checks"][key][1].get("library_ms"),
+    } for name, source, replaces, key, run in (
+        ("facet_conv_fwd_bf16", "facet_conv_fwd",
+         "facet_graph_convolution_tpu/ops/pallas_conv.py:92", "K1", "default"),
+        ("facet_conv_bwd_bf16", "facet_conv_bwd",
+         "facet_graph_convolution_tpu/ops/pallas_conv.py:111", "K2", "default"),
+        ("weighted_aggregate_bf16", "weighted_aggregate",
+         "facet_graph_convolution_tpu/ops/pallas_kernels.py:43", "K3", "rotation-invariant"),
+    )] + [{
         "name": "tree_pool_ignore_zeros",
         "route": "cuda",
         "source": "facet_graph_convolution_torch/csrc/tree_pool_iz.cu",

@@ -16,6 +16,22 @@
 //
 //   dcat[j] = [dx | dlog] of j's self slot + sum over the slots that read j
 //
+// The kernels are templates on the storage type of cat, ux, dz and dcat:
+// float32, or bfloat16 (compute_dtype="bfloat16", as _conv_epilogue_bwd runs
+// it there). Each load is upcast and everything is computed in f32; dux is
+// f32 in both (the wrapper casts it to ux's dtype, and takes dc from the f32
+// sum); dcat is rounded to bfloat16 once, after the f32 transpose-map sum
+// (the TPU kernel rounds each slot's dg row before XLA sums them). The
+// scratch dg and the dz tiles in shared memory stay f32 in both: a bf16 dg
+// would round every slot's row before the sum and add a rounding that
+// neither the f32 kernel nor the JAX package has at that point, for half of
+// its ~100 MB round trip; the f32 tiles keep the shared-memory limits
+// (facet_conv_bwd_max_m) the same for both types. In bfloat16 the dz tile is
+// loaded with plain loads, converted, rather than by cp.async. The bfloat16
+// entry is compiled apart, by facet_conv_bwd_bf16.cu (which includes this
+// file with FACET_CONV_BWD_BF16 defined), so that nvcc builds the two types'
+// ~50 kernels as two libraries in parallel.
+//
 // What bounds it on an H100: memory. Per node it reads M*C floats of dz and
 // writes C+M floats per live slot; dz alone is 57 MB at dconv1 (N' = 24,576,
 // C = 64, M = 9), against ~13 * 4 * M * C flops a node (~0.7 GFLOP, ~11 us at
@@ -68,6 +84,10 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "storage.cuh"
+
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -98,8 +118,16 @@ __device__ __forceinline__ void copy_wait() {
 }
 
 // dz[i0 .. i0+nb) columns [t0, t0+tcn) into the tile [nb][m][tc] (node
-// stride ns), zeros past C and past N
-__device__ __forceinline__ void load_tile(float* tile, const float* __restrict__ dz, int i0,
+// stride ns), zeros past C and past N: cp.async in f32; in bfloat16 plain
+// loads, upcast, stored to the f32 tile (no copy stays in flight)
+template <typename S>
+__device__ __forceinline__ void tile_put(float* dst, const S* src, bool valid) {
+  if constexpr (std::is_same<S, float>::value) copy_async(dst, src, valid);
+  else *dst = valid ? load_f32(src) : 0.f;
+}
+
+template <typename S>
+__device__ __forceinline__ void load_tile(float* tile, const S* __restrict__ dz, int i0,
                                           int nb, int n, int m, int c_in, int t0, int tcn,
                                           int tc, int ns, int P, int tid) {
   const int total = nb * m * tcn;
@@ -108,24 +136,32 @@ __device__ __forceinline__ void load_tile(float* tile, const float* __restrict__
     const int nl = row / m, a = row - (row / m) * m;
     const int ii = i0 + nl;
     const bool ok = ii < n && t0 + col < c_in;
-    copy_async(tile + nl * ns + a * tc + col,
-               dz + ((size_t)min(ii, n - 1) * m + a) * c_in + (ok ? t0 + col : 0), ok);
+    tile_put(tile + nl * ns + a * tc + col,
+             dz + ((size_t)min(ii, n - 1) * m + a) * c_in + (ok ? t0 + col : 0), ok);
   }
 }
 
 // The block's dz rows when one tile holds all C channels unpadded: one
 // contiguous range of dz (nb * M * C floats), copied 16 bytes at a time
 // (4-byte copies cost ~40 cycles a warp instruction). Rows of nodes past N
-// are left unset: no live slot reads them.
-__device__ __forceinline__ void load_tile_contiguous(float* tile, const float* __restrict__ dz,
+// are left unset: no live slot reads them. In bfloat16 each thread loads 4
+// values (two aligned bf16 pairs, 8 bytes) and stores them upcast as a float4.
+template <typename S>
+__device__ __forceinline__ void vec_put(float* dst, const S* src) {
+  if constexpr (std::is_same<S, float>::value) copy_async16(dst, src);
+  else *reinterpret_cast<float4*>(dst) = load4_f32(src);
+}
+
+template <typename S>
+__device__ __forceinline__ void load_tile_contiguous(float* tile, const S* __restrict__ dz,
                                                      int i0, int nb, int n, int m, int c_in,
                                                      int ns, int P, int tid) {
-  const int row = m * c_in;   // floats a node, a multiple of 4
+  const int row = m * c_in;   // values a node, a multiple of 4
   const int vecs = min(nb, n - i0) * row / 4;
-  const float* src = dz + (size_t)i0 * row;
+  const S* src = dz + (size_t)i0 * row;
   for (int v = tid; v < vecs; v += P) {
     const int e = 4 * v, nl = e / row;
-    copy_async16(tile + nl * ns + (e - nl * row), src + e);
+    vec_put(tile + nl * ns + (e - nl * row), src + e);
   }
 }
 
@@ -149,18 +185,19 @@ __device__ __forceinline__ void slot_index(const float* __restrict__ mult_rows,
 // The loads that depend on a live slot's row j: this lane's logit inputs
 // ux[i, a] + cat[j, C + a] + c[a], a = tl + T * u (-inf past M and for a
 // dead slot).
-template <int MM, int T>
-__device__ __forceinline__ void slot_logits(const float* __restrict__ cat,
-                                            const float* __restrict__ ux,
+template <int MM, int T, typename S>
+__device__ __forceinline__ void slot_logits(const S* __restrict__ cat,
+                                            const S* __restrict__ ux,
                                             const float* __restrict__ cvec, int i, int j,
                                             int width, int c_in, int m, int tl,
                                             float (&lg)[(MM + T - 1) / T]) {
-  const float* vrow = cat + (size_t)(j >= 0 ? j : 0) * width + c_in;
+  const S* vrow = cat + (size_t)(j >= 0 ? j : 0) * width + c_in;
 #pragma unroll
   for (int u = 0; u < (MM + T - 1) / T; ++u) {
     const int a = tl + T * u;
-    lg[u] = j >= 0 && a < m ? __ldg(ux + (size_t)i * m + a) + __ldg(vrow + a) + __ldg(cvec + a)
-                            : -INFINITY;
+    lg[u] = j >= 0 && a < m
+                ? load_f32(ux + (size_t)i * m + a) + load_f32(vrow + a) + __ldg(cvec + a)
+                : -INFINITY;
   }
 }
 
@@ -168,16 +205,16 @@ constexpr int kXS = 2;   // steps of 4 channels of x a lane loads ahead
 
 // The lane's first kXS steps of 4 channels of x from row j (0 for a dead
 // slot or past C).
-template <int T>
-__device__ __forceinline__ void slot_x(const float* __restrict__ cat, int j, int width,
+template <int T, typename S>
+__device__ __forceinline__ void slot_x(const S* __restrict__ cat, int j, int width,
                                        int c_in, int tl, float (&xp)[kXS][4]) {
-  const float* xrow = cat + (size_t)(j >= 0 ? j : 0) * width;
+  const S* xrow = cat + (size_t)(j >= 0 ? j : 0) * width;
 #pragma unroll
   for (int st = 0; st < kXS; ++st)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int ch = 4 * tl + 4 * T * st + e;
-      xp[st][e] = j >= 0 && ch < c_in ? __ldg(xrow + ch) : 0.f;
+      xp[st][e] = j >= 0 && ch < c_in ? load_f32(xrow + ch) : 0.f;
     }
 }
 
@@ -211,9 +248,9 @@ __device__ __forceinline__ void slot_softmax(float (&lg)[(MM + T - 1) / T], bool
 // step (x from xp for the first kXS steps of the first tile), dq partials,
 // and dx written as float4 to the slot's row `out`; the 4 channels that
 // straddle C (C not a multiple of 4) stay in `tail` for slot_finish.
-template <int MM, int T>
+template <int MM, int T, typename S>
 __device__ __forceinline__ void slot_channels(const float* tnode, int tc, int t0, int tcn,
-                                              const float* __restrict__ xrow, int c_in, int m,
+                                              const S* __restrict__ xrow, int c_in, int m,
                                               int tl, float w, const float (&s)[MM],
                                               const float (&xp)[kXS][4], float* out,
                                               float (&dq)[MM], float (&tail)[4]) {
@@ -226,10 +263,10 @@ __device__ __forceinline__ void slot_channels(const float* tnode, int tc, int t0
     } else if (t0 == 0 && step == 1) {
       x = make_float4(xp[1][0], xp[1][1], xp[1][2], xp[1][3]);
     } else {
-      x.x = ch < c_in ? __ldg(xrow + ch) : 0.f;
-      x.y = ch + 1 < c_in ? __ldg(xrow + ch + 1) : 0.f;
-      x.z = ch + 2 < c_in ? __ldg(xrow + ch + 2) : 0.f;
-      x.w = ch + 3 < c_in ? __ldg(xrow + ch + 3) : 0.f;
+      x.x = ch < c_in ? load_f32(xrow + ch) : 0.f;
+      x.y = ch + 1 < c_in ? load_f32(xrow + ch + 1) : 0.f;
+      x.z = ch + 2 < c_in ? load_f32(xrow + ch + 2) : 0.f;
+      x.w = ch + 3 < c_in ? load_f32(xrow + ch + 3) : 0.f;
     }
     float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -317,12 +354,12 @@ __device__ __forceinline__ void block_dux(const float* dl, float* __restrict__ d
 // when the dz rows exceed the shared-memory budget. MM = 9, the model's filter
 // count, is instantiated for M = 9 alone, so that every division by M is by a
 // constant; the others take any M <= MM.
-template <int MM, int T>
+template <typename S, int MM, int T>
 __global__ void __launch_bounds__(kThreadsA, 2)
-slot_cotangents_kernel(const float* __restrict__ cat, const float* __restrict__ ux,
+slot_cotangents_kernel(const S* __restrict__ cat, const S* __restrict__ ux,
                        const int* __restrict__ adj_sm,
                        const float* __restrict__ mult_rows,
-                       const float* __restrict__ cvec, const float* __restrict__ dz,
+                       const float* __restrict__ cvec, const S* __restrict__ dz,
                        float* __restrict__ dg, float* __restrict__ dux, int n, int k_nbr,
                        int c_in, int m_rt, int nb, int tc, int wp, int contiguous) {
   constexpr int LS = MM | 1;
@@ -382,12 +419,12 @@ slot_cotangents_kernel(const float* __restrict__ cat, const float* __restrict__ 
 // round the next group's dz rows start to copy into the other of two tiles
 // (cp.async) and its slots' indices load; at the end of the round its logit
 // inputs and first channels of x load.
-template <int MM, int T>
+template <typename S, int MM, int T>
 __global__ void __launch_bounds__(kThreadsA, 2)
-slot_cotangents_pipelined(const float* __restrict__ cat, const float* __restrict__ ux,
+slot_cotangents_pipelined(const S* __restrict__ cat, const S* __restrict__ ux,
                           const int* __restrict__ adj_sm,
                           const float* __restrict__ mult_rows,
-                          const float* __restrict__ cvec, const float* __restrict__ dz,
+                          const float* __restrict__ cvec, const S* __restrict__ dz,
                           float* __restrict__ dg, float* __restrict__ dux, int n, int k_nbr,
                           int c_in, int m_rt, int nb, int tc, int wp, int contiguous,
                           int groups) {
@@ -472,10 +509,11 @@ __device__ __forceinline__ float warp_max(float v) {
 // for the softmax and dlog and the C channels for dx; dq[m] is a warp sum
 // over the channels. One general path, not tuned: the model's M = 9 runs
 // the kernels above.
+template <typename S>
 __global__ void __launch_bounds__(kThreadsAnyM)
-slot_cotangents_any_m(const float* __restrict__ cat, const float* __restrict__ ux,
+slot_cotangents_any_m(const S* __restrict__ cat, const S* __restrict__ ux,
                       const int* __restrict__ adj_sm, const float* __restrict__ mult_rows,
-                      const float* __restrict__ cvec, const float* __restrict__ dz,
+                      const float* __restrict__ cvec, const S* __restrict__ dz,
                       float* __restrict__ dg, float* __restrict__ dux, int n, int k_nbr,
                       int c_in, int m, int wp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -486,16 +524,17 @@ slot_cotangents_any_m(const float* __restrict__ cat, const float* __restrict__ u
   float* dq = s + m;
   float* du = dq + m;
   const int width = c_in + m;
-  const float* dzi = dz + (size_t)i * m * c_in;
+  const S* dzi = dz + (size_t)i * m * c_in;
   for (int a = lane; a < m; a += 32) du[a] = 0.f;
   for (int k = 0; k <= k_nbr; ++k) {
     const float w = __ldg(mult_rows + (size_t)k * n + i);
     const int j = k == 0 ? i : __ldg(adj_sm + (size_t)(k - 1) * n + i) - 1;
     if (!(w != 0.f && (unsigned)j < (unsigned)n)) continue;   // warp-uniform
-    const float* row = cat + (size_t)j * width;
+    const S* row = cat + (size_t)j * width;
     float mx = -INFINITY;
     for (int a = lane; a < m; a += 32) {
-      const float l = __ldg(ux + (size_t)i * m + a) + __ldg(row + c_in + a) + __ldg(cvec + a);
+      const float l =
+          load_f32(ux + (size_t)i * m + a) + load_f32(row + c_in + a) + __ldg(cvec + a);
       s[a] = l;
       mx = fmaxf(mx, l);
     }
@@ -512,13 +551,13 @@ slot_cotangents_any_m(const float* __restrict__ cat, const float* __restrict__ u
     float* out = dg + ((size_t)k * n + i) * wp;
     for (int ch = lane; ch < c_in; ch += 32) {
       float d = 0.f;
-      for (int a = 0; a < m; ++a) d = fmaf(w * s[a], __ldg(dzi + (size_t)a * c_in + ch), d);
+      for (int a = 0; a < m; ++a) d = fmaf(w * s[a], load_f32(dzi + (size_t)a * c_in + ch), d);
       out[ch] = d;
     }
     for (int a = 0; a < m; ++a) {
       float p = 0.f;
       for (int ch = lane; ch < c_in; ch += 32)
-        p = fmaf(__ldg(row + ch), __ldg(dzi + (size_t)a * c_in + ch), p);
+        p = fmaf(load_f32(row + ch), load_f32(dzi + (size_t)a * c_in + ch), p);
       p = warp_sum(p);
       if (lane == 0) dq[a] = p * w;
     }
@@ -536,18 +575,18 @@ slot_cotangents_any_m(const float* __restrict__ cat, const float* __restrict__ u
   for (int a = lane; a < m; a += 32) dux[(size_t)i * m + a] = du[a];
 }
 
-template <int TB, int WB>
+template <typename S, int TB, int WB>
 __global__ void __launch_bounds__(kThreadsB)
 transpose_sum_kernel(const float* __restrict__ dg, const int* __restrict__ adj_t,
                      const int* __restrict__ adj_sm,
-                     const float* __restrict__ mult_rows, float* __restrict__ dcat,
+                     const float* __restrict__ mult_rows, S* __restrict__ dcat,
                      int n, int k_nbr, int k_t, int width, int wp) {
   const int lane = threadIdx.x & 31;
   const int t = lane % TB;
   const unsigned team = (TB == 32 ? kFullMask : ((1u << TB) - 1u)) << (lane - t);
   const int node = (blockIdx.x * blockDim.x + threadIdx.x) / TB;
   const bool valid = node < n;
-  float* row = dcat + (size_t)(valid ? node : 0) * width;
+  S* row = dcat + (size_t)(valid ? node : 0) * width;
   // the self slot's row, written by pass A when the slot is live
   const float* self = dg + (size_t)(valid ? node : 0) * wp;
   const bool self_live = valid && __ldg(mult_rows + node) != 0.f;
@@ -601,21 +640,22 @@ transpose_sum_kernel(const float* __restrict__ dg, const int* __restrict__ adj_t
 #pragma unroll
     for (int b = 0; b < WB; ++b) {
       const int ch = b0 + t + TB * b;
-      if (valid && ch < width) row[ch] = acc[b];
+      if (valid && ch < width) store_f32(row + ch, acc[b]);
     }
   }
 }
 
+template <typename S>
 struct Args {
-  const float* cat;
-  const float* ux;
+  const S* cat;
+  const S* ux;
   const int* adj_sm;
   const int* adj_t;
   const float* mult_rows;
   const float* c;
-  const float* dz;
+  const S* dz;
   float* dg;
-  float* dcat;
+  S* dcat;
   float* dux;
   int n, k_nbr, k_t, c_in, m, wp;
   cudaStream_t stream;
@@ -640,8 +680,8 @@ int allow_smem(K kernel, size_t smem, size_t& raised) {
 // channels (rounded up to 4T) fit the shared-memory budget, persistent
 // pipelined blocks; otherwise one block a group, with a tile of TC channels
 // (a multiple of 4T) within the budget.
-template <int MM, int T>
-int launch_a(const Args& a) {
+template <typename S, int MM, int T>
+int launch_a(const Args<S>& a) {
   constexpr int LS = MM | 1;
   const int ks = a.k_nbr + 1;
   const int step = 4 * T;
@@ -659,17 +699,17 @@ int launch_a(const Args& a) {
   if (teams == nb * ks && dl + 2 * tile <= (size_t)kSmemBudget) {
     const size_t smem = dl + 2 * tile;
     static size_t raised = 48 * 1024;
-    int err = allow_smem(slot_cotangents_pipelined<MM, T>, smem, raised);
+    int err = allow_smem(slot_cotangents_pipelined<S, MM, T>, smem, raised);
     if (err != 0) return err;
     int dev = 0, sms = 0, per_sm = 0;
     if ((err = (int)cudaGetDevice(&dev)) != 0) return err;
     if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0)
       return err;
     if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, slot_cotangents_pipelined<MM, T>, threads, smem)) != 0)
+             &per_sm, slot_cotangents_pipelined<S, MM, T>, threads, smem)) != 0)
       return err;
     const int grid = groups < per_sm * sms ? groups : per_sm * sms;
-    slot_cotangents_pipelined<MM, T><<<grid > 0 ? grid : 1, threads, smem, a.stream>>>(
+    slot_cotangents_pipelined<S, MM, T><<<grid > 0 ? grid : 1, threads, smem, a.stream>>>(
         a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.dz, a.dg, a.dux, a.n, a.k_nbr, a.c_in,
         a.m, nb, c_pad, a.wp, contiguous, groups);
     return (int)cudaGetLastError();
@@ -688,47 +728,79 @@ int launch_a(const Args& a) {
     break;
   }
   static size_t raised = 48 * 1024;
-  const int err = allow_smem(slot_cotangents_kernel<MM, T>, smem, raised);
+  const int err = allow_smem(slot_cotangents_kernel<S, MM, T>, smem, raised);
   if (err != 0) return err;
   const int threads_g = round_up((nb * ks < kThreadsA / T ? nb * ks : kThreadsA / T) * T, 32);
-  slot_cotangents_kernel<MM, T><<<(a.n + nb - 1) / nb, threads_g, smem, a.stream>>>(
+  slot_cotangents_kernel<S, MM, T><<<(a.n + nb - 1) / nb, threads_g, smem, a.stream>>>(
       a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.dz, a.dg, a.dux, a.n, a.k_nbr, a.c_in,
       a.m, nb, tc, a.wp, tc == a.c_in && contiguous);
   return (int)cudaGetLastError();
 }
 
 // T lanes a slot by width class: each lane owns ~16 channels
-template <int MM>
-int dispatch_t(const Args& a) {
-  if (a.c_in <= 8) return launch_a<MM, 1>(a);
-  if (a.c_in <= 32) return launch_a<MM, 2>(a);
-  if (a.c_in <= 64) return launch_a<MM, 4>(a);
-  if (a.c_in <= 128) return launch_a<MM, 8>(a);
-  return launch_a<MM, 16>(a);
+template <typename S, int MM>
+int dispatch_t(const Args<S>& a) {
+  if (a.c_in <= 8) return launch_a<S, MM, 1>(a);
+  if (a.c_in <= 32) return launch_a<S, MM, 2>(a);
+  if (a.c_in <= 64) return launch_a<S, MM, 4>(a);
+  if (a.c_in <= 128) return launch_a<S, MM, 8>(a);
+  return launch_a<S, MM, 16>(a);
 }
 
 constexpr int kWarpsAnyM = kThreadsAnyM / 32;
 
-int launch_a_any_m(const Args& a) {
+template <typename S>
+int launch_a_any_m(const Args<S>& a) {
   const size_t smem = (size_t)kWarpsAnyM * 3 * a.m * sizeof(float);
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   static size_t raised = 48 * 1024;
-  const int err = allow_smem(slot_cotangents_any_m, smem, raised);
+  const int err = allow_smem(slot_cotangents_any_m<S>, smem, raised);
   if (err != 0) return err;
-  slot_cotangents_any_m<<<(a.n + kWarpsAnyM - 1) / kWarpsAnyM, kThreadsAnyM, smem, a.stream>>>(
+  slot_cotangents_any_m<S><<<(a.n + kWarpsAnyM - 1) / kWarpsAnyM, kThreadsAnyM, smem,
+                             a.stream>>>(
       a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.dz, a.dg, a.dux, a.n, a.k_nbr, a.c_in, a.m,
       a.wp);
   return (int)cudaGetLastError();
 }
 
-template <int TB, int WB>
-int launch_b(const Args& a) {
+template <typename S, int TB, int WB>
+int launch_b(const Args<S>& a) {
   const long long threads = (long long)a.n * TB;
   const unsigned blocks = (unsigned)((threads + kThreadsB - 1) / kThreadsB);
-  transpose_sum_kernel<TB, WB><<<blocks, kThreadsB, 0, a.stream>>>(
+  transpose_sum_kernel<S, TB, WB><<<blocks, kThreadsB, 0, a.stream>>>(
       a.dg, a.adj_t, a.adj_sm, a.mult_rows, a.dcat, a.n, a.k_nbr, a.k_t,
       a.c_in + a.m, a.wp);
   return (int)cudaGetLastError();
+}
+
+template <typename S>
+int run(const S* cat, const S* ux, const int* adj_sm, const int* adj_t, const float* mult_rows,
+        const float* c, const S* dz, float* dg, S* dcat, float* dux, int n, int k_nbr, int k_t,
+        int c_in, int m, void* stream) {
+  if (n <= 0) return 0;
+  if (c_in < 1 || m < 1 || k_nbr < 0 || k_t < 0 ||
+      reinterpret_cast<uintptr_t>(dg) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const Args<S> a{cat, ux, adj_sm, adj_t, mult_rows, c, dz, dg, dcat, dux,
+                  n, k_nbr, k_t, c_in, m, round_up(c_in + m, 8), (cudaStream_t)stream};
+  int err;
+  if (m <= 4) err = dispatch_t<S, 4>(a);
+  else if (m <= 8) err = dispatch_t<S, 8>(a);
+  else if (m == 9) err = dispatch_t<S, 9>(a);
+  else if (m <= 16) err = dispatch_t<S, 16>(a);
+  else if (m <= 32) err = dispatch_t<S, 32>(a);
+  else err = launch_a_any_m(a);
+  if (err != 0) return err;
+  const int width = c_in + m;
+  if (width <= 8) return launch_b<S, 8, 1>(a);
+  if (width <= 16) return launch_b<S, 16, 1>(a);
+  switch ((width + 31) / 32) {
+    case 1: return launch_b<S, 32, 1>(a);
+    case 2: return launch_b<S, 32, 2>(a);
+    case 3: return launch_b<S, 32, 3>(a);
+    case 4: return launch_b<S, 32, 4>(a);
+    default: return launch_b<S, 32, 5>(a);   // 160 columns at a time
+  }
 }
 
 }  // namespace
@@ -738,6 +810,8 @@ extern "C" {
 // Largest filter count the kernel takes (past M = 32, pass A keeps 3 * M
 // floats a warp in shared memory); any channel count runs.
 int facet_conv_bwd_max_m(void) { return kSmemMax / (kWarpsAnyM * 3 * (int)sizeof(float)); }
+
+#ifndef FACET_CONV_BWD_BF16
 
 // cat [n, c_in + m], ux [n, m], adj_sm [k_nbr, n] (one-indexed, 0 = pad),
 // adj_t [n, k_t] (one-indexed flat slots k*n + i, 0 = pad), mult_rows
@@ -750,30 +824,22 @@ int facet_conv_bwd_f32(const float* cat, const float* ux, const int* adj_sm,
                        const int* adj_t, const float* mult_rows, const float* c,
                        const float* dz, float* dg, float* dcat, float* dux, int n,
                        int k_nbr, int k_t, int c_in, int m, void* stream) {
-  if (n <= 0) return 0;
-  if (c_in < 1 || m < 1 || k_nbr < 0 || k_t < 0 ||
-      reinterpret_cast<uintptr_t>(dg) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const Args a{cat, ux, adj_sm, adj_t, mult_rows, c, dz, dg, dcat, dux,
-               n, k_nbr, k_t, c_in, m, round_up(c_in + m, 8), (cudaStream_t)stream};
-  int err;
-  if (m <= 4) err = dispatch_t<4>(a);
-  else if (m <= 8) err = dispatch_t<8>(a);
-  else if (m == 9) err = dispatch_t<9>(a);
-  else if (m <= 16) err = dispatch_t<16>(a);
-  else if (m <= 32) err = dispatch_t<32>(a);
-  else err = launch_a_any_m(a);
-  if (err != 0) return err;
-  const int width = c_in + m;
-  if (width <= 8) return launch_b<8, 1>(a);
-  if (width <= 16) return launch_b<16, 1>(a);
-  switch ((width + 31) / 32) {
-    case 1: return launch_b<32, 1>(a);
-    case 2: return launch_b<32, 2>(a);
-    case 3: return launch_b<32, 3>(a);
-    case 4: return launch_b<32, 4>(a);
-    default: return launch_b<32, 5>(a);   // 160 columns at a time
-  }
+  return run(cat, ux, adj_sm, adj_t, mult_rows, c, dz, dg, dcat, dux, n, k_nbr, k_t, c_in, m,
+             stream);
 }
+
+#else
+
+// The same with cat, ux, dz and dcat in bfloat16 (mult_rows, c, dg and dux
+// f32): f32 inside, dcat rounded once after its sum.
+int facet_conv_bwd_bf16(const __nv_bfloat16* cat, const __nv_bfloat16* ux, const int* adj_sm,
+                        const int* adj_t, const float* mult_rows, const float* c,
+                        const __nv_bfloat16* dz, float* dg, __nv_bfloat16* dcat, float* dux,
+                        int n, int k_nbr, int k_t, int c_in, int m, void* stream) {
+  return run(cat, ux, adj_sm, adj_t, mult_rows, c, dz, dg, dcat, dux, n, k_nbr, k_t, c_in, m,
+             stream);
+}
+
+#endif  // FACET_CONV_BWD_BF16
 
 }  // extern "C"

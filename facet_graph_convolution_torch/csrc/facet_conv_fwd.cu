@@ -8,6 +8,13 @@
 //   q[m]           = softmax_M(logits)[m] * mult_rows[k, i]
 //   z[i, m*C + ch] = sum_k q[m] * cat[j, ch]          (f32 accumulation)
 //
+// The kernel is a template on the storage type of cat, ux and z: float32, or
+// bfloat16 (compute_dtype="bfloat16", as _conv_epilogue_fwd runs it there):
+// each load is upcast, the softmax and the slot sums are f32, and z is
+// rounded to bfloat16 once, when it is written. mult_rows and c are f32 in
+// both, and so are the q tile and the staged z rows in shared memory, so
+// the shared-memory limits (facet_conv_fwd_max_m) hold for both.
+//
 // The TPU kernel reads a [K', N, C+M] tensor gathered beforehand by XLA,
 // because Mosaic cannot lower a dynamic gather. Here the block loads its
 // nodes' neighbour rows of cat = [x | v.x] itself, so that tensor is never
@@ -18,6 +25,7 @@
 // C = 64, M = 9: ~19 us at 3.35 TB/s), while the arithmetic, M*C FMAs per
 // slot over ~13 slots, needs ~6 us at the 67 TFLOP/s f32 rate. cat (<= 13 MB
 // on the path) fits the 50 MB L2, so the gathered rows are mostly L2 hits.
+// In bfloat16 every byte of cat, ux and z halves (~32 MB at that conv).
 //
 // Design: a block takes NB consecutive nodes and works in two phases, with
 // one barrier between them.
@@ -52,6 +60,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "storage.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;          // a block's threads
@@ -72,12 +82,12 @@ size_t smem_floats(int nb, int ks, int m, int c_in) {
          (c_in <= kStageC ? (size_t)nb * m * c_in : 0);
 }
 
-template <int CB, int MG>
+template <typename S, int CB, int MG>
 __global__ void __launch_bounds__(kThreads)
-facet_conv_fwd_kernel(const float* __restrict__ cat, const float* __restrict__ ux,
+facet_conv_fwd_kernel(const S* __restrict__ cat, const S* __restrict__ ux,
                       const int* __restrict__ adj_sm,
                       const float* __restrict__ mult_rows,
-                      const float* __restrict__ cvec, float* __restrict__ z,
+                      const float* __restrict__ cvec, S* __restrict__ z,
                       int n, int k_nbr, int c_in, int m_rt, int nb, int tpn, int groups) {
   // MG = 9, the model's filter count, is instantiated for M = 9 alone, so
   // that every division by M is by a constant
@@ -110,11 +120,11 @@ facet_conv_fwd_kernel(const float* __restrict__ cat, const float* __restrict__ u
     sj[s] = live ? j : -1;
     if (!live) continue;
     float* row = q + s * mp;
-    const float* v = cat + (size_t)j * width + c_in;
-    const float* u = ux + (size_t)i * m;
+    const S* v = cat + (size_t)j * width + c_in;
+    const S* u = ux + (size_t)i * m;
     float mx = -INFINITY;
     for (int a = 0; a < m; ++a) {
-      const float l = __ldg(u + a) + __ldg(v + a) + __ldg(cvec + a);
+      const float l = load_f32(u + a) + load_f32(v + a) + __ldg(cvec + a);
       row[a] = l;
       mx = fmaxf(mx, l);
     }
@@ -147,11 +157,11 @@ facet_conv_fwd_kernel(const float* __restrict__ cat, const float* __restrict__ u
 #pragma unroll
       for (int u = 0; u < kInFlight; ++u) {
         js[u] = k0 + u < ks ? sj[(k0 + u) * nb + nl] : -1;
-        const float* xrow = cat + (size_t)(js[u] >= 0 ? js[u] : 0) * width;
+        const S* xrow = cat + (size_t)(js[u] >= 0 ? js[u] : 0) * width;
 #pragma unroll
         for (int b = 0; b < CB; ++b) {
           const int ch = tl + tpn * b;
-          x[u][b] = js[u] >= 0 && ch < c_in ? __ldg(xrow + ch) : 0.f;
+          x[u][b] = js[u] >= 0 && ch < c_in ? load_f32(xrow + ch) : 0.f;
         }
       }
 #pragma unroll
@@ -172,38 +182,43 @@ facet_conv_fwd_kernel(const float* __restrict__ cat, const float* __restrict__ u
       }
     }
     const int mg = min(MG, m - m0);
-    float* out = stage ? st + (size_t)nl * m * c_in : z + ((size_t)i0 + nl) * m * c_in;
+    float* so = st + (size_t)nl * m * c_in;            // staged: shared memory, f32
+    S* zo = z + ((size_t)i0 + nl) * m * c_in;          // else z itself
 #pragma unroll
     for (int a = 0; a < MG; ++a) {
       if (a >= mg) break;
 #pragma unroll
       for (int b = 0; b < CB; ++b) {
         const int ch = tl + tpn * b;
-        if (ch < c_in) out[(m0 + a) * c_in + ch] = acc[a][b];
+        if (ch >= c_in) continue;
+        if (stage) so[(m0 + a) * c_in + ch] = acc[a][b];
+        else store_f32(zo + (m0 + a) * c_in + ch, acc[a][b]);
       }
     }
   }
   if (!stage) return;
   __syncthreads();
-  // the block's z rows are one contiguous range of nv * M * C floats
+  // the block's z rows are one contiguous range of nv * M * C values, written
+  // 4 at a time where 4-value aligned (16 bytes in f32, 8 in bfloat16)
   const int total = nv * m * c_in;
-  float* dst = z + (size_t)i0 * m * c_in;
+  S* dst = z + (size_t)i0 * m * c_in;
   int done = 0;
-  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+  if ((reinterpret_cast<uintptr_t>(dst) & (4 * sizeof(S) - 1)) == 0) {
     done = total & ~3;
     for (int v = 4 * tid; v < done; v += 4 * P)
-      *reinterpret_cast<float4*>(dst + v) = *reinterpret_cast<const float4*>(st + v);
+      store4_f32(dst + v, *reinterpret_cast<const float4*>(st + v));
   }
-  for (int v = done + tid; v < total; v += P) dst[v] = st[v];
+  for (int v = done + tid; v < total; v += P) store_f32(dst + v, st[v]);
 }
 
+template <typename S>
 struct Args {
-  const float* cat;
-  const float* ux;
+  const S* cat;
+  const S* ux;
   const int* adj_sm;
   const float* mult_rows;
   const float* c;
-  float* z;
+  S* z;
   int n, k_nbr, c_in, m;
   cudaStream_t stream;
 };
@@ -212,8 +227,8 @@ struct Args {
 // kThreads threads in all, NB halved while the shared memory exceeds the
 // budget; at C <= 16 NB is a multiple of 4, so that a block's z range starts
 // 16-byte aligned.
-template <int CB, int MG>
-int launch(const Args& a) {
+template <typename S, int CB, int MG>
+int launch(const Args<S>& a) {
   const int ks = a.k_nbr + 1;
   const int tpn = (a.c_in + CB - 1) / CB;
   const int groups = (a.m + MG - 1) / MG;
@@ -229,13 +244,14 @@ int launch(const Args& a) {
   static size_t raised = 48 * 1024;
   if (smem > raised) {
     const cudaError_t e = cudaFuncSetAttribute(
-        facet_conv_fwd_kernel<CB, MG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        facet_conv_fwd_kernel<S, CB, MG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
     raised = smem;
   }
   const int threads = round_up(nb * team < kThreads ? nb * team : kThreads, 32);
   const unsigned blocks = (unsigned)((a.n + nb - 1) / nb);
-  facet_conv_fwd_kernel<CB, MG><<<blocks, threads, smem, a.stream>>>(
+  facet_conv_fwd_kernel<S, CB, MG><<<blocks, threads, smem, a.stream>>>(
       a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.z, a.n, a.k_nbr, a.c_in, a.m, nb, tpn,
       groups);
   return (int)cudaGetLastError();
@@ -243,11 +259,25 @@ int launch(const Args& a) {
 
 // CB channels a thread: 1 to C = 32, 2 to 128 (C = 128 takes two warps a
 // node), 4 beyond
-template <int MG>
-int dispatch_c(const Args& a) {
-  if (a.c_in <= 32) return launch<1, MG>(a);
-  if (a.c_in <= 128) return launch<2, MG>(a);
-  return launch<4, MG>(a);
+template <typename S, int MG>
+int dispatch_c(const Args<S>& a) {
+  if (a.c_in <= 32) return launch<S, 1, MG>(a);
+  if (a.c_in <= 128) return launch<S, 2, MG>(a);
+  return launch<S, 4, MG>(a);
+}
+
+template <typename S>
+int run(const S* cat, const S* ux, const int* adj_sm, const float* mult_rows, const float* c,
+        S* z, int n, int k_nbr, int c_in, int m, void* stream) {
+  if (n <= 0) return 0;
+  if (c_in < 1 || c_in > kMaxC || m < 1 || k_nbr < 0) return (int)cudaErrorInvalidValue;
+  const Args<S> a{cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, (cudaStream_t)stream};
+  // M-groups of MG filters: M = 9, the model's, in one group of its own
+  // width; wider M in groups of 16
+  if (m <= 4) return dispatch_c<S, 4>(a);
+  if (m <= 8) return dispatch_c<S, 8>(a);
+  if (m == 9) return dispatch_c<S, 9>(a);
+  return dispatch_c<S, 16>(a);
 }
 
 }  // namespace
@@ -277,15 +307,15 @@ int facet_conv_fwd_max_m(int k_nbr, int c_in) {
 int facet_conv_fwd_f32(const float* cat, const float* ux, const int* adj_sm,
                        const float* mult_rows, const float* c, float* z, int n,
                        int k_nbr, int c_in, int m, void* stream) {
-  if (n <= 0) return 0;
-  if (c_in < 1 || c_in > kMaxC || m < 1 || k_nbr < 0) return (int)cudaErrorInvalidValue;
-  const Args a{cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, (cudaStream_t)stream};
-  // M-groups of MG filters: M = 9, the model's, in one group of its own
-  // width; wider M in groups of 16
-  if (m <= 4) return dispatch_c<4>(a);
-  if (m <= 8) return dispatch_c<8>(a);
-  if (m == 9) return dispatch_c<9>(a);
-  return dispatch_c<16>(a);
+  return run(cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, stream);
+}
+
+// The same with cat, ux and z in bfloat16 (mult_rows and c f32): f32 inside,
+// z rounded once.
+int facet_conv_fwd_bf16(const __nv_bfloat16* cat, const __nv_bfloat16* ux, const int* adj_sm,
+                        const float* mult_rows, const float* c, __nv_bfloat16* z, int n,
+                        int k_nbr, int c_in, int m, void* stream) {
+  return run(cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, stream);
 }
 
 }  // extern "C"

@@ -168,6 +168,7 @@ def unet_apply(
     variant: FacetConvVariant = FacetConvVariant.DEFAULT,
     adj_ts: Optional[Sequence[torch.Tensor]] = None,
     multi_scale: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> Output:
     """Forward pass: ``x`` [N, C] → [N, out]. ``adjs`` are the per-level
     slot-major [K', N'] neighbour lists and ``mult_rows`` the [K'+1, N', 1]
@@ -175,13 +176,18 @@ def unet_apply(
     slot_major_arrays`, fine level first (1 or 3 levels); ``adj_ts`` their
     transpose maps, which the backward needs (:func:`train_graph_tensors`).
     ``multi_scale`` returns ``(y_fine, y_mid, y_coarse)``, one output per
-    pyramid level (3 levels needed)."""
+    pyramid level (3 levels needed). ``compute_dtype`` is every conv's
+    (``unet_apply_pallas(compute_dtype=...)``; None keeps x's dtype): under
+    bfloat16 the convs' interiors are bfloat16 and their outputs f32, and
+    lrelu, the pools and the dense layers stay f32
+    (:func:`..ops.conv.facet_conv`)."""
     v_first, v_rest = per_conv_variants(variant)
 
     def conv(name, h, level):
         return facet_conv(params[name], h, adjs[level], mult_rows[level],
                           variant=v_first if name == "conv1" else v_rest,
-                          adj_t_sm=None if adj_ts is None else adj_ts[level])
+                          adj_t_sm=None if adj_ts is None else adj_ts[level],
+                          compute_dtype=compute_dtype)
 
     return _network(params, x, conv, len(adjs), coarsening_steps, alpha, multi_scale)
 

@@ -14,8 +14,16 @@ In the port's slot-major layout, for ``q`` [S, N, M] and ``x_slots``
 
     z[n, m·C + c] = Σ_s q[s, n, m] · x_slots[s, n, c]
 
-``z`` [N, M·C] f32, m-major: the JAX package's [N, M, C] with its last two
+``z`` [N, M·C], m-major: the JAX package's [N, M, C] with its last two
 axes flattened, the column order the conv multiplies by ``W_flat``.
+
+The kernel takes float32 or bfloat16 ``q`` and ``x_slots`` (one dtype for
+both): in bfloat16 it upcasts each load, sums in f32 and writes z in
+bfloat16, rounded once, which the conv's bf16 product reads as it is (the
+Pallas kernel writes f32 and the JAX conv rounds it to bf16 before its
+product: the same values). The plain version keeps that contract. The
+wrapper counts its launches (``.launches``) and, among them, its bfloat16
+ones (``.launches_bf16``).
 
 :class:`WeightedAggregate` is the ``torch.autograd.Function`` through which
 the rotation-invariant conv reaches K3: forward K3, backward in PyTorch
@@ -31,14 +39,17 @@ import ctypes
 import torch
 
 from facet_graph_convolution_torch.ops import cuda_library
+from facet_graph_convolution_torch.ops.facet_conv import ENTRY_SUFFIX, upcast_bf16
 
 _INT32_MAX = 2**31 - 1
 
 
 def weighted_aggregate_plain(q: torch.Tensor, x_slots: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch K3: one einsum, flattened m-major to [N, M·C]."""
+    """Plain PyTorch K3: one einsum, flattened m-major to [N, M·C]; in f32
+    on bfloat16 inputs (upcast), z rounded to q's dtype once."""
     _, n, m = q.shape
-    return torch.einsum("snm,snc->nmc", q, x_slots).reshape(n, m * x_slots.shape[2])
+    z = torch.einsum("snm,snc->nmc", upcast_bf16(q), upcast_bf16(x_slots))
+    return z.reshape(n, m * x_slots.shape[2]).to(q.dtype)
 
 
 def _library() -> ctypes.CDLL:
@@ -47,8 +58,10 @@ def _library() -> ctypes.CDLL:
         # c_void_p for the pointers and the stream: without argtypes ctypes
         # would pass the Python ints as 32-bit C ints and cut the addresses
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.weighted_aggregate_f32.argtypes = [p, p, p, i, i, i, i, p]
-        lib.weighted_aggregate_f32.restype = ctypes.c_int
+        for suffix in ENTRY_SUFFIX.values():
+            entry = getattr(lib, "weighted_aggregate" + suffix)
+            entry.argtypes = [p, p, p, i, i, i, i, p]
+            entry.restype = ctypes.c_int
         lib.weighted_aggregate_max_c.restype = ctypes.c_int
         lib.weighted_aggregate_max_m.restype = ctypes.c_int
     return lib
@@ -63,11 +76,15 @@ def _check(q: torch.Tensor, x_slots: torch.Tensor):
                          f"{tuple(x_slots.shape)} differ in S or N")
     if x_slots.device != q.device:
         raise ValueError(f"weighted_aggregate: x_slots on {x_slots.device}, q on {q.device}")
+    if x_slots.dtype != q.dtype:
+        raise TypeError(f"weighted_aggregate: x_slots is {x_slots.dtype} but q is {q.dtype}; "
+                        "they must share one compute dtype")
 
 
 def weighted_aggregate(q: torch.Tensor, x_slots: torch.Tensor) -> torch.Tensor:
     """K3 on ``q``'s device: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Raises on any other device, and on dtypes,
+    version for CPU tensors; z in q's dtype (float32 or bfloat16 on the
+    card). Raises on any other device, on a mix of dtypes, and on dtypes,
     shapes, layouts or sizes the kernel does not take (M or C beyond its
     limits, element counts beyond int32)."""
     _check(q, x_slots)
@@ -75,9 +92,10 @@ def weighted_aggregate(q: torch.Tensor, x_slots: torch.Tensor) -> torch.Tensor:
         return weighted_aggregate_plain(q, x_slots)
     if q.device.type != "cuda":
         raise ValueError(f"weighted_aggregate: no kernel for device {q.device}")
+    if q.dtype not in ENTRY_SUFFIX:
+        raise TypeError(f"weighted_aggregate: q is {q.dtype}, needs one of "
+                        f"{sorted(str(d) for d in ENTRY_SUFFIX)}")
     for name, t in (("q", q), ("x_slots", x_slots)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"weighted_aggregate: {name} is {t.dtype}, needs torch.float32")
         if not t.is_contiguous():
             raise ValueError(f"weighted_aggregate: {name} is not contiguous")
     s, n, m = q.shape
@@ -90,26 +108,30 @@ def weighted_aggregate(q: torch.Tensor, x_slots: torch.Tensor) -> torch.Tensor:
     if max(s * n * max(m, c), n * m * c) > _INT32_MAX:
         raise ValueError(f"weighted_aggregate: S={s}, N={n}, M={m}, C={c} overflow the "
                          "kernel's int32 sizes")
-    z = torch.empty((n, m * c), device=q.device, dtype=torch.float32)
+    z = torch.empty((n, m * c), device=q.device, dtype=q.dtype)
     if n == 0:
         return z
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.weighted_aggregate_f32(q.data_ptr(), x_slots.data_ptr(), z.data_ptr(),
-                                         s, n, m, c, stream)
+        err = getattr(lib, "weighted_aggregate" + ENTRY_SUFFIX[q.dtype])(
+            q.data_ptr(), x_slots.data_ptr(), z.data_ptr(), s, n, m, c, stream)
     if err != 0:
         raise RuntimeError(f"weighted_aggregate: kernel launch failed (cudaError {err})")
     weighted_aggregate.launches += 1
+    if q.dtype == torch.bfloat16:
+        weighted_aggregate.launches_bf16 += 1
     return z
 
 
 weighted_aggregate.launches = 0
+weighted_aggregate.launches_bf16 = 0
 
 
 class WeightedAggregate(torch.autograd.Function):
     """``z = K3(q, x_slots)``; the backward is plain PyTorch, on every
     device: ``dq[s,n,m] = Σ_c dz[n,m,c]·x[s,n,c]`` and ``dx[s,n,c] =
-    Σ_m dz[n,m,c]·q[s,n,m]``, each computed only when autograd needs it."""
+    Σ_m dz[n,m,c]·q[s,n,m]``, each computed only when autograd needs it,
+    in the inputs' dtype (bfloat16 grads under bfloat16 compute)."""
 
     @staticmethod
     def forward(ctx, q, x_slots):

@@ -18,6 +18,16 @@ kernels: K1 and K2 (:mod:`facet_graph_convolution_torch.ops.facet_conv`) for
 the first two variants, K3 (:mod:`facet_graph_convolution_torch.ops.
 aggregate`) for the rotation-invariant one, whose assignment K1 cannot form.
 
+``compute_dtype=torch.bfloat16`` is the JAX package's ``compute_dtype=
+bfloat16`` (its production training configuration): the parameters stay
+float32 and only the conv's interiors are bfloat16. ``x @ proj.T`` and
+``x @ u.T`` are computed in f32 and rounded; ``cat``, ``ux``, the gathered
+rows and ``z`` are bfloat16 (K1/K2 or K3 in their bfloat16 forms, f32
+inside); ``y = z @ W_flat.T`` takes ``W_flat`` rounded to bfloat16 and sums
+in f32 into an f32 ``y`` (:class:`Bf16Matmul`, JAX's
+``preferred_element_type=float32``). The rotation-invariant conv computes
+its features and softmax in f32 and rounds q and the slots for K3.
+
 The row-major functions over raw one-indexed K-lists ``adj`` [N, K] are plain
 PyTorch, as in the JAX package: :func:`assignment_weights`,
 :func:`facet_conv_rowmajor` (the JAX ``facet_conv`` without tables, which
@@ -145,13 +155,55 @@ def _rotation_invariant_feats(x: torch.Tensor, x_nbr: torch.Tensor,
 # The conv over the slot-major kernel tables
 # ---------------------------------------------------------------------------
 
-def _facet_conv_rotinv(params, x, adj_sm, adj_t_sm, rows):
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bfloat16 matrices, summed and written in float32,
+    with no rounding of the sum to bfloat16: on the card cuBLAS's bf16
+    product with an f32 output (``torch.mm(..., out_dtype=torch.float32)``,
+    the tensor cores), on the CPU the f32 product of the same values (each
+    product of two bf16 values is exact in f32). One form a device, chosen
+    by the device alone. Its output is f32, so PyTorch's
+    ``allow_bf16_reduced_precision_reduction`` (left at its default) cannot
+    round a partial sum to bf16 here."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class Bf16Matmul(torch.autograd.Function):
+    """``y = z @ w.T`` in f32 from bfloat16 ``z`` [N, K] and ``w`` [out, K]
+    (JAX's ``einsum(z, w, preferred_element_type=float32)``). PyTorch has
+    no derivative for the f32-output bf16 product (``aten::mm.dtype``), so
+    the backward is written out, in the same form: the f32 cotangent is
+    rounded to bfloat16 (the product's operands are bf16, as on the TPU's
+    matrix unit), then ``dz = dy @ w`` rounded to z's dtype and ``dw = dy.T
+    @ z`` in f32, which autograd rounds to w's dtype (the cotangent of the
+    bf16 cast of the f32 parameter, as in JAX)."""
+
+    @staticmethod
+    def forward(ctx, z, w):
+        ctx.save_for_backward(z, w)
+        return _mm_f32(z, w.t())
+
+    @staticmethod
+    def backward(ctx, dy):
+        z, w = ctx.saved_tensors
+        g = dy.to(z.dtype)
+        dz = _mm_f32(g, w).to(z.dtype) if ctx.needs_input_grad[0] else None
+        dw = _mm_f32(g.t(), z).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dz, dw
+
+
+def _facet_conv_rotinv(params, x, adj_sm, adj_t_sm, rows, compute_dtype):
     """The rotation-invariant conv on the padded ``x`` [N', C] (JAX
     ``_facet_conv_nminor_rotinv``): the neighbours are gathered once, with
-    zeros in pad slots, and serve both the features and K3."""
+    zeros in pad slots, and serve both the features and K3. The features
+    and the softmax are in x's dtype; q and the slots reach K3 in
+    ``compute_dtype`` (None: x's)."""
     x_slots = torch.cat([x[None], gather_slots(x, adj_sm, adj_t_sm)], dim=0)   # [S, N', C]
     feats = _rotation_invariant_feats(x, x_slots[1:], self_slot=True)          # [S, N', C]
     q = torch.softmax(feats @ params["u"].T + params["c"], dim=-1) * rows[..., None]
+    if compute_dtype is not None:
+        q, x_slots = q.to(compute_dtype), x_slots.to(compute_dtype)
     return WeightedAggregate.apply(q.contiguous(), x_slots)
 
 
@@ -162,6 +214,7 @@ def facet_conv(
     mult_rows: torch.Tensor,
     variant: FacetConvVariant = FacetConvVariant.DEFAULT,
     adj_t_sm: Optional[torch.Tensor] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Facet conv ``x`` [N, C] → [N, out] over the kernel tables of
     :func:`facet_graph_convolution_torch.graph.convert.slot_major_arrays`:
@@ -170,7 +223,13 @@ def facet_conv(
     transpose map that the backward needs (None when no gradient is taken).
     ``params`` holds ``w`` [M, out, C], ``b`` [out], ``u`` [M, C], ``c`` [M]
     and, for the default variant, ``v`` [M, C]. The rotation-invariant
-    variant takes 3, 4 or 6 input channels."""
+    variant takes 3, 4 or 6 input channels. ``compute_dtype`` (float32 or
+    bfloat16; None keeps x's dtype, float64 in the plain checks) is the
+    dtype of the conv's interiors (module docstring); under bfloat16 the
+    output is f32."""
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"facet_conv: compute_dtype {compute_dtype}, needs torch.float32 or "
+                         "torch.bfloat16")
     variant = FacetConvVariant(variant)
     u, c, w, b = params["u"], params["c"], params["w"], params["b"]
     n, in_ch = x.shape
@@ -182,14 +241,19 @@ def facet_conv(
         x = torch.nn.functional.pad(x, (0, 0, 0, pad))
     rows = mult_rows[:, :, 0]
     if variant == FacetConvVariant.ROTATION_INVARIANT:
-        z = _facet_conv_rotinv(params, x, adj_sm, adj_t_sm, rows)
+        z = _facet_conv_rotinv(params, x, adj_sm, adj_t_sm, rows, compute_dtype)
     else:
         proj = -u if variant == FacetConvVariant.TRANSLATION_INVARIANT else params["v"]
-        cat = torch.cat([x, x @ proj.T], dim=-1).contiguous()
-        z = facet_conv_epilogue(cat, (x @ u.T).contiguous(), c, adj_sm, adj_t_sm, rows)
+        cat, ux = torch.cat([x, x @ proj.T], dim=-1), x @ u.T
+        if compute_dtype is not None:
+            cat, ux = cat.to(compute_dtype), ux.to(compute_dtype)
+        z = facet_conv_epilogue(cat.contiguous(), ux.contiguous(), c, adj_sm, adj_t_sm, rows)
     # z columns are m-major (m·C + ch)
     w_flat = w.permute(1, 0, 2).reshape(out_ch, m * in_ch)
-    y = z @ w_flat.T
+    if compute_dtype == torch.bfloat16:
+        y = Bf16Matmul.apply(z, w_flat.to(compute_dtype))
+    else:
+        y = z @ w_flat.T
     gate = (rows.sum(dim=0) > 0).to(y.dtype)
     y = y + b[None, :] * gate[:, None]
     return y[:n] if pad else y

@@ -3,9 +3,11 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface under ``csrc/build/`` (listed in
 ``.gitignore``), at first use or when the source is newer than the library,
-and loaded with ``ctypes``; a shared header (``csrc/*.cuh``) newer than a
-library makes it stale too. :func:`build` starts one ``nvcc`` per stale
-source, all at once, and waits for them. Nothing is compiled or loaded at
+and loaded with ``ctypes``; a shared header (``csrc/*.cuh``), or a source
+that it includes, newer than a library makes it stale too (K2's bfloat16
+entry, ``facet_conv_bwd_bf16.cu``, includes ``facet_conv_bwd.cu``).
+:func:`build` starts one ``nvcc`` per stale source, all at once, and waits
+for them. Nothing is compiled or loaded at
 import time: a machine without a card or ``nvcc`` imports this module.
 """
 
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -20,8 +23,8 @@ from typing import Dict, Iterable, List
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-KERNELS = ("facet_conv_fwd", "facet_conv_bwd", "tree_pool_iz", "weighted_aggregate",
-           "ms_solver_naive", "ms_solver_naive_bwd")
+KERNELS = ("facet_conv_fwd", "facet_conv_bwd", "facet_conv_bwd_bf16", "tree_pool_iz",
+           "weighted_aggregate", "ms_solver_naive", "ms_solver_naive_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,12 +52,15 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
-    """No library yet, or one older than its source or a header of ``csrc/``."""
+    """No library yet, or one older than its source, a header of ``csrc/``
+    or a ``csrc/*.cu`` that its source includes."""
     src, lib, _ = _paths(name)
     if not os.path.exists(lib):
         return True
     headers = [os.path.join(CSRC, h) for h in os.listdir(CSRC) if h.endswith(".cuh")]
-    return os.path.getmtime(lib) < max(os.path.getmtime(p) for p in [src, *headers])
+    with open(src) as fh:
+        included = [os.path.join(CSRC, f) for f in re.findall(r'#include "(\w+\.cu)"', fh.read())]
+    return os.path.getmtime(lib) < max(os.path.getmtime(p) for p in [src, *headers, *included])
 
 
 def build(names: Iterable[str] = KERNELS) -> List[str]:

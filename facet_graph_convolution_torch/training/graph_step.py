@@ -26,6 +26,12 @@ A failed capture raises: there is no eager fallback on the card.
 On the CPU the same step runs eagerly, once a step, on the same buffers and
 counter (the caller asked for the CPU; the tests drive this path).
 
+Under ``compute_dtype="bfloat16"`` the captured step is the same graph with
+the convs' bfloat16 interiors (K1/K2/K3's bfloat16 launches, the products
+into f32) allocated in the graph's pool like any activation; the draws, the
+parameters, their gradients, Adam's state, the learning rate and the loss
+stay float32, and :meth:`GraphStep._step` refuses a loss of another dtype.
+
 Each graph keeps its step's activations in a memory pool of its own, ~1 GiB
 for a full-width vertex step. :class:`GraphCache` holds a trainer's graphs
 (one a vertex patch) least recently used first, within a byte budget: it
@@ -166,6 +172,9 @@ class GraphStep(CapturedGraph):
         lr = draw.pop("lr")
         optimizer = self._state.optimizer
         loss = self.loss_fn(self._state.params, **draw)
+        if loss.dtype != self.losses.dtype:
+            raise TypeError(f"GraphStep: the loss is {loss.dtype}, the loss buffer "
+                            f"{self.losses.dtype}")
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         set_learning_rate(optimizer, lr)

@@ -33,7 +33,15 @@ Under the naive solver the vertex step's backward runs the scale kernel's
 adjoint kernel on the card (``ops/ms_solver_kernel.py::NaiveScale``), over
 per-patch maps built once before the loop.
 
-Not ported yet (raises): bf16 compute.
+``cfg.model.compute_dtype = "bfloat16"`` (the JAX package's production
+training configuration, ``bench.py``) runs the normals train step's convs
+with bfloat16 interiors: K1/K2 and K3 in their bfloat16 forms, the convs'
+products from bf16 operands into f32 (:func:`..ops.conv.facet_conv`). The
+parameters, Adam, the loss and everything outside the convs stay float32,
+and the checkpoints are float32. As in the JAX package, the eval step, the
+validation, the vertex step and serving ignore ``compute_dtype`` and run
+float32. A ``compute_dtype`` other than "float32" or "bfloat16" raises
+(the JAX package runs float32 under any other string).
 """
 
 from __future__ import annotations
@@ -105,6 +113,18 @@ def _leaves(params: Mapping) -> List[torch.Tensor]:
     return [params[layer][name] for layer in sorted(params) for name in sorted(params[layer])]
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    """The torch dtype of ``cfg.model.compute_dtype``; raises ValueError on
+    any other string than "float32" or "bfloat16"."""
+    if cfg.model.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {cfg.model.compute_dtype!r}: use one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[cfg.model.compute_dtype]
+
+
 def _config_variant(cfg: Config) -> FacetConvVariant:
     """The conv variant of the config's invariance flags (reference
     bTransInvariant/bRotInvariant, model.py:841-842)."""
@@ -155,10 +175,9 @@ def create_train_state(
     training. On the card Adam is ``capturable`` with a tensor learning
     rate, for one step a call as for many, so that both run the same
     arithmetic; the CPU keeps the plain Adam (PyTorch refuses a capturable
-    one on CPU parameters)."""
-    if cfg.model.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"training: compute_dtype {cfg.model.compute_dtype!r} is not ported yet (float32)")
+    one on CPU parameters). The parameters are float32 under either
+    ``compute_dtype``; any other raises ValueError (:func:`compute_dtype`)."""
+    compute_dtype(cfg)
     variant = _config_variant(cfg)
     if params is None:
         params = init_unet(
@@ -215,15 +234,18 @@ def patch_tensors(patch: FacetPatch, device: str):
 
 
 def normals_loss(params, cfg: Config, x, adjs, adj_ts, rows, gt, sample_idx,
-                 rot: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 rot: Optional[torch.Tensor] = None,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The step's loss: rotate inputs and GT by ``rot`` (when given), U-Net
-    forward, ``normalize_tensor``, and ``face_normals_loss`` on the faces
-    ``sample_idx``."""
+    forward with the convs in ``dtype`` (default: the config's
+    ``compute_dtype``, as the train step runs them), ``normalize_tensor``,
+    and ``face_normals_loss`` on the faces ``sample_idx``."""
     if rot is not None:
         x = rotate_inputs(rot, x)
         gt = rotate_vec3(rot, gt)
     y = unet_apply(params, x, adjs, rows, coarsening_steps=cfg.model.coarsening_steps,
-                   alpha=cfg.model.lrelu_alpha, variant=_config_variant(cfg), adj_ts=adj_ts)
+                   alpha=cfg.model.lrelu_alpha, variant=_config_variant(cfg), adj_ts=adj_ts,
+                   compute_dtype=compute_dtype(cfg) if dtype is None else dtype)
     y = normalize_tensor(y)
     return face_normals_loss(y[sample_idx], gt[sample_idx])
 
@@ -240,7 +262,8 @@ def make_normals_train_step(cfg: Config, generator: Optional[torch.Generator] = 
     [3, 3] and ``sample_idx`` [loss_samples] are drawn from ``generator``
     (a host generator, default seeded with ``cfg.train.seed``) when not given:
     first the rotation (when augmenting), then the samples, as the JAX step
-    splits its key (trainer.py:125-130)."""
+    splits its key (trainer.py:125-130). The convs run in the config's
+    ``compute_dtype`` (trainer.py:118-135)."""
     augment = cfg.train.augment_rotations if augment is None else augment
     generator = _default_generator(cfg, generator)
     loss_samples = cfg.train.loss_samples
@@ -263,13 +286,15 @@ def make_normals_train_step(cfg: Config, generator: Optional[torch.Generator] = 
 def make_normals_eval_step(cfg: Config, generator: Optional[torch.Generator] = None):
     """``(params, x, adjs, adj_ts, mult_rows, gt) → loss`` on
     ``loss_samples`` faces drawn from ``generator``, without augmentation or
-    gradient."""
+    gradient, in float32 under any ``compute_dtype`` (the JAX eval step
+    passes none)."""
     generator = _default_generator(cfg, generator)
 
     def eval_step(params, x, adjs, adj_ts, rows, gt):
         sample_idx = torch.randint(0, x.shape[0], (cfg.train.loss_samples,), generator=generator)
         with torch.no_grad():
-            return normals_loss(params, cfg, x, adjs, adj_ts, rows, gt, sample_idx.to(x.device))
+            return normals_loss(params, cfg, x, adjs, adj_ts, rows, gt, sample_idx.to(x.device),
+                                dtype=torch.float32)
 
     return eval_step
 

@@ -23,7 +23,15 @@ for bit against itself; the batched server's normals and points against the
 server on the CPU atol 1e-4, a replayed call bit for bit against the first,
 and the exported forward atol 1e-4 against the direct forward on the CPU;
 the parity capture through K1 against the plain capture atol 1e-4 a layer,
-and a reference-format checkpoint read onto the card bit for bit.
+and a reference-format checkpoint read onto the card bit for bit. In
+bfloat16: K1, K2 and K3's bfloat16 forms against their plain versions within
+2^-8 of the plain output's largest magnitude (the same f32 sums in another
+order, then one bfloat16 rounding: an ulp apart at most; dux, f32, far
+within), bit for bit launch to launch; a bfloat16 train step on the card
+against the same step on the CPU, its loss within 2e-2 relative and its
+gradients within 0.05 of each gradient's largest magnitude (the bounds of
+tests/test_variant_matrix.py); the bfloat16 graph step against its eager
+steps bit for bit.
 """
 
 import numpy as np
@@ -364,13 +372,15 @@ def test_conv_on_card_keeps_its_gradient(cuda, rng):
         torch.testing.assert_close(g_card, g_cpu, atol=1e-4, rtol=1e-4)
 
 
-def _train_step_on_card_matches_cpu(cuda, model, launches):
+def _train_step_on_card_matches_cpu(cuda, model, launches, loss_rtol=None, grad_atol=1e-4,
+                                    counter="launches"):
     """One train step on the card against the same step on the CPU, with the
-    same rotation and loss samples: its loss, its gradients (each scaled to
-    max 1) and the kernels' ``launches`` ({wrapper: count a step}). The
-    updated parameters are not compared: Adam's first update is ±lr for a
-    gradient of any size, so a near-zero gradient summed in another order
-    may flip it."""
+    same rotation and loss samples: its loss (within 1e-4, or ``loss_rtol``
+    relative), its gradients (each scaled to max 1, within ``grad_atol``)
+    and the kernels' ``launches`` ({wrapper: count a step} by the wrapper's
+    ``counter``). The updated parameters are not compared: Adam's first
+    update is ±lr for a gradient of any size, so a near-zero gradient summed
+    in another order may flip it."""
     from facet_graph_convolution_torch.data.dataset import TrainingSet
     from facet_graph_convolution_torch.training.trainer import (
         create_train_state,
@@ -398,17 +408,17 @@ def _train_step_on_card_matches_cpu(cuda, model, launches):
         loss = normals_loss(state.params, cfg, *tensors, idx.to(dev), rot.to(dev))
         grads = torch.autograd.grad(loss, [state.params[a][b] for a, b in names])
         out.append((float(loss.detach()), [g.cpu() for g in grads]))
-        before = {fn: fn.launches for fn in launches}
+        before = {fn: getattr(fn, counter) for fn in launches}
         state, step_loss = make_normals_train_step(cfg)(state, *tensors, rot=rot,
                                                          sample_idx=idx)
         assert abs(float(step_loss) - float(loss.detach())) <= 1e-6 and state.step == 1
         if dev != "cpu":
-            assert {fn: fn.launches - before[fn] for fn in launches} == launches
+            assert {fn: getattr(fn, counter) - before[fn] for fn in launches} == launches
     (loss_cpu, g_cpu), (loss_card, g_card) = out
-    assert abs(loss_cpu - loss_card) < 1e-4
+    assert abs(loss_cpu - loss_card) < (1e-4 if loss_rtol is None else loss_rtol * abs(loss_cpu))
     for a, b in zip(g_card, g_cpu):
         scale = b.abs().max().clamp_min(1e-30)
-        torch.testing.assert_close(a / scale, b / scale, atol=1e-4, rtol=0)
+        torch.testing.assert_close(a / scale, b / scale, atol=grad_atol, rtol=0)
 
 
 def test_train_step_on_card_matches_cpu(cuda):
@@ -421,6 +431,19 @@ def test_rotinv_train_step_on_card_matches_cpu(cuda):
     _train_step_on_card_matches_cpu(
         cuda, {"rotation_invariance": True},
         {k1.facet_conv_fwd: 7, k1.facet_conv_bwd: 7, k3.weighted_aggregate: 1})
+
+
+@pytest.mark.parametrize("rotation_invariance", [False, True])
+def test_bf16_train_step_on_card_matches_cpu(cuda, rotation_invariance):
+    """``compute_dtype="bfloat16"``: the step on the card (K1/K2 and K3 in
+    their bfloat16 forms, counted by their bfloat16 counters) against the
+    same bfloat16 step on the CPU (the plain versions), at the bfloat16
+    bounds."""
+    launches = ({k1.facet_conv_fwd: 7, k1.facet_conv_bwd: 7, k3.weighted_aggregate: 1}
+                if rotation_invariance else {k1.facet_conv_fwd: 8, k1.facet_conv_bwd: 8})
+    _train_step_on_card_matches_cpu(
+        cuda, {"compute_dtype": "bfloat16", "rotation_invariance": rotation_invariance},
+        launches, loss_rtol=2e-2, grad_atol=0.05, counter="launches_bf16")
 
 
 # the train step's conv1 (a subdivision-5 icosphere bucketed to 25,600 nodes),
@@ -994,7 +1017,8 @@ def _same_state(a, b):
             assert torch.equal(sa[key], sb[key]), key
 
 
-@pytest.mark.parametrize("kind", ["default", "rotation_invariant", "vertex", "vertex_naive"])
+@pytest.mark.parametrize("kind", ["default", "rotation_invariant", "vertex", "vertex_naive",
+                                  "default_bf16", "rotation_invariant_bf16"])
 def test_graph_call_equals_eager_steps(cuda, kind):
     """Two calls of 5 steps through the captured graph (the first: one eager
     warm-up step, the capture, 4 replays; the second: 5 replays, with no
@@ -1027,7 +1051,9 @@ def test_graph_call_equals_eager_steps(cuda, kind):
         def eager(state, d, j):
             return step(state, tensors, d["rot"][j], d["idx0"][j], d["idx1"][j])
     else:
-        ds, cfg = _graph_case({"rotation_invariance": kind == "rotation_invariant"})
+        ds, cfg = _graph_case({"rotation_invariance": kind.startswith("rotation_invariant"),
+                               "compute_dtype": "bfloat16" if kind.endswith("bf16")
+                               else "float32"})
         patch = ds.patches[0]
         graph_state = create_train_state(cfg, device=str(cuda))
         eager_state = create_train_state(cfg, device=str(cuda))
@@ -1044,8 +1070,10 @@ def test_graph_call_equals_eager_steps(cuda, kind):
     counters = [k1.facet_conv_fwd, k1.facet_conv_bwd, k3.weighted_aggregate, ms.naive_scale,
                 ms.naive_scale_backward]
     before = [fn.launches for fn in counters]
+    before_bf16 = [getattr(fn, "launches_bf16", 0) for fn in counters]
     _, first = scanned(graph_state, calls[0])
     after_capture = [fn.launches for fn in counters]
+    bf16 = [getattr(fn, "launches_bf16", 0) - b for fn, b in zip(counters, before_bf16)]
     torch.cuda.set_sync_debug_mode("error")
     try:
         _, second = scanned(graph_state, calls[1])
@@ -1054,7 +1082,10 @@ def test_graph_call_equals_eager_steps(cuda, kind):
     assert [fn.launches for fn in counters] == after_capture     # replays count nothing
     per_step = {"default": [8, 8, 0, 0, 0], "rotation_invariant": [7, 7, 1, 0, 0],
                 "vertex": [8, 8, 0, 0, 0], "vertex_naive": [8, 8, 0, 3, 3]}
-    assert [a - b for a, b in zip(after_capture, before)] == [2 * n for n in per_step[kind]]
+    launched = [a - b for a, b in zip(after_capture, before)]
+    assert launched == [2 * n for n in per_step[kind.replace("_bf16", "")]]
+    # every launch of a bfloat16 step is a bfloat16 one, and none of a float32 step
+    assert bf16 == (launched if kind.endswith("bf16") else [0] * len(counters))
     graph_losses = np.concatenate([first.numpy(), second.numpy()])
     eager_losses = []
     for d in calls:
@@ -1299,3 +1330,112 @@ def test_exported_forward_launches_k1_on_card(cuda):
     with torch.no_grad():
         ref = normalize_tensor(unet_apply(cpu_params, torch.as_tensor(x[0]), t_adjs, t_rows))
     np.testing.assert_allclose(y[0].cpu().numpy(), ref.numpy(), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16: the bf16 forms of K1, K2 and K3 against their plain versions
+# ---------------------------------------------------------------------------
+
+BF16_TOL = 2.0 ** -8    # of the plain output's largest magnitude (module docstring)
+
+
+def _bf16_close(got, want, what):
+    assert got.dtype == want.dtype, what
+    scale = float(want.float().abs().max()) or 1.0
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= BF16_TOL * scale, f"{what}: {err} > 2^-8 × {scale}"
+
+
+def _to_bf16(args, names):
+    """``args`` with the tensors at the positions of ``names`` (cat, ux, dz
+    for K1/K2; all for K3) rounded to bfloat16."""
+    return [a.to(torch.bfloat16) if i in names else a for i, a in enumerate(args)]
+
+
+def _bf16_pair_check(cuda, args):
+    """K1 and K2 in bfloat16 on K2's ``args`` (cat, ux, dz rounded): each
+    against its plain version, bitwise repeatable, one bfloat16 launch each."""
+    args = _to_bf16(args, (0, 1, 6))
+    cat, ux, adj, adj_t, rows, c, dz = args
+    before = (k1.facet_conv_fwd.launches_bf16, k1.facet_conv_bwd.launches_bf16)
+    z = k1.facet_conv_fwd(cat, ux, adj, rows, c)
+    got = k1.facet_conv_bwd(*args)
+    assert (k1.facet_conv_fwd.launches_bf16, k1.facet_conv_bwd.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    assert z.dtype == got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    assert torch.equal(z, k1.facet_conv_fwd(cat, ux, adj, rows, c))
+    _bf16_close(z, k1.facet_conv_fwd_plain(cat, ux, adj, rows, c), "z")
+    for a, b, ref, what in zip(got, k1.facet_conv_bwd(*args), k1.facet_conv_bwd_plain(*args),
+                               ("dcat", "dux")):
+        assert torch.equal(a, b), what
+        _bf16_close(a, ref, what)
+
+
+@pytest.mark.parametrize("name,level,c_in", CONVS)
+def test_bf16_kernels_at_the_path_shapes(cuda, rng, served_patch, name, level, c_in):
+    """K1 and K2 in bfloat16 at each conv of a default train step (the
+    served patch's slot tables, M = 9)."""
+    from facet_graph_convolution_torch.models.unet import train_graph_tensors
+
+    adjs, adj_ts, mult_rows = train_graph_tensors(served_patch.adjs, cuda)
+    n_pad = adjs[level].shape[1]
+    cat = rng.normal(size=(n_pad, c_in + 9)).astype(np.float32)
+    cat[served_patch.adjs[level].shape[0]:] = 0.0
+    _bf16_pair_check(cuda, [
+        torch.as_tensor(cat, device=cuda),
+        torch.as_tensor(rng.normal(size=(n_pad, 9)).astype(np.float32), device=cuda),
+        adjs[level], adj_ts[level], mult_rows[level][:, :, 0].contiguous(),
+        torch.as_tensor(rng.normal(size=(9,)).astype(np.float32), device=cuda),
+        torch.as_tensor(rng.normal(size=(n_pad, 9 * c_in)).astype(np.float32), device=cuda)])
+
+
+@pytest.mark.parametrize("c_in", [6, 37, 64, 256])
+@pytest.mark.parametrize("m", [4, 9, 33, 64])
+def test_bf16_kernels_take_any_m(cuda, rng, c_in, m):
+    """Ragged widths (C + M odd: unaligned bf16 rows), every pass-A class
+    and, past M = 32, K2's general pass A."""
+    _bf16_pair_check(cuda, _bwd_args(cuda, rng, 400, 14, c_in, m))
+
+
+@pytest.mark.parametrize("c_in,k", [(41, 45), (6, 300)])
+def test_bf16_kernels_walk_more_than_32_slots(cuda, rng, c_in, k):
+    _bf16_pair_check(cuda, _bwd_args(cuda, rng, 350, k, c_in, 9))
+
+
+def test_bf16_forward_runs_channel_chunks(cuda, rng):
+    """A conv wider than one K1 launch (1024 channels) in bfloat16: two
+    launches, one z."""
+    args = _to_bf16(_bwd_args(cuda, rng, 200, 9, 1100, 4), (0, 1))
+    cat, ux, adj, _, rows, c, _ = args
+    before = k1.facet_conv_fwd.launches_bf16
+    z = k1.facet_conv_fwd(cat, ux, adj, rows, c)
+    assert k1.facet_conv_fwd.launches_bf16 == before + 2
+    _bf16_close(z, k1.facet_conv_fwd_plain(cat, ux, adj, rows, c), "z")
+
+
+@pytest.mark.parametrize("s,n,m,c", [
+    (13, 25600, 9, 6), (23, 512, 9, 64), (13, 700, 16, 37), (2, 333, 3, 33), (40, 300, 9, 6)])
+def test_bf16_aggregate_kernel_matches_plain(cuda, rng, s, n, m, c):
+    """K3 in bfloat16 (z rounded once), against its plain version and
+    bitwise repeatable; 40 slots walks past 32."""
+    q = torch.as_tensor(rng.normal(size=(s, n, m)).astype(np.float32), device=cuda)
+    x = torch.as_tensor(rng.normal(size=(s, n, c)).astype(np.float32), device=cuda)
+    q, x = q.to(torch.bfloat16), x.to(torch.bfloat16)
+    before = k3.weighted_aggregate.launches_bf16
+    z = k3.weighted_aggregate(q, x)
+    assert k3.weighted_aggregate.launches_bf16 == before + 1 and z.dtype == torch.bfloat16
+    _bf16_close(z, k3.weighted_aggregate_plain(q, x), "z")
+    assert torch.equal(z, k3.weighted_aggregate(q, x))
+
+
+def test_bf16_kernels_refuse_mixed_dtypes(cuda, rng):
+    cat, ux, adj, adj_t, rows, c, dz = _bwd_args(cuda, rng, 64, 6, 9, 4)
+    with pytest.raises(TypeError):
+        k1.facet_conv_fwd(cat.to(torch.bfloat16), ux, adj, rows, c)
+    with pytest.raises(TypeError):
+        k1.facet_conv_bwd(cat.to(torch.bfloat16), ux.to(torch.bfloat16), adj, adj_t, rows, c, dz)
+    with pytest.raises(TypeError):
+        k1.facet_conv_fwd(cat.half(), ux.half(), adj, rows, c)
+    with pytest.raises(TypeError):
+        k3.weighted_aggregate(torch.zeros(3, 8, 4, device=cuda, dtype=torch.bfloat16),
+                              torch.zeros(3, 8, 6, device=cuda))

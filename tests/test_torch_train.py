@@ -565,8 +565,8 @@ def test_nan_loss_aborts_without_poisoned_checkpoint(port_sphere_set, tmp_path, 
 
 def test_training_refuses_what_is_not_ported(port_sphere_set):
     cfg = default_config().replace(model=MODEL)
-    with pytest.raises(NotImplementedError):
-        create_train_state(cfg.replace(model={"compute_dtype": "bfloat16"}), device="cpu")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        create_train_state(cfg.replace(model={"compute_dtype": "float16"}), device="cpu")
     with pytest.raises(NotImplementedError, match="streaming"):
         preprocess_directory(cfg, shard_size=4)
 

@@ -45,15 +45,15 @@ from facet_graph_convolution_torch.models.unet import graph_tensors  # noqa: E40
 from facet_graph_convolution_torch.ops import cuda_library as cl  # noqa: E402
 
 OUT = os.path.join(cl.BUILD_DIR, "k1_probe")
-X_NEW = "          x[u][b] = js[u] >= 0 && ch < c_in ? __ldg(xrow + ch) : 0.f;"
-STORE_NEW = "        if (ch < c_in) out[(m0 + a) * c_in + ch] = acc[a][b];"
+X_NEW = "          x[u][b] = js[u] >= 0 && ch < c_in ? load_f32(xrow + ch) : 0.f;"
+STORE_NEW = "        if (ch >= c_in) continue;"
 DESIGNS = {
     "block_tiles": {
         "marker": "// 2. aggregation",
         "subs": {
-            "x": [(X_NEW, X_NEW.replace("__ldg(xrow + ch)", "1.f"))],
+            "x": [(X_NEW, X_NEW.replace("load_f32(xrow + ch)", "1.f"))],
             "softmax": [("    if (!live) continue;", "    if (!live || n > 0) continue;")],
-            "store": [(STORE_NEW, STORE_NEW.replace("ch < c_in", "ch < c_in && n < 0")),
+            "store": [(STORE_NEW, STORE_NEW.replace("ch >= c_in", "ch >= c_in || n > 0")),
                       ("  if (!stage) return;", "  if (!stage || n > 0) return;")],
             "walk": [("    for (int k0 = 0; k0 < ks; k0 += kInFlight) {",
                       "    for (int k0 = 0; k0 < (n < 0 ? ks : 0); k0 += kInFlight) {")],
@@ -102,7 +102,8 @@ def build(source, only=None):
         with open(path, "w") as fh:
             fh.write(text)
         procs[name] = subprocess.Popen(
-            [cl._nvcc(), *cl.NVCC_FLAGS, "-o", os.path.join(OUT, f"lib{design}_{name}.so"), path],
+            [cl._nvcc(), *cl.NVCC_FLAGS, "-I", cl.CSRC, "-o",
+             os.path.join(OUT, f"lib{design}_{name}.so"), path],
             stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
     for name, proc in procs.items():
         if proc.wait() != 0:

@@ -41,18 +41,19 @@ from facet_graph_convolution_torch.ops import cuda_library as cl  # noqa: E402
 
 OUT = os.path.join(cl.BUILD_DIR, "k2_probe")
 SUBS = {
-    "x": [("      x.x = ch < c_in ? __ldg(xrow + ch) : 0.f;", "      x.x = ch < c_in ? 1.f : 0.f;"),
-          ("      x.y = ch + 1 < c_in ? __ldg(xrow + ch + 1) : 0.f;",
+    "x": [("      x.x = ch < c_in ? load_f32(xrow + ch) : 0.f;",
+           "      x.x = ch < c_in ? 1.f : 0.f;"),
+          ("      x.y = ch + 1 < c_in ? load_f32(xrow + ch + 1) : 0.f;",
            "      x.y = ch + 1 < c_in ? 1.f : 0.f;"),
-          ("      x.z = ch + 2 < c_in ? __ldg(xrow + ch + 2) : 0.f;",
+          ("      x.z = ch + 2 < c_in ? load_f32(xrow + ch + 2) : 0.f;",
            "      x.z = ch + 2 < c_in ? 1.f : 0.f;"),
-          ("      x.w = ch + 3 < c_in ? __ldg(xrow + ch + 3) : 0.f;",
+          ("      x.w = ch + 3 < c_in ? load_f32(xrow + ch + 3) : 0.f;",
            "      x.w = ch + 3 < c_in ? 1.f : 0.f;"),
-          ("      xp[st][e] = j >= 0 && ch < c_in ? __ldg(xrow + ch) : 0.f;",
+          ("      xp[st][e] = j >= 0 && ch < c_in ? load_f32(xrow + ch) : 0.f;",
            "      xp[st][e] = j >= 0 && ch < c_in ? 1.f : 0.f;")],
-    "tile": [("    copy_async16(tile + nl * ns", "    if (n < 0) copy_async16(tile + nl * ns"),
-             ("    copy_async(tile + nl * ns + a * tc + col,",
-              "    if (n < 0) copy_async(tile + nl * ns + a * tc + col,")],
+    "tile": [("    vec_put(tile + nl * ns", "    if (n < 0) vec_put(tile + nl * ns"),
+             ("    tile_put(tile + nl * ns + a * tc + col,",
+              "    if (n < 0) tile_put(tile + nl * ns + a * tc + col,")],
     "store": [("      *reinterpret_cast<float4*>(out + ch) = d;",
                "      if (c_in < 0) *reinterpret_cast<float4*>(out + ch) = d;"),
               ("    *reinterpret_cast<float4*>(out + 4 * v) = make_float4(o[0], o[1], o[2], o[3]);",
@@ -81,7 +82,8 @@ def build():
         with open(path, "w") as fh:
             fh.write(text)
         procs[name] = subprocess.Popen(
-            [cl._nvcc(), *cl.NVCC_FLAGS, "-o", os.path.join(OUT, f"lib{name}.so"), path],
+            [cl._nvcc(), *cl.NVCC_FLAGS, "-I", cl.CSRC, "-o", os.path.join(OUT, f"lib{name}.so"),
+             path],
             stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
     for name, proc in procs.items():
         if proc.wait() != 0:
