@@ -121,6 +121,30 @@ Phases, each fatal on failure:
    eager step's, the device busy share and activities a step of each, the
    capture time and the graph's memory; last ``cli.train`` on the card with
    its default ``--steps_per_call`` (100) for 150 steps;
+12b. streaming: the training phase's OBJ tree plus 3 more noisy copies of
+   each shape → ``cli.preprocess --shard_size 2`` (at least 8 patches in at
+   least 4 shards, 2 shards held at once, so shards load during the run) →
+   ``cli.train --stream_dir`` (``training/trainer.py::
+   train_normals_streaming``) at full width, 150 steps at
+   ``--steps_per_call 10`` and 100 at 1: finite losses falling from the
+   first CSV row to the last, the checkpoints, K1/K2 launched by their
+   wrappers 8 times a step eagerly and 8 at each warm-up step and capture of
+   the windowed run (captures = 1 + width growths), the plain K1/K2 never,
+   the windowed run's params.pt serving a request; a profiled windowed run
+   past the memo (the shards' patches STREAM_PAST_COPIES times over, more
+   than the 64 the trainer keeps, so that evicted patches are prepared and
+   uploaded again, and shards leave the cache): the device memory
+   allocated at each window after the first epoch within one window's
+   uploads of its value at the first, and the uploads' time that overlaps
+   kernels; one window of the shards through the graph against eager steps
+   bit for bit (:func:`graph_vs_eager`: K1/K2 8 a step in profiles); prints
+   the streaming step a step (median of the windows after the first epoch)
+   beside the in-memory graph step over the same window buffers timed on
+   the streaming loop's clock (each call's losses read after the next call
+   is enqueued) and waiting for each call, and the graph phase's default
+   step, the eager streaming step beside the eager step, the consumer's
+   wait on the loader a window, host preparation a new patch, the uploads'
+   bytes and copy ms a window, and the phase's seconds;
 13. budget: the naive vertex step through the graph on the vertex set with
    a graph cache held to 1.5 graphs of the largest patch: evictions and
    captures again, and the peak allocated and reserved memory within the
@@ -351,7 +375,7 @@ def kernel_phase(dev, patch):
     import torch
 
     from facet_graph_convolution_torch.models.unet import graph_tensors
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
 
     adjs, mult_rows = graph_tensors(patch.adjs, dev)
     rng = np.random.default_rng(1)
@@ -451,7 +475,7 @@ def backward_kernel_phase(dev, patch):
     import torch
 
     from facet_graph_convolution_torch.models.unet import train_graph_tensors
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
 
     adjs, adj_ts, mult_rows = train_graph_tensors(patch.adjs, dev)
     rng = np.random.default_rng(2)
@@ -522,7 +546,7 @@ def serving_phase(dev, workdir):
     from facet_graph_convolution_torch.geometry.obj_io import load_obj, write_obj
     from facet_graph_convolution_torch.inference.driver import forward_patch, infer_directory
     from facet_graph_convolution_torch.models.unet import init_unet
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
 
     in_dir = os.path.join(workdir, "requests")
     os.makedirs(in_dir)
@@ -633,7 +657,7 @@ def batched_serving_phase(dev, workdir, k1_patch_ms, patch_nodes):
         train_graph_tensors,
         unet_apply,
     )
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
     from facet_graph_convolution_torch.ops.normalization import normalize_tensor
 
@@ -941,7 +965,7 @@ def training_phase(dev, workdir):
     )
     from facet_graph_convolution_torch.geometry.obj_io import write_obj
     from facet_graph_convolution_torch.inference.driver import infer_normals
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.training.trainer import patch_tensors, train_normals
 
     base = os.path.join(workdir, "train_run")
@@ -1063,7 +1087,7 @@ def rotinv_training_phase(dev, trained):
 
     from facet_graph_convolution_torch import params as params_io
     from facet_graph_convolution_torch.ops import aggregate as k3
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.training.trainer import normals_loss, train_normals
 
     cfg = trained["cfg"].replace(model={"rotation_invariance": True},
@@ -1213,7 +1237,7 @@ def bf16_kernel_checks(dev, patch, k3_inputs):
 
     from facet_graph_convolution_torch.models.unet import train_graph_tensors
     from facet_graph_convolution_torch.ops import aggregate as k3
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
 
     adjs, adj_ts, mult_rows = train_graph_tensors(patch.adjs, dev)
     rng = np.random.default_rng(8)
@@ -1311,7 +1335,7 @@ def bf16_phase(dev, patch, trained, k3_inputs):
     from facet_graph_convolution_torch.data.synthetic import add_vertex_noise, chamfered_box
     from facet_graph_convolution_torch.inference.driver import infer_normals
     from facet_graph_convolution_torch.ops import aggregate as k3
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.training.trainer import normals_loss, train_normals
 
     t_phase = time.perf_counter()
@@ -1461,7 +1485,7 @@ def vertex_serving_phase(dev, workdir):
         solver_tables,
     )
     from facet_graph_convolution_torch.models.unet import init_unet
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
     from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
 
@@ -1603,7 +1627,7 @@ def vertex_gradient_check(state, cfg, tensors, rot, idx0, idx1):
     import torch
 
     from facet_graph_convolution_torch.models import losses, unet
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
     from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
     from facet_graph_convolution_torch.training import trainer
@@ -1733,7 +1757,7 @@ def vertex_training_phase(dev, workdir):
     from facet_graph_convolution_torch.geometry.obj_io import write_obj
     from facet_graph_convolution_torch.models.unet import unet_apply
     from facet_graph_convolution_torch.ops import aggregate as k3
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
     from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
     from facet_graph_convolution_torch.ops.normalization import normalize_tensor
@@ -1880,7 +1904,7 @@ def naive_training_phase(dev, vertex_trained):
     import torch
 
     from facet_graph_convolution_torch.ops import aggregate as k3
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
     from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
     from facet_graph_convolution_torch.training.checkpoint import CheckpointManager
@@ -2120,7 +2144,7 @@ def graph_training_phase(dev, trained, vertex_trained, naive_cfg):
 
     from facet_graph_convolution_torch.cli import train as cli_train
     from facet_graph_convolution_torch.ops import aggregate as k3
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
     from facet_graph_convolution_torch.training.checkpoint import CheckpointManager
     from facet_graph_convolution_torch.training.trainer import (
@@ -2224,6 +2248,328 @@ def graph_training_phase(dev, trained, vertex_trained, naive_cfg):
               f"{r['capture_s']:.3f}; {r['graph_mib']:.1f}")
     print(f"  graph training phase: {time.perf_counter() - t_phase:.1f} s")
     return results
+
+
+STREAM_SHARD = 2             # patches a streaming shard (cli.preprocess --shard_size)
+STREAM_COPIES = 4            # noisy copies of each training shape in the streaming tree
+# cli.train's history has a row every eval_every (50) steps: 150 windowed
+# steps (15 windows of GRAPH_STEPS) give 3 rows and 100 eager steps 2, so
+# that the losses can be seen to fall
+STREAM_STEPS = 150
+STREAM_EAGER_STEPS = 100
+# the profiled windowed run past the memo: the 16 patches 5 times over (80,
+# more than trainer.MAX_PREPARED), 160 steps, 8 windows in the first epoch
+# and 8 after it
+STREAM_PAST_COPIES = 5
+STREAM_PAST_STEPS = 160
+ALLOCATOR_SLACK = 2**20      # the allocator's rounding of a window's uploads (512 B a tensor)
+
+
+class Tee:
+    """A stream that writes to two."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for s in self.streams:
+            s.write(text)
+
+    def flush(self):
+        for s in self.streams:
+            s.flush()
+
+
+def intervals_overlap_us(spans, others):
+    """µs of ``spans`` that lie inside the union of ``others`` (both lists
+    of (start, end) µs)."""
+    import bisect
+
+    merged = []
+    for start, end in sorted(others):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    starts = [m[0] for m in merged]
+    total = 0.0
+    for start, end in spans:
+        i = max(bisect.bisect_right(starts, start) - 1, 0)
+        while i < len(merged) and merged[i][0] < end:
+            total += max(0.0, min(end, merged[i][1]) - max(start, merged[i][0]))
+            i += 1
+    return total
+
+
+def streaming_phase(dev, workdir, trained, graphs):
+    """Streaming training on the card through the CLIs (``data/stream.py``,
+    ``training/trainer.py::train_normals_streaming``): the training phase's
+    OBJ tree plus more noisy copies → ``cli.preprocess --shard_size 2`` →
+    ``cli.train --stream_dir`` at ``--steps_per_call`` GRAPH_STEPS and 1, at
+    full width (the CLI's default config). Checks finite, falling losses,
+    K1/K2 launched by their wrappers 8 times a step eagerly and 8 at each
+    warm-up step and capture of the windowed run (captures = 1 + width
+    growths), the plain versions never, the written params.pt serving a
+    request; one window of the shards through the graph against eager steps
+    bit for bit (:func:`graph_vs_eager`, with K1/K2 8 a step in profiles);
+    prints the streaming step's ms beside the in-memory graph and eager
+    steps, the loader wait, host preparation, the uploads and, from a
+    profiled run, how much of their time overlaps kernels."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from facet_graph_convolution_torch.cli import preprocess as cli_preprocess
+    from facet_graph_convolution_torch.cli import train as cli_train
+    from facet_graph_convolution_torch.config import default_config
+    from facet_graph_convolution_torch.data.dataset import InferenceMesh, bucket_size, pad_patch_to
+    from facet_graph_convolution_torch.data.stream import ShardedDataset
+    from facet_graph_convolution_torch.data.synthetic import add_vertex_noise
+    from facet_graph_convolution_torch.geometry.obj_io import load_obj, write_obj
+    from facet_graph_convolution_torch.inference.driver import infer_normals
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
+    from facet_graph_convolution_torch.training import trainer
+    from facet_graph_convolution_torch.training.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    src = trained["cfg"].data
+    base = os.path.join(workdir, "stream_run")
+    cfg = default_config(base)
+    os.makedirs(cfg.data.training_data_path)
+    os.makedirs(cfg.data.gt_data_path)
+    rng = np.random.default_rng(16)
+    for name in sorted(os.listdir(src.gt_data_path)):
+        v, f, _ = load_obj(os.path.join(src.gt_data_path, name))
+        write_obj(v, f, os.path.join(cfg.data.gt_data_path, name))
+        stem = name[:-len(".obj")]
+        shutil.copyfile(os.path.join(src.training_data_path, stem + "_n1.obj"),
+                        os.path.join(cfg.data.training_data_path, stem + "_n1.obj"))
+        for copy in range(2, STREAM_COPIES + 1):
+            write_obj(add_vertex_noise(v, f, 0.2, rng), f,
+                      os.path.join(cfg.data.training_data_path, f"{stem}_n{copy}.obj"))
+    t0 = time.perf_counter()
+    cli_preprocess.main(["--base_path", base, "--shard_size", str(STREAM_SHARD)])
+    shards = os.path.join(cfg.data.binary_dump_path, "trainingShards")
+    ds = ShardedDataset(shards)
+    if len(ds) < 8 or len(ds.index["shards"]) < 4:
+        raise AssertionError(f"streaming: {len(ds)} patches in {len(ds.index['shards'])} shards")
+    print(f"streaming phase: cli.preprocess --shard_size {STREAM_SHARD}: {len(ds)} patches in "
+          f"{len(ds.index['shards'])} shards (largest {ds.max_num_nodes} nodes) in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    plain = {"fwd": 0, "bwd": 0}
+    swaps = {"fwd": ("facet_conv_fwd_plain", k1.facet_conv_fwd_plain),
+             "bwd": ("facet_conv_bwd_plain", k1.facet_conv_bwd_plain)}
+
+    def counting(key, fn):
+        def wrapped(*args):
+            plain[key] += 1
+            return fn(*args)
+        return wrapped
+
+    def run_cli(label, net, steps, steps_per_call, shard_dir=shards):
+        """cli.train --stream_dir in this process; returns (summary, CSV
+        rows, wrapper launches, seconds)."""
+        k1.facet_conv_fwd.launches = k1.facet_conv_bwd.launches = 0
+        plain.update(fwd=0, bwd=0)
+        for key, (attr, fn) in swaps.items():
+            setattr(k1, attr, counting(key, fn))
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(Tee(out, sys.stdout)):
+                cli_train.main(["--base_path", base, "--network_path", net, "--net_name",
+                                "stream", "--stream_dir", shard_dir, "--steps_per_call",
+                                str(steps_per_call), "--num_iterations", str(steps),
+                                "--device", str(dev)])
+                torch.cuda.synchronize()
+        finally:
+            for attr, fn in swaps.values():
+                setattr(k1, attr, fn)
+        seconds = time.perf_counter() - t0
+        line = [x for x in out.getvalue().splitlines() if x.startswith("streaming summary: ")]
+        summary = json.loads(line[-1].split(": ", 1)[1])
+        # a row each eval_every steps
+        rows = np.loadtxt(os.path.join(net, "stream.csv"), delimiter=",", ndmin=2) if (
+            steps >= cfg.train.eval_every) else np.zeros((0, 2))
+        launches = {"fwd": k1.facet_conv_fwd.launches, "bwd": k1.facet_conv_bwd.launches}
+        saved = CheckpointManager(net, "stream").steps()
+        if saved != [steps] or not np.isfinite(rows[:, 0]).all() or rows.shape != (
+                steps // cfg.train.eval_every, 2):
+            raise AssertionError(f"streaming, {label}: checkpoints {saved}, history {rows}")
+        if plain != {"fwd": 0, "bwd": 0}:
+            raise AssertionError(f"streaming, {label}: the plain K1/K2 ran {plain}")
+        return summary, rows, launches, seconds
+
+    windowed_net = os.path.join(base, "NetworksWindowed")
+    win, rows, win_launches, win_s = run_cli("windowed", windowed_net, STREAM_STEPS, GRAPH_STEPS)
+    if win["captures"] != 1 + win["growths"] or win_launches != {
+            "fwd": 16 * win["captures"], "bwd": 16 * win["captures"]}:
+        raise AssertionError(f"streaming, windowed: {win['captures']} captures, "
+                             f"{win['growths']} growths, wrapper launches {win_launches}")
+    if not rows[-1, 0] < rows[0, 0]:
+        raise AssertionError(f"streaming, windowed: the loss did not fall: {rows[:, 0]}")
+    print(f"  cli.train --stream_dir, steps_per_call {GRAPH_STEPS}, {STREAM_STEPS} steps: "
+          f"{win_s:.2f} s, losses {np.array2string(rows[:, 0], precision=3)}; {win['growths']} "
+          f"width growths, {win['captures']} captures; wrapper launches {win_launches} (warm-up "
+          "steps and captures), plain K1/K2 none")
+    eager, rows, eager_launches, eager_s = run_cli(
+        "eager", os.path.join(base, "NetworksEager"), STREAM_EAGER_STEPS, 1)
+    want = {"fwd": 8 * STREAM_EAGER_STEPS, "bwd": 8 * STREAM_EAGER_STEPS}
+    if eager_launches != want or not rows[-1, 0] < rows[0, 0]:
+        raise AssertionError(f"streaming, eager: wrapper launches {eager_launches} (want {want}), "
+                             f"losses {rows[:, 0]}")
+    print(f"  cli.train --stream_dir, steps_per_call 1, {STREAM_EAGER_STEPS} steps: {eager_s:.2f} "
+          f"s, losses {np.array2string(rows[:, 0], precision=3)}; wrapper launches "
+          f"{eager_launches}, plain K1/K2 none")
+
+    # the windowed run's params.pt serves a request
+    v, f, _ = load_obj(os.path.join(cfg.data.gt_data_path, "chamfered_box.obj"))
+    mesh = InferenceMesh(max_patch_size=cfg.data.max_patch_size,
+                         coarsening_steps=cfg.model.coarsening_steps,
+                         coarsening_levels=cfg.model.coarsening_levels,
+                         k_faces=cfg.data.k_faces, max_edges=cfg.data.max_edges, seed=0)
+    mesh.add_mesh(add_vertex_noise(v, f, 0.2, rng), f)
+    serve_cfg = cfg.replace(train={"network_path": windowed_net, "net_name": "stream"})
+    points, normals = infer_normals(mesh, serve_cfg, device=str(dev))
+    if points.shape != v.shape or not (np.isfinite(points).all() and np.isfinite(normals).all()):
+        raise AssertionError(f"streaming: serving the streamed net: bad output {points.shape}")
+    print(f"  served chamfered_box ({f.shape[0]} faces) from {windowed_net}/stream/params.pt")
+
+    # a profiled windowed run past the memo: the shards' patches
+    # STREAM_PAST_COPIES times over (their shard files copied), more patches
+    # than the trainer keeps prepared, in shards of 2 (2 held)
+    t0 = time.perf_counter()
+    past_shards = os.path.join(base, "pastShards")
+    os.makedirs(past_shards)
+    index = dict(ds.index, shards=[])
+    for copy in range(STREAM_PAST_COPIES):
+        for shard in ds.index["shards"]:
+            name = f"copy{copy}_{shard['file']}"
+            shutil.copyfile(os.path.join(shards, shard["file"]), os.path.join(past_shards, name))
+            index["shards"].append(dict(shard, file=name))
+    index["num_patches"] = STREAM_PAST_COPIES * len(ds)
+    with open(os.path.join(past_shards, "index.json"), "w") as fh:
+        json.dump(index, fh)
+    if not len(ShardedDataset(past_shards)) > trainer.MAX_PREPARED:
+        raise AssertionError(f"streaming past the memo: {index['num_patches']} patches")
+    copy_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        past, _, past_launches, past_s = run_cli(
+            "past the memo", os.path.join(base, "NetworksPast"), STREAM_PAST_STEPS, GRAPH_STEPS,
+            past_shards)
+    t0 = time.perf_counter()
+    # the profiler's raw device activities (its FunctionEvent tree is not
+    # needed here, and building it for ~90,000 kernels takes long)
+    spans = [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA
+             and not e.is_user_annotation()]
+    h2d = [(a, b) for name, a, b in spans if "HtoD" in name]
+    kernels = [(a, b) for name, a, b in spans if not name.startswith(("Memcpy", "Memset"))]
+    h2d_us = sum(b - a for a, b in h2d)
+    overlap_us = intervals_overlap_us(h2d, kernels)
+    read_s = time.perf_counter() - t0
+    after = past["after"]
+    held = after["allocated"] and after["allocated"][2] - after["allocated"][0]
+    if (after["windows"] < 4 or after["h2d_windows"] == 0 or not h2d
+            or past["captures"] != 1 + past["growths"]
+            or past_launches != {"fwd": 16 * past["captures"], "bwd": 16 * past["captures"]}):
+        raise AssertionError(f"streaming past the memo: {after['windows']} windows after the "
+                             f"first epoch, {after['h2d_windows']} of them uploading, {len(h2d)} "
+                             f"copies in the profile, {past['captures']} captures, "
+                             f"{past['growths']} growths, wrapper launches {past_launches}")
+    if held is None or held > past["h2d_bytes_max"] + ALLOCATOR_SLACK:
+        raise AssertionError(f"streaming past the memo: device memory allocated at the windows "
+                             f"after the first epoch (first, last, most) {after['allocated']}: "
+                             f"grew more than a window's uploads ({past['h2d_bytes_max']} B)")
+    print(f"  cli.train --stream_dir past the memo ({index['num_patches']} patches, the "
+          f"shards' {len(ds)} {STREAM_PAST_COPIES} times over in shards of {STREAM_SHARD}, "
+          f"more than the {trainer.MAX_PREPARED} kept; the shards copied in {copy_s:.2f} s; "
+          f"profiled, its device activities read in {read_s:.2f} s), "
+          f"steps_per_call {GRAPH_STEPS}, {STREAM_PAST_STEPS} steps: {past_s:.2f} s; a step "
+          f"(median) {past['first_epoch']['step_ms']:.4f} ms in the first epoch, "
+          f"{after['step_ms']:.4f} ms after it; {after['h2d_windows']} of the {after['windows']} windows after the first epoch "
+          f"uploaded; device memory allocated at those windows (first, last, most) "
+          f"{[round(b / 2**20, 1) for b in after['allocated']]} MiB, the most above the first "
+          f"{held / 2**20:.1f} MiB against a window's uploads of at most "
+          f"{past['h2d_bytes_max'] / 2**20:.1f} MiB; wrapper launches {past_launches}")
+    print(f"  past the memo, profiled: {len(h2d)} host-to-device copies, {h2d_us / 1e3:.3f} ms, of "
+          f"which {overlap_us / 1e3:.3f} ms ({100 * overlap_us / max(h2d_us, 1e-9):.1f}%) overlap "
+          f"kernels ({len(kernels)} kernels)")
+
+    # one window of the shards through the graph against eager steps
+    target = bucket_size(ds.max_num_nodes, 1024)
+    tensors = [trainer.patch_tensors(pad_patch_to(ds.patch(i), target), str(dev))
+               for i in range(GRAPH_STEPS)]
+    dims = tuple(tuple(max(w) for w in zip(*lvl))
+                 for lvl in zip(*(trainer._slot_dims(t) for t in tensors)))
+    tensors = [trainer._pad_to_dims(t, dims) for t in tensors]
+    buffers = trainer.WindowBuffers(GRAPH_STEPS)
+    buffers.load(tensors)
+    graph_state = trainer.create_train_state(cfg, num_steps=100, device=str(dev))
+    eager_state = trainer.create_train_state(cfg, num_steps=100, device=str(dev))
+    window = trainer.make_scanned_train_step(graph_state, cfg, buffers, GRAPH_STEPS)
+    gen = torch.Generator().manual_seed(13)
+    step = trainer.make_normals_train_step(cfg)
+
+    def eager_step(state, d, j):
+        if d is None:
+            return step(state, *tensors[0])
+        t = tensors[int(d["idx"][j])]
+        return step(state, *t, rot=d["rot"][j], sample_idx=d["sample_idx"][j])
+
+    in_memory = graph_vs_eager(
+        f"streaming window ({GRAPH_STEPS} patches of the shards at {target} nodes)", window,
+        graph_state, eager_state, eager_step,
+        lambda n: trainer.normals_draws(cfg, gen, [j % GRAPH_STEPS for j in range(n)], target),
+        PER_STEP["default"], GRAPH_STEPS)
+
+    # the in-memory window on the streaming loop's clock: each call's losses
+    # read after the next call is enqueued, ms a step between call starts
+    starts, pending = [], None
+    for _ in range(8):
+        starts.append(time.perf_counter())
+        _, losses = window(graph_state, trainer.normals_draws(cfg, gen, range(GRAPH_STEPS),
+                                                              target))
+        if pending is not None:
+            pending.numpy()
+        pending = losses
+    pending.numpy()
+    starts.append(time.perf_counter())
+    loop_ms = sorted(1e3 * (b - a) / GRAPH_STEPS for a, b in zip(starts[1:-1], starts[2:]))
+    in_memory["loop_ms"] = loop_ms[len(loop_ms) // 2]
+
+    def fmt(x, unit=""):
+        return "n/a" if x is None else f"{x:.4f}{unit}"
+
+    print(f"  streaming step through the graph, median of the windows after the first epoch: "
+          f"{fmt(win['after']['step_ms'])} ms ({win['after']['windows']} windows; the first "
+          f"epoch's {fmt(win['first_epoch']['step_ms'])} ms over {win['first_epoch']['windows']}) "
+          f"vs the in-memory graph step over the same window buffers on the same clock (each "
+          f"call's losses read after the next call is enqueued, median of 7) "
+          f"{in_memory['loop_ms']:.4f} ms, waiting for each call {in_memory['graph_ms']:.4f} "
+          f"ms, and the default graph step of the graph phase (whole subdivision-5 icosphere) "
+          f"{graphs['default']['graph_ms']:.4f} ms")
+    print(f"  eager streaming step after the first epoch {fmt(eager['after']['step_ms'])} ms "
+          f"(first epoch {fmt(eager['first_epoch']['step_ms'])}) vs the in-memory eager step "
+          f"{in_memory['eager_ms']:.4f} ms (patch 0 of the window, at the dataset's bucket)")
+    for label, r in (("windowed", win), ("eager", eager), ("past the memo", past)):
+        print(f"  {label}: the consumer's wait on the loader a window: first epoch "
+              f"{fmt(r['first_epoch']['loader_wait_s'], ' s')}, after "
+              f"{fmt(r['after']['loader_wait_s'], ' s')}; host preparation "
+              f"{fmt(r['prepare_s_per_patch'], ' s')} a new patch ({r['patches_prepared']} "
+              f"patches); uploads {r['h2d_windows']} windows, "
+              f"{fmt(r['h2d_bytes_per_window'] and r['h2d_bytes_per_window'] / 2**20, ' MiB')} "
+              f"and {fmt(r['h2d_ms_per_window'], ' ms')} a window")
+    print(f"  streaming phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {k: win_launches[k] + eager_launches[k] + past_launches[k]
+                         for k in ("fwd", "bwd")},
+            "windowed": win, "eager": eager, "past": past, "in_memory": in_memory,
+            "overlap_share": overlap_us / max(h2d_us, 1e-9)}
 
 
 def solver_bound_ms(calls):
@@ -2643,7 +2989,7 @@ def parity_phase(dev, workdir):
     )
     from facet_graph_convolution_torch.geometry.obj_io import write_obj
     from facet_graph_convolution_torch.models.unet import graph_tensors, init_unet, unet_apply
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
 
     t_phase = time.perf_counter()
     root = os.path.join(workdir, "parity")
@@ -2753,7 +3099,7 @@ def wang_phase(dev, workdir):
     from facet_graph_convolution_torch.geometry.mesh_math import compute_face_normals
     from facet_graph_convolution_torch.geometry.obj_io import load_obj, write_obj
     from facet_graph_convolution_torch.inference.driver import _restore_params, forward_patch
-    from facet_graph_convolution_torch.ops import facet_conv as k1
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.training.trainer import (
         create_train_state,
         make_scanned_train_step,
@@ -2904,6 +3250,7 @@ def main() -> int:
         vertex_trained = vertex_training_phase(dev, workdir)
         naive = naive_training_phase(dev, vertex_trained)
         graphs = graph_training_phase(dev, trained, vertex_trained, naive["cfg"])
+        stream = streaming_phase(dev, workdir, trained, graphs)
         budget_phase(dev, vertex_trained, naive["cfg"], graphs["vertex naive"]["held_bytes"])
         err5, totals5, bound_by5 = solver_kernel_phase(dev, vertex_records, vertex_cfg,
                                                        vertex_params)
@@ -2929,8 +3276,9 @@ def main() -> int:
         "route": "cuda",
         "source": "facet_graph_convolution_torch/csrc/facet_conv_fwd.cu",
         "replaces": "facet_graph_convolution_tpu/ops/pallas_conv.py:92",
-        # serving, the parity capture and cli.wang (warm-up, capture, serving)
-        "launches": launches + parity_launches + wang_launches["fwd"],
+        # serving, the parity capture, cli.wang (warm-up, capture, serving)
+        # and the streaming runs (eager steps, warm-ups, captures)
+        "launches": launches + parity_launches + wang_launches["fwd"] + stream["launches"]["fwd"],
         "max_abs_err": err,
         # per patch forward: the sum over the 8 conv launches of the largest
         # subdivision-5 patch
@@ -2944,8 +3292,8 @@ def main() -> int:
         "route": "cuda",
         "source": "facet_graph_convolution_torch/csrc/facet_conv_bwd.cu",
         "replaces": "facet_graph_convolution_tpu/ops/pallas_conv.py:111",
-        # training, and cli.wang's warm-up step and capture
-        "launches": train_launches["bwd"] + wang_launches["bwd"],
+        # training, cli.wang's warm-up step and capture, and the streaming runs
+        "launches": train_launches["bwd"] + wang_launches["bwd"] + stream["launches"]["bwd"],
         "max_abs_err": err2,
         # per train step: the sum over the 8 conv launches at the same shapes
         "ms": totals2["ms"],

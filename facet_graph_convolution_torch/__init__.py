@@ -4,7 +4,7 @@
 It keeps its own copies of the host code (``config``, ``geometry``,
 ``graph``, ``data``) and imports nothing of the JAX package. The device path
 is PyTorch, with every kernel that the JAX package wrote in Pallas rewritten
-by hand in CUDA C++ under ``csrc/`` (see ``ops/facet_conv.py``).
+by hand in CUDA C++ under ``csrc/`` (see ``ops/facet_conv_kernel.py``).
 
 Layers of the inference path, entry point first:
 
@@ -12,7 +12,7 @@ Layers of the inference path, entry point first:
 - ``data.dataset.InferenceMesh`` builds the coarsened patches on the host;
 - ``models.unet.unet_apply`` runs the U-Net forward per patch;
 - ``ops.conv.facet_conv`` wraps the hand-written kernels of
-  ``ops.facet_conv`` (K1 forward, K2 backward, one autograd Function);
+  ``ops.facet_conv_kernel`` (K1 forward, K2 backward, one autograd Function);
 - ``ops.vertex_update.update_positions_edges`` moves the vertices.
 
 Layers of the training path:
@@ -26,3 +26,5 @@ Layers of the training path:
 """
 
 __version__ = "0.1.0"
+
+from facet_graph_convolution_torch.config import Config, default_config  # noqa: F401

@@ -6,7 +6,10 @@ Reads ``<base_path>/Data/Synthetic/train/{noisy,original,valid}/`` and writes
 ``<base_path>/Preprocessed_Data/{trainingSet,validSet}.npz``; with
 ``--include_vertices``, ``{trainingSet,validSet}WithVertices.npz``, whose
 patches carry the vertex pipeline's fields (for ``cli.train
---include_vertices``). Host work only (NumPy, one process per mesh); the
+--include_vertices``). ``--shard_size N`` also writes the training set as
+streaming shards of N patches into ``trainingShards/`` (or
+``trainingShardsWithVertices/``), which ``cli.train --stream_dir`` reads.
+Host work only (NumPy, one process per mesh); the
 device is not used.
 """
 
@@ -20,7 +23,8 @@ def main(argv=None):
     parser = add_cli_overrides(argparse.ArgumentParser())
     parser.add_argument(
         "--shard_size", type=int, default=None,
-        help="streaming shards of this many patches (not ported yet: raises)")
+        help="also write the training set as streaming shards of this many patches "
+             "into trainingShards/ (for cli.train --stream_dir)")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
     preprocess_directory(cfg, shard_size=args.shard_size)

@@ -53,7 +53,7 @@
 // Slots are summed in a fixed order, with no atomics: the kernel is bitwise
 // repeatable. Any M runs whose tile fits shared memory
 // (facet_conv_fwd_max_m); a conv wider than 1024 channels (256 threads of 4)
-// runs as channel chunks in the wrapper (ops/facet_conv.py).
+// runs as channel chunks in the wrapper (ops/facet_conv_kernel.py).
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -18,6 +18,7 @@ from typing import Optional
 
 from facet_graph_convolution_torch.config import Config, default_config, gt_filename
 from facet_graph_convolution_torch.data.dataset import TrainingSet, save_dataset
+from facet_graph_convolution_torch.data.stream import save_sharded
 from facet_graph_convolution_torch.geometry.obj_io import load_obj
 
 
@@ -79,14 +80,13 @@ def preprocess_directory(cfg: Optional[Config] = None,
     validation directory has meshes) under ``cfg.data.binary_dump_path``
     (reference ``pickleData``, preprocess.py:7-49); with ``with_vertices``
     (default ``cfg.model.include_vertices``), ``trainingSetWithVertices.npz``
-    and ``validSetWithVertices.npz``."""
+    and ``validSetWithVertices.npz``. ``shard_size`` also writes the
+    training set as streaming shards of that many patches
+    (:func:`..data.stream.save_sharded`) into ``trainingShards{suffix}/``
+    beside them, for ``cli.train --stream_dir``."""
     cfg = cfg or default_config()
     if with_vertices is None:
         with_vertices = cfg.model.include_vertices
-    if shard_size:
-        raise NotImplementedError(
-            "preprocess_directory: streaming shards (shard_size) are not ported yet "
-            "(ROADMAP queue 1, item \"Streaming\")")
     os.makedirs(cfg.data.binary_dump_path, exist_ok=True)
     suffix = "WithVertices" if with_vertices else ""
 
@@ -94,6 +94,10 @@ def preprocess_directory(cfg: Optional[Config] = None,
     train_path = os.path.join(cfg.data.binary_dump_path, f"trainingSet{suffix}.npz")
     save_dataset(train, train_path)
     print(f"saved {len(train.patches)} training patches → {train_path}")
+    if shard_size:
+        shard_dir = os.path.join(cfg.data.binary_dump_path, f"trainingShards{suffix}")
+        n = save_sharded(train, shard_dir, patches_per_shard=shard_size)
+        print(f"saved {n} streaming shards → {shard_dir}")
 
     if os.path.isdir(cfg.data.valid_data_path) and os.listdir(cfg.data.valid_data_path):
         valid = _build_set(cfg.data.valid_data_path, cfg.data.gt_data_path, cfg, with_vertices)

@@ -2,7 +2,8 @@
 
 The port's own copy of
 ``facet_graph_convolution_tpu/graph/adjacency.py::face_adjacency_klist``
-(in C++, :mod:`.native`, where the library loaded, else NumPy) and of
+(in C++, :mod:`.native`, where the library loaded, else NumPy), of
+``vertex_adjacency_klist``, the unordered per-vertex K-list, and of
 ``vertex_ring_adjacency``, the ordered one-ring of the reference's
 ``load_mesh`` with ``bGetAdj=True``.
 
@@ -107,6 +108,36 @@ def face_adjacency_klist(
             f"face_adjacency_klist: {dropped // 2} connections dropped (K={k})"
         )
     return (fadj, dropped) if return_dropped else fadj
+
+
+def vertex_adjacency_klist(
+    vertices: np.ndarray, faces: np.ndarray, k: int
+) -> np.ndarray:
+    """Unordered per-vertex adjacency K-list: for each face, each corner
+    appends its two co-face vertices (duplicates across shared edges kept).
+    The intended behaviour of the reference's ``getVerticesAdj``
+    (utils.py:298-343), which is dead code there."""
+    faces = np.asarray(faces, dtype=np.int64)
+    vnum = np.asarray(vertices).shape[0]
+    vadj = np.zeros((vnum, k), dtype=np.int32)
+    vadj[:, 0] = np.arange(vnum) + 1
+    # directed pairs per face corner in the reference's order
+    src = faces.reshape(-1).repeat(2)
+    dst = np.stack(
+        [faces[:, [1, 2]], faces[:, [2, 0]], faces[:, [0, 1]]], axis=1
+    ).reshape(-1)
+    order = np.argsort(src, kind="stable")
+    src, dst = src[order], dst[order]
+    if src.size:
+        new = np.ones(src.shape[0], dtype=bool)
+        new[1:] = src[1:] != src[:-1]
+        starts = np.flatnonzero(new)
+        rank = np.arange(src.shape[0]) - np.repeat(
+            starts, np.diff(np.append(starts, src.shape[0]))
+        )
+        keep = rank < (k - 1)
+        vadj[src[keep], rank[keep] + 1] = dst[keep] + 1
+    return vadj
 
 
 def vertex_ring_adjacency(vertices: np.ndarray, faces: np.ndarray, k: int) -> np.ndarray:

@@ -10,6 +10,8 @@ library loaded:
 - :func:`binary_tree_permutation`: node orders in which the two children of
   every coarse node are index-adjacent, padded with fake singletons so each
   level is a perfect binary tree;
+- :func:`permute_data` / :func:`permute_adjacency`: signals and
+  adjacencies into tree order;
 - :func:`coarsen_graph`: the pipeline.
 """
 
@@ -179,6 +181,19 @@ def binary_tree_permutation(
         if sorted(layer) != list(range(m_last * (2 ** i))):
             raise AssertionError(f"tree level {i} is not a perfect-binary permutation")
     return indices[::-1]
+
+
+def permute_data(x: np.ndarray, indices: Optional[Sequence[int]]) -> np.ndarray:
+    """Reorder (and zero-pad) node signals ``x`` [N, C] into tree order
+    (reference ``perm_data``, lib/coarsening.py:246-267)."""
+    if indices is None:
+        return x
+    indices = np.asarray(indices, dtype=np.int64)
+    n, c = x.shape
+    out = np.zeros((len(indices), c), dtype=x.dtype)
+    real = indices < n
+    out[real] = x[indices[real]]
+    return out
 
 
 def permute_adjacency(

@@ -2,7 +2,8 @@
 
 The port's own copy of the functions of
 ``facet_graph_convolution_tpu/graph/convert.py`` that the inference path
-needs (reference ``listToSparseWNormals`` utils.py:1753-1796,
+needs, and of its public helpers (reference ``listToSparse``
+utils.py:1718-1750, ``listToSparseWNormals`` utils.py:1753-1796,
 ``sparseToList`` utils.py:1799-1827, ``inv_perm`` utils.py:1830-1835), plus
 :func:`slot_major_arrays`, the tables of the kernel configuration
 (``facet_graph_convolution_tpu/ops/pallas_conv.py::slot_major_arrays``), and
@@ -26,6 +27,23 @@ def _klist_edges(adj: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     rows = np.broadcast_to(np.arange(n)[:, None], neigh.shape)[valid]
     cols = neigh[valid]
     return rows, cols
+
+
+def klist_degrees(adj: np.ndarray) -> np.ndarray:
+    """True neighbour count per node: the non-zero entries, self slot
+    included (``tf.count_nonzero(adj, 2)`` in the reference's conv,
+    model.py:436)."""
+    return np.count_nonzero(adj, axis=-1)
+
+
+def klist_to_coo(adj: np.ndarray, positions: np.ndarray) -> scipy.sparse.coo_matrix:
+    """Position-weighted conversion: ``w_ij = 1/(1000·|c_i − c_j|)``
+    (reference ``listToSparse``)."""
+    n = adj.shape[0]
+    rows, cols = _klist_edges(adj)
+    d = np.linalg.norm(positions[cols] - positions[rows], axis=-1)
+    values = (1.0 / (1000.0 * d)).astype(np.float32)
+    return scipy.sparse.coo_matrix((values, (rows, cols)), shape=(n, n))
 
 
 def klist_to_coo_normal_weighted(

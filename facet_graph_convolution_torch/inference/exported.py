@@ -14,7 +14,7 @@ of B patches padded to one bucket, builds the block-diagonal tables of
 exported for, and runs the program.
 
 A loading process imports this module, which imports the port's ops module
-:mod:`..ops.facet_conv` (importing it registers K1 as the operator
+:mod:`..ops.facet_conv_kernel` (importing it registers K1 as the operator
 ``torch.ops.facet_graph_convolution.facet_conv_fwd``, which the program
 calls), the NumPy table builder :mod:`..graph.convert` and :mod:`..config`,
 and nothing of the model code (``models/``). On CUDA inputs the program
@@ -33,7 +33,7 @@ import torch
 
 from facet_graph_convolution_torch.config import resolve_device
 from facet_graph_convolution_torch.graph.convert import batched_level_tables
-from facet_graph_convolution_torch.ops import facet_conv  # noqa: F401  (registers K1)
+from facet_graph_convolution_torch.ops import facet_conv_kernel  # noqa: F401  (registers K1)
 
 META_FILE = "facet_graph_convolution_forward.json"
 

@@ -39,6 +39,8 @@ from facet_graph_convolution_torch.ops.conv import (
     FacetConvVariant,
     facet_conv,
     facet_conv_rowmajor,
+    init_facet_conv,
+    init_linear,
     linear,
     per_conv_variants,
 )
@@ -72,23 +74,11 @@ def init_unet(
     c0, c1, c2 = channels
     v_first, v_rest = per_conv_variants(variant)
 
-    def normal(shape, std):
-        return torch.as_tensor(rng.normal(size=shape).astype(np.float32) * np.float32(std),
-                               device=device)
-
     def conv(cin, cout, var=v_rest):
-        p = {
-            "w": normal((num_filters, cout, cin), std_dev),
-            "b": normal((cout,), std_dev_bias),
-            "u": normal((num_filters, cin), std_dev),
-            "c": normal((num_filters,), std_dev),
-        }
-        if var == FacetConvVariant.DEFAULT:
-            p["v"] = normal((num_filters, cin), std_dev)
-        return p
+        return init_facet_conv(cin, cout, num_filters, var, std_dev, std_dev_bias, rng, device)
 
     def lin(cin, cout):
-        return {"w": normal((cin, cout), std_dev), "b": normal((cout,), std_dev_bias)}
+        return init_linear(cin, cout, std_dev, std_dev_bias, rng, device)
 
     params = {
         "conv1": conv(in_channels, c0, v_first),
@@ -239,17 +229,25 @@ def batched_graph_tensors(adjs_batch: Sequence[np.ndarray], coarsening_steps: in
     return _tensors(batched_level_tables(adjs_batch, 2 ** coarsening_steps, widths), device)
 
 
-def train_graph_tensors(adjs_raw: Sequence[np.ndarray], device: str):
-    """The training form of :func:`graph_tensors`: ``(adjs, adj_ts,
-    mult_rows)``, with each level's transpose map for the backward (the JAX
-    package's ``_graph_arrays(..., pallas=True)``)."""
+def train_graph_arrays(adjs_raw: Sequence[np.ndarray]):
+    """The host tables of :func:`train_graph_tensors`, as numpy arrays
+    ``(adjs, adj_ts, mult_rows)`` (the streaming loader builds them on its
+    thread)."""
     adjs, adj_ts, rows = [], [], []
     for a in adjs_raw:
         a_u, mult = dedupe_klist(np.asarray(a))
         # slot_major_arrays pads the node axis before it builds the transpose
         # map, whose flat slots k·N' + n are strided by the padded N'
         adj_sm, adj_t_sm, mult_rows = slot_major_arrays(*split_self_klist(a_u, mult))
-        adjs.append(torch.as_tensor(adj_sm, device=device))
-        adj_ts.append(torch.as_tensor(adj_t_sm, device=device))
-        rows.append(torch.as_tensor(mult_rows, device=device))
+        adjs.append(adj_sm)
+        adj_ts.append(adj_t_sm)
+        rows.append(mult_rows)
     return adjs, adj_ts, rows
+
+
+def train_graph_tensors(adjs_raw: Sequence[np.ndarray], device: str):
+    """The training form of :func:`graph_tensors`: ``(adjs, adj_ts,
+    mult_rows)``, with each level's transpose map for the backward (the JAX
+    package's ``_graph_arrays(..., pallas=True)``)."""
+    return tuple([torch.as_tensor(a, device=device) for a in tables]
+                 for tables in train_graph_arrays(adjs_raw))

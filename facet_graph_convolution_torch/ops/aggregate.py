@@ -39,7 +39,7 @@ import ctypes
 import torch
 
 from facet_graph_convolution_torch.ops import cuda_library
-from facet_graph_convolution_torch.ops.facet_conv import ENTRY_SUFFIX, upcast_bf16
+from facet_graph_convolution_torch.ops.facet_conv_kernel import ENTRY_SUFFIX, upcast_bf16
 
 _INT32_MAX = 2**31 - 1
 

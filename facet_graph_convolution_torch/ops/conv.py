@@ -14,7 +14,7 @@ default and translation-invariant variants, and of ``_facet_conv_nminor_rotinv``
 slot-major tables. The projections and the final ``z @ W_flat.T`` are matmuls
 under autograd (the JAX package leaves them to XLA). The aggregation into
 ``z`` is, on every device, an autograd Function over the hand-written
-kernels: K1 and K2 (:mod:`facet_graph_convolution_torch.ops.facet_conv`) for
+kernels: K1 and K2 (:mod:`facet_graph_convolution_torch.ops.facet_conv_kernel`) for
 the first two variants, K3 (:mod:`facet_graph_convolution_torch.ops.
 aggregate`) for the rotation-invariant one, whose assignment K1 cannot form.
 
@@ -38,13 +38,13 @@ the position-for-assignment convs (model.py:610-760).
 from __future__ import annotations
 
 import enum
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from facet_graph_convolution_torch.ops.aggregate import WeightedAggregate
-from facet_graph_convolution_torch.ops.facet_conv import facet_conv_epilogue
+from facet_graph_convolution_torch.ops.facet_conv_kernel import facet_conv_epilogue
 from facet_graph_convolution_torch.ops.gather import (
     gather_neighbors,
     gather_slots,
@@ -334,6 +334,42 @@ def facet_conv_gather(params, x, adj, variant=FacetConvVariant.DEFAULT,
 def _normal(rng, shape, std, device):
     return torch.as_tensor(rng.normal(size=shape).astype(np.float32) * np.float32(std),
                            device=device)
+
+
+def init_facet_conv(
+    in_channels: int, out_channels: int, num_filters: int,
+    variant: FacetConvVariant = FacetConvVariant.DEFAULT,
+    std_dev: float = 0.05, std_dev_bias: float = 0.01,
+    seed: Union[int, np.random.Generator] = 0, device: str = "cuda",
+) -> Dict[str, torch.Tensor]:
+    """Parameters of :func:`facet_conv` (the JAX package's keys and layouts,
+    ``ops/conv.py:53-71``): ``w`` [M, out, in], ``b`` [out], ``u`` [M, in],
+    ``c`` [M], and ``v`` [M, in] under the default variant only. Drawn in
+    that order from ``seed``, a numpy seed or a generator that the caller
+    goes on drawing from (:func:`..models.unet.init_unet`); the numbers
+    differ from the JAX package's."""
+    rng = np.random.default_rng(seed)
+    params = {
+        "w": _normal(rng, (num_filters, out_channels, in_channels), std_dev, device),
+        "b": _normal(rng, (out_channels,), std_dev_bias, device),
+        "u": _normal(rng, (num_filters, in_channels), std_dev, device),
+        "c": _normal(rng, (num_filters,), std_dev, device),
+    }
+    if variant == FacetConvVariant.DEFAULT:
+        params["v"] = _normal(rng, (num_filters, in_channels), std_dev, device)
+    return params
+
+
+def init_linear(
+    in_channels: int, out_channels: int, std_dev: float = 0.05, std_dev_bias: float = 0.01,
+    seed: Union[int, np.random.Generator] = 0, device: str = "cuda",
+) -> Dict[str, torch.Tensor]:
+    """Parameters of :func:`linear` (``ops/conv.py:74-85`` there): ``w``
+    [in, out] and ``b`` [out], drawn in that order from ``seed`` as
+    :func:`init_facet_conv` draws."""
+    rng = np.random.default_rng(seed)
+    return {"w": _normal(rng, (in_channels, out_channels), std_dev, device),
+            "b": _normal(rng, (out_channels,), std_dev_bias, device)}
 
 
 def init_facet_conv_pos_assignment(

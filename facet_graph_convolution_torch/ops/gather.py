@@ -71,13 +71,18 @@ def gather_slots(x: torch.Tensor, adj_sm: torch.Tensor,
                  adj_t_sm: Optional[torch.Tensor]) -> torch.Tensor:
     """``x`` [N, C] over the slot-major one-indexed neighbour list
     ``adj_sm`` [K', N] (0 = pad) → [K', N, C], zeros for pads: the
-    neighbour slots of ``ops/facet_conv.py::_slots`` without the self row.
+    neighbour slots of ``ops/facet_conv_kernel.py::_slots`` without the self row.
     ``adj_t_sm`` [N, K_t] lists the one-indexed flat slots ``k·N + i`` that
     read each row (``graph.convert.slot_major_arrays``); the backward sums
     them. It may be None where no gradient reaches ``x``."""
     if adj_t_sm is not None and adj_t_sm.shape[0] != x.shape[0]:
         raise ValueError(f"gather_slots: adj_t_sm has {adj_t_sm.shape[0]} rows, x {x.shape[0]}")
     return _GatherSlots.apply(x, adj_sm, adj_t_sm)
+
+
+# the JAX package's name (``ops/pallas_conv.py::gather_slot_major``, the same
+# gather and scatter-free backward)
+gather_slot_major = gather_slots
 
 
 def _take_lane(x_t: torch.Tensor, adjT: torch.Tensor) -> torch.Tensor:

@@ -82,10 +82,12 @@ class CapturedGraph:
     capture) with what its capture allocated: ``graph_bytes`` (the device
     memory, ``torch.cuda.max_memory_allocated`` around it) and
     ``pool_bytes`` (what its pool reserved, ``torch.cuda.memory_reserved``
-    around it)."""
+    around it); ``captures`` counts its captures (one, and one more after
+    each :meth:`release` that a later call captured again)."""
 
     def __init__(self, device: torch.device):
         self.device = device
+        self.captures = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.capture_s: Optional[float] = None
         self.graph_bytes: Optional[int] = None
@@ -102,7 +104,9 @@ class CapturedGraph:
     def release(self) -> None:
         """Drop the captured graph, once the device has run every replay
         enqueued: its pool goes back to the allocator. The next call captures
-        again."""
+        again, over the tensors its body reads then (the streaming trainer
+        releases its step's graph when it allocates its window buffers
+        anew)."""
         if self.graph is not None:
             torch.cuda.synchronize(self.device)
             self.graph.reset()
@@ -137,6 +141,7 @@ class CapturedGraph:
         self.graph_bytes = torch.cuda.max_memory_allocated(self.device) - before
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph = graph
+        self.captures += 1
 
 
 class GraphStep(CapturedGraph):

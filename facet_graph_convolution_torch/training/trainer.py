@@ -46,9 +46,11 @@ float32. A ``compute_dtype`` other than "float32" or "bfloat16" raises
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
@@ -62,6 +64,7 @@ from facet_graph_convolution_torch.data.dataset import (
     bucket_size,
     pad_patch_to,
 )
+from facet_graph_convolution_torch.data.stream import PrefetchLoader, ShardedDataset
 from facet_graph_convolution_torch.inference.driver import resolve_device, solver_tables
 from facet_graph_convolution_torch.models.augment import (
     random_rotation,
@@ -71,6 +74,7 @@ from facet_graph_convolution_torch.models.augment import (
 from facet_graph_convolution_torch.models.losses import face_normals_loss, full_chamfer_loss
 from facet_graph_convolution_torch.models.unet import (
     init_unet,
+    train_graph_arrays,
     train_graph_tensors,
     unet_apply,
 )
@@ -224,10 +228,16 @@ def adam_update(state: TrainState) -> TrainState:
     return state
 
 
-def patch_tensors(patch: FacetPatch, device: str):
-    """A patch's train-step inputs on ``device``: ``(x, adjs, adj_ts,
+def patch_arrays(patch: FacetPatch):
+    """A patch's train-step inputs as host arrays: ``(x, adjs, adj_ts,
     mult_rows, gt)``, with the kernel tables of
-    :func:`..models.unet.train_graph_tensors`."""
+    :func:`..models.unet.train_graph_arrays`."""
+    adjs, adj_ts, rows = train_graph_arrays(patch.adjs)
+    return patch.inputs, adjs, adj_ts, rows, patch.gt_normals
+
+
+def patch_tensors(patch: FacetPatch, device: str):
+    """:func:`patch_arrays` as tensors on ``device``."""
     adjs, adj_ts, rows = train_graph_tensors(patch.adjs, device)
     return (torch.as_tensor(patch.inputs, device=device), adjs, adj_ts, rows,
             torch.as_tensor(patch.gt_normals, device=device))
@@ -396,13 +406,14 @@ def _chunk_loop(iters: int, steps_per_call: int, run_chunk, finish_chunk,
                 periods: Sequence[int]) -> bool:
     """Chunks of ``steps_per_call`` steps, the last one shorter, so that
     exactly ``iters`` updates are applied. ``run_chunk(chunk)`` enqueues a
-    chunk and returns its :class:`..graph_step.CallLosses`;
-    ``finish_chunk(it, chunk, losses)`` reads them after ``it`` updates and
-    returns False to abort. A chunk is finished after the next one is
-    enqueued (the JAX loop's deferred ``consume``, trainer.py:466-512),
-    except where it crosses a multiple of one of ``periods`` (the
-    checkpoint's and the validation's): those need the state as of that
-    chunk, and the port updates it in place. Returns False when aborted."""
+    chunk and returns its losses (a :class:`..graph_step.CallLosses`, or the
+    streaming trainer's reader of them); ``finish_chunk(it, chunk, losses)``
+    reads them after ``it`` updates and returns False to abort. A chunk is
+    finished after the next one is enqueued (the JAX loop's deferred
+    ``consume``, trainer.py:466-512), except where it crosses a multiple of
+    one of ``periods`` (the checkpoint's and the validation's): those need
+    the state as of that chunk, and the port updates it in place. Returns
+    False when aborted."""
     it, pending = 0, None
     while it < iters:
         chunk = min(steps_per_call, iters - it)
@@ -542,6 +553,422 @@ def train_normals(
         # a non-finite loss leaves the parameters poisoned: never persist them
         print("NaN training loss — aborted, the final state is not saved")
     else:
+        ckpt.save(start_step + iters, state)
+    ckpt.close()
+    return state, _write_history(cfg, loss_hist)
+
+
+# ---------------------------------------------------------------------------
+# Streaming normals training from shards (JAX trainer.py:566-822): patches
+# load lazily from npz shards, a loader thread builds their host tables, and
+# the consumer copies them to the device and trains
+# ---------------------------------------------------------------------------
+
+MAX_PREPARED = 64        # patches kept prepared, on the host and on the device (JAX's max_prepared)
+
+
+def _slot_dims(tensors) -> Tuple[Tuple[int, int], ...]:
+    """Per level ``(K', K_t)``: the slot widths of a patch's train-step
+    tensors ``(x, adjs, adj_ts, rows, gt)``."""
+    return tuple((a.shape[0], t.shape[1]) for a, t in zip(tensors[1], tensors[2]))
+
+
+def _pad_axis(t: torch.Tensor, size: int, dim: int) -> torch.Tensor:
+    if t.shape[dim] == size:
+        return t
+    return torch.nn.functional.pad(t, [0, 0] * (t.dim() - 1 - dim) + [0, size - t.shape[dim]])
+
+
+def _pad_to_dims(tensors, dims):
+    """A patch's tensors zero-padded to the slot widths ``dims`` (JAX
+    ``_pad_to_dims`` :598-609): ``adjs`` and ``rows`` on their slot axis,
+    ``adj_ts`` on theirs. The extra slots are inert, as in
+    :func:`stack_patch_tensors`."""
+    x, adjs, adj_ts, rows, gt = tensors
+    return (x, [_pad_axis(a, k, 0) for a, (k, _) in zip(adjs, dims)],
+            [_pad_axis(a, kt, 1) for a, (_, kt) in zip(adj_ts, dims)],
+            [_pad_axis(r, k + 1, 0) for r, (k, _) in zip(rows, dims)], gt)
+
+
+class WindowBuffers:
+    """A streaming window's static buffers on one device: a
+    :class:`PatchStack` of up to ``window`` patches of one node count at the
+    slot widths ``dims``, which :func:`make_scanned_train_step` reads
+    through :meth:`select`. :meth:`load` writes a window's patches into
+    them in place, so the addresses a captured graph reads stay put, and
+    allocates them anew where the patches' shapes differ from theirs."""
+
+    def __init__(self, window: int):
+        self.window = window
+        self.stack: Optional[PatchStack] = None
+        self.dims: Tuple[Tuple[int, int], ...] = ()
+
+    def load(self, patches: Sequence[tuple]) -> bool:
+        """Write ``patches`` (tensors of :func:`patch_tensors`, one shape)
+        into the first ``len(patches)`` slots; returns True where the
+        buffers were allocated anew for their shape."""
+        fields = [[p[0] for p in patches]]
+        for part in (1, 2, 3):
+            fields += [[p[part][lvl] for p in patches] for lvl in range(len(patches[0][part]))]
+        fields.append([p[4] for p in patches])
+        flat = [] if self.stack is None else [
+            self.stack.xs, *self.stack.adjs, *self.stack.adj_ts, *self.stack.rows, self.stack.gts]
+        fresh = [b.shape[1:] for b in flat] != [f[0].shape for f in fields]
+        if fresh:
+            flat = [f[0].new_zeros((self.window, *f[0].shape)) for f in fields]
+            levels = len(patches[0][1])
+            self.stack = PatchStack(flat[0], flat[1:1 + levels], flat[1 + levels:1 + 2 * levels],
+                                    flat[1 + 2 * levels:1 + 3 * levels], flat[-1])
+            self.dims = _slot_dims(patches[0])
+        for buf, parts in zip(flat, fields):
+            torch.stack(parts, out=buf[:len(parts)])
+        return fresh
+
+    def select(self, idx: torch.Tensor):
+        return self.stack.select(idx)
+
+
+class _Window(NamedTuple):
+    """What the run measured of one window from the loader. It holds no
+    tensor: the run keeps one a window until its end, and a device copy
+    held here would outlive its eviction from the memo."""
+
+    count: int                      # its steps
+    wait_s: float                   # the consumer's wait on the loader for it
+    prep_s: List[float]             # host preparation of each patch prepared anew
+    first_epoch: bool
+    h2d_bytes: int
+    stage_s: float                  # the consumer's host time staging its uploads
+    copy: Optional[tuple]           # (start, end) CUDA events around its uploads
+    allocated: Optional[int]        # device bytes allocated once it was staged (card only)
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // 256) * 256
+
+
+class _PatchMemo:
+    """The device copies of prepared patches by global index, at most
+    MAX_PREPARED, least recently used first out. On the card the consumer
+    copies a window's new patches into one pinned staging buffer (allocated
+    once, grown as needed, reused once the previous window's copies are
+    done: a pinned allocation a tensor costs more than the copies) and from
+    there to the device on a copy stream of its own (not the side stream of
+    a capture's warm-up); :meth:`ready` makes the current stream wait for a
+    window's copies. The loader thread makes no CUDA call."""
+
+    def __init__(self, device: str):
+        self.device = torch.device(device)
+        self.on_card = self.device.type == "cuda"
+        self.stream = torch.cuda.Stream(self.device) if self.on_card else None
+        self.entries: "OrderedDict[int, tuple]" = OrderedDict()
+        self._staging: Optional[torch.Tensor] = None
+        self._last_copy: Optional[torch.cuda.Event] = None
+
+    def _upload(self, fresh) -> Tuple[Dict[int, tuple], Optional[tuple]]:
+        """Device tensors of ``fresh`` ``[(idx, host arrays)]``, and the
+        (start, end) events around their copies on the card."""
+        def flat(arrays):
+            x, adjs, adj_ts, rows, gt = arrays
+            return [x, *adjs, *adj_ts, *rows, gt]
+
+        def nested(ts, levels):
+            return (ts[0], ts[1:1 + levels], ts[1 + levels:1 + 2 * levels],
+                    ts[1 + 2 * levels:1 + 3 * levels], ts[-1])
+
+        if not self.on_card:
+            return {idx: nested([torch.as_tensor(a) for a in flat(arrays)], len(arrays[1]))
+                    for idx, arrays in fresh}, None
+        parts = [(idx, [np.ascontiguousarray(a) for a in flat(arrays)], len(arrays[1]))
+                 for idx, arrays in fresh]
+        total = sum(_aligned(a.nbytes) for _, arrays, _ in parts for a in arrays)
+        if self._last_copy is not None:
+            self._last_copy.synchronize()          # the staging buffer is free again
+        if self._staging is None or self._staging.numel() < total:
+            self._staging = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        staging = self._staging.numpy()
+        offsets, off = [], 0
+        for _, arrays, _ in parts:
+            for a in arrays:
+                staging[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+                offsets.append(off)
+                off += _aligned(a.nbytes)
+        main = torch.cuda.current_stream(self.device)
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        out, k = {}, 0
+        # the copy stream waits for nothing on the training stream: the copies
+        # write new blocks of its own pool and overlap the running window
+        with torch.cuda.stream(self.stream):
+            events[0].record()
+            for idx, arrays, levels in parts:
+                ts = []
+                for a in arrays:
+                    src = self._staging[offsets[k]:offsets[k] + a.nbytes]
+                    t = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype,
+                                    device=self.device)
+                    t.copy_(src.view(t.dtype).view(a.shape), non_blocking=True)
+                    t.record_stream(main)            # read on the training stream
+                    ts.append(t)
+                    k += 1
+                out[idx] = nested(ts, levels)
+            events[1].record()
+        self._last_copy = events[1]
+        return out, events
+
+    def stage(self, items) -> Tuple[List[tuple], int, float, Optional[tuple]]:
+        """The window's patches ``items`` ``[(idx, host arrays, prep_s)]``
+        as device tensors, enqueueing the copies of those not held; returns
+        ``(tensors, bytes copied, host seconds, (start, end) events or
+        None)``."""
+        t0 = time.perf_counter()
+        fresh = {idx: arrays for idx, arrays, _ in items if idx not in self.entries}
+        nbytes = sum(np.asarray(a).nbytes for x, adjs, adj_ts, rows, gt in fresh.values()
+                     for a in (x, gt, *adjs, *adj_ts, *rows))
+        events = None
+        if fresh:
+            uploaded, events = self._upload(list(fresh.items()))
+            self.entries.update(uploaded)
+        tensors = []
+        for idx, _, _ in items:
+            self.entries.move_to_end(idx)
+            tensors.append(self.entries[idx])
+        while len(self.entries) > MAX_PREPARED:
+            self.entries.popitem(last=False)
+        return tensors, nbytes, time.perf_counter() - t0, events
+
+    def ready(self, window: _Window) -> None:
+        if window.copy is not None:
+            torch.cuda.current_stream(self.device).wait_event(window.copy[1])
+
+    def padded(self, idx: int, tensors: tuple, dims) -> tuple:
+        """``tensors`` of patch ``idx`` padded to ``dims``; the memo keeps
+        the padded copy (a width growth pads the copies made before it once,
+        as they are used again: JAX's ``version``, :641-661)."""
+        if _slot_dims(tensors) == dims:
+            return tensors
+        tensors = _pad_to_dims(tensors, dims)
+        if idx in self.entries:
+            self.entries[idx] = tensors
+        return tensors
+
+
+class _PreparedView:
+    """The shards as the trainer's loader sees them: a patch whose tables
+    the loader holds prepared is not loaded from its shard again (JAX's
+    loader decompresses it on every draw, and a shard that left the cache
+    is read again for it)."""
+
+    def __init__(self, ds: ShardedDataset, prepared: Mapping):
+        self.ds, self.prepared = ds, prepared
+        self.index = ds.index
+
+    def patch(self, idx: int):
+        return None if idx in self.prepared else self.ds.patch(idx)
+
+
+def _windows(loader, memo: _PatchMemo, epoch: int):
+    """The loader's windows ``(_Window, patch indices, device tensors)``,
+    each staged on the device as it is taken: the uploads of a window are
+    enqueued while the previous one trains."""
+    drawn = 0
+    while True:
+        t0 = time.perf_counter()
+        try:
+            items, count = next(loader)
+        except StopIteration:
+            return
+        wait_s = time.perf_counter() - t0
+        tensors, nbytes, stage_s, events = memo.stage(items)
+        allocated = torch.cuda.memory_allocated(memo.device) if memo.on_card else None
+        yield (_Window(count, wait_s, [s for _, _, s in items if s is not None], drawn < epoch,
+                       nbytes, stage_s, events, allocated),
+               [idx for idx, _, _ in items], tensors)
+        drawn += count
+
+
+def _stream_summary(windows: List[_Window], starts: List[float], t_end: float,
+                    steps_per_call: int, growths: int, captures: int) -> dict:
+    """What the streaming run measured, split into the first epoch's windows
+    and the later ones: the consumer's wait on the loader a window, the
+    host preparation a patch prepared anew, the uploads, and each window's
+    host time a step (from its start to the next one's: in a steady run the
+    host waits there for the previous window's losses, so it follows the
+    device)."""
+    def mean(v):
+        return float(np.mean(v)) if len(v) else None
+
+    def median(v):
+        return float(np.median(v)) if len(v) else None
+
+    ends = starts[1:] + [t_end]
+    step_ms = [1e3 * (e - s) / w.count for w, s, e in zip(windows, starts, ends)]
+    prep = [s for w in windows for s in w.prep_s]
+    uploads = [w for w in windows if w.copy is not None]
+    split = {}
+    for name, first in (("first_epoch", True), ("after", False)):
+        part = [w for w in windows if w.first_epoch == first]
+        split[name] = {"windows": len(part),
+                       "loader_wait_s": mean([w.wait_s for w in part]),
+                       "step_ms": median([ms for w, ms in zip(windows, step_ms)
+                                          if w.first_epoch == first]),
+                       "h2d_windows": sum(w.copy is not None for w in part),
+                       # device bytes allocated at the part's first and last
+                       # window and the most at any (the card only)
+                       "allocated": [part[0].allocated, part[-1].allocated,
+                                     max(w.allocated for w in part)] if (
+                                         part and part[0].allocated is not None) else None}
+    return {"steps_per_call": steps_per_call, "windows": len(windows), **split,
+            "patches_prepared": len(prep), "prepare_s_per_patch": mean(prep),
+            "h2d_windows": len(uploads),
+            "h2d_bytes_per_window": mean([w.h2d_bytes for w in uploads]),
+            "h2d_bytes_max": max([w.h2d_bytes for w in uploads], default=0),
+            "h2d_stage_ms_per_window": mean([1e3 * w.stage_s for w in uploads]),
+            "h2d_ms_per_window": mean([w.copy[0].elapsed_time(w.copy[1]) for w in uploads]),
+            "growths": growths, "captures": captures}
+
+
+def train_normals_streaming(
+    cfg: Config,
+    shard_dir: str,
+    valid_set: Optional[MeshDataset] = None,
+    num_iterations: Optional[int] = None,
+    bucket_align: int = 1024,
+    prefetch_depth: int = 2,
+    steps_per_call: int = 1,
+    device: str = "cuda",
+) -> Tuple[TrainState, np.ndarray]:
+    """Normals training from a sharded dataset (``data/stream.py``): the
+    JAX package's ``train_normals_streaming`` (trainer.py:612-822), for a
+    corpus larger than host memory (the reference unpickles the whole set,
+    train.py:1901-1906). Patches load lazily from the shards; a loader
+    thread draws them in the JAX loader's order for ``cfg.train.seed`` and
+    builds their host tables (NumPy only, memoised by global index, at most
+    MAX_PREPARED); the consumer copies each window's new patches to the
+    device (pinned memory, a copy stream, enqueued while the previous window
+    trains; at most MAX_PREPARED kept there) and trains on them. Resumes
+    from the latest checkpoint, with the loader starting again from the
+    seed; validates every ``valid_every``; checkpoints every ``save_every``;
+    a history row at each ``it % eval_every < stride`` (the smoothed loss
+    since the last row and the last validation loss; stride =
+    ``steps_per_call``); a non-finite smoothed loss stops the run with no
+    final save; the rows are appended to ``<network_path>/<net_name>.csv``.
+    Runs on CUDA unless ``device="cpu"``. Prints a ``streaming summary:``
+    JSON line of what it measured (:func:`_stream_summary`). Returns
+    ``(state, history [rows, 2])``.
+
+    ``steps_per_call == 1``: each patch padded to its own bucket and one
+    eager :func:`make_normals_train_step` a patch. ``steps_per_call > 1``
+    (JAX's windowed path, :566-609): every patch padded to one dataset-wide
+    bucket, its slot widths padded to running maxima, and windows of
+    ``steps_per_call`` patches copied into :class:`WindowBuffers` that one
+    :func:`make_scanned_train_step` reads (on the card a CUDA graph replayed
+    a step). A width growth allocates the buffers anew and the graph is
+    captured again at the next call; the last window applies exactly its
+    count of updates."""
+    dev = str(resolve_device(device))
+    iters = num_iterations or cfg.train.num_iterations
+    state = create_train_state(cfg, num_steps=iters, device=dev)
+    generator = torch.Generator().manual_seed(cfg.train.seed)
+    step_fn = make_normals_train_step(cfg, generator)
+    eval_fn = make_normals_eval_step(cfg, generator)
+    ckpt = CheckpointManager(cfg.train.network_path, cfg.train.net_name)
+    state, start_step = ckpt.restore(state)
+
+    ds = ShardedDataset(shard_dir)
+    windowed = steps_per_call > 1
+    target = bucket_size(ds.max_num_nodes, bucket_align) if windowed else None
+    prepared: "OrderedDict[int, tuple]" = OrderedDict()
+
+    def prepare(patch, idx):
+        # on the loader thread: NumPy only
+        if idx in prepared:
+            prepared.move_to_end(idx)
+            return idx, prepared[idx], None
+        t0 = time.perf_counter()
+        prepared[idx] = patch_arrays(
+            pad_patch_to(patch, target or bucket_size(patch.num_nodes, bucket_align)))
+        while len(prepared) > MAX_PREPARED:
+            prepared.popitem(last=False)
+        return idx, prepared[idx], time.perf_counter() - t0
+
+    valid_arrays = [patch_tensors(pad_patch_to(p, bucket_size(p.num_nodes, bucket_align)), dev)
+                    for p in valid_set.patches] if valid_set is not None else []
+
+    def validate() -> float:
+        return sum(float(eval_fn(state.params, *a)) for a in valid_arrays) / len(valid_arrays)
+
+    memo = _PatchMemo(dev)
+    buffers = WindowBuffers(steps_per_call)
+    graph = make_scanned_train_step(state, cfg, buffers, steps_per_call) if windowed else None
+    growths = 0
+
+    seen: List[_Window] = []
+    starts: List[float] = []
+
+    def run(chunk: int):
+        """Take the loader's next window (``chunk`` steps) and enqueue its
+        steps; returns a reader of their losses."""
+        nonlocal growths
+        window, idxs, tensors = next(windows)
+        assert window.count == chunk, (window.count, chunk)
+        starts.append(time.perf_counter())
+        seen.append(window)
+        memo.ready(window)
+        if not windowed:
+            _, loss = step_fn(state, *tensors[0])
+            return lambda: np.array([float(loss)])
+        dims = buffers.dims or _slot_dims(tensors[0])
+        for t in tensors:
+            dims = tuple((max(a, c), max(b, d)) for (a, b), (c, d) in zip(dims, _slot_dims(t)))
+        first = buffers.stack is None
+        if buffers.load([memo.padded(i, t, dims) for i, t in zip(idxs, tensors)]):
+            if not first:
+                growths += 1
+                graph.release()          # captured again over the new buffers at this call
+        _, losses = graph(state, normals_draws(cfg, generator, range(chunk), target))
+        return losses.numpy
+
+    stride = steps_per_call
+    loss_hist: List[Tuple[float, float]] = []
+    smooth_loss, smooth_n, last_valid = 0.0, 0, float("nan")
+    t_start = time.time()
+
+    def finish(it: int, count: int, read) -> bool:
+        """Take in a window's losses after ``it`` steps (JAX's loop body
+        :781-803); False to abort."""
+        nonlocal smooth_loss, smooth_n, last_valid
+        smooth_loss += float(read().sum())
+        smooth_n += count
+        if valid_arrays and it % cfg.train.valid_every < stride:
+            last_valid = validate()
+            print(f"iter {it}: validation loss {last_valid:.4f}")
+        if it % cfg.train.eval_every < stride:
+            avg = smooth_loss / max(smooth_n, 1)
+            loss_hist.append((avg, last_valid))
+            print(f"iter {it}: train loss {avg:.4f} ({time.time() - t_start:.1f}s)")
+            if not math.isfinite(avg):
+                print("NaN training loss — aborting; the state is not saved")
+                return False
+            smooth_loss, smooth_n = 0.0, 0
+        if it > 0 and it % cfg.train.save_every < stride:
+            ckpt.save(start_step + it, state)
+        return True
+
+    loader = PrefetchLoader(_PreparedView(ds, prepared), prepare, seed=cfg.train.seed,
+                            depth=prefetch_depth, num_items=iters, window=steps_per_call)
+    windows = _windows(loader, memo, len(ds))
+    try:
+        aborted = not _chunk_loop(
+            iters, steps_per_call, run, finish,
+            [cfg.train.save_every] + ([cfg.train.valid_every] if valid_arrays else []))
+    finally:
+        loader.close()
+    if memo.on_card:
+        torch.cuda.synchronize(memo.device)
+    summary = _stream_summary(seen, starts, time.perf_counter(), steps_per_call, growths,
+                              graph.captures if graph is not None else 0)
+    print("streaming summary: " + json.dumps(summary))
+    if not aborted:
         ckpt.save(start_step + iters, state)
     ckpt.close()
     return state, _write_history(cfg, loss_hist)

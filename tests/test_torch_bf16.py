@@ -64,7 +64,7 @@ from facet_graph_convolution_torch.graph.convert import slot_major_arrays
 from facet_graph_convolution_torch.inference.driver import infer_normals
 from facet_graph_convolution_torch.models.unet import init_unet, train_graph_tensors, unet_apply
 from facet_graph_convolution_torch.ops import aggregate as k3
-from facet_graph_convolution_torch.ops import facet_conv as k1
+from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
 from facet_graph_convolution_torch.ops.conv import Bf16Matmul, FacetConvVariant, facet_conv
 from facet_graph_convolution_torch.training import trainer
 from facet_graph_convolution_torch.training.checkpoint import CheckpointManager

@@ -24,7 +24,7 @@ from facet_graph_convolution_tpu.ops.pallas_conv import (
     gather_slot_major,
     slot_major_arrays,
 )
-from facet_graph_convolution_torch.ops import facet_conv as k1
+from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
 from facet_graph_convolution_torch.ops.conv import FacetConvVariant, facet_conv
 from facet_graph_convolution_torch.params import params_from_jax
 

@@ -31,7 +31,9 @@ within), bit for bit launch to launch; a bfloat16 train step on the card
 against the same step on the CPU, its loss within 2e-2 relative and its
 gradients within 0.05 of each gradient's largest magnitude (the bounds of
 tests/test_variant_matrix.py); the bfloat16 graph step against its eager
-steps bit for bit.
+steps bit for bit. Streaming: a window of patches through the graph step,
+captured while a loader thread builds host tables, against eager steps,
+and the streaming trainer's windowed and single steps, bit for bit.
 """
 
 import numpy as np
@@ -50,7 +52,7 @@ from facet_graph_convolution_torch.geometry.mesh_math import vertex_faces
 from facet_graph_convolution_torch.inference.driver import infer_normals, infer_with_vertices
 from facet_graph_convolution_torch.models.unet import init_unet
 from facet_graph_convolution_torch.ops import aggregate as k3
-from facet_graph_convolution_torch.ops import facet_conv as k1
+from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
 from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
 from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
 
@@ -1096,6 +1098,142 @@ def test_graph_call_equals_eager_steps(cuda, kind):
     np.testing.assert_array_equal(graph_losses, np.asarray(eager_losses, np.float32))
     _same_state(graph_state, eager_state)
     assert scanned.capture_s > 0 and scanned.graph_bytes > 0
+
+
+def _stream_case(tmp_path, seeds, max_patch_size=100):
+    """Noisy subdivision-2 icospheres (one a seed) cut into patches of at
+    most ``max_patch_size`` faces, in streaming shards of 3, and the small
+    config."""
+    from facet_graph_convolution_torch.data.dataset import TrainingSet
+    from facet_graph_convolution_torch.data.stream import save_sharded
+
+    v, f = icosphere(2)
+    ds = TrainingSet(max_patch_size=max_patch_size, coarsening_steps=2, coarsening_levels=3,
+                     k_faces=23, seed=0)
+    for s in seeds:
+        ds.add_mesh(add_vertex_noise(v, f, 0.2, np.random.default_rng(s)), f, gt_vertices=v)
+    save_sharded(ds, str(tmp_path / "shards"), patches_per_shard=3)
+    cfg = default_config().replace(
+        model={"channels": SMALL["channels"], "num_filters": 4, "fc_channels": 32},
+        train={"loss_samples": 256, "network_path": str(tmp_path / "net") + "/"})
+    return ds, str(tmp_path / "shards"), cfg
+
+
+def test_streaming_window_through_the_graph_equals_eager_steps(cuda, tmp_path):
+    """A streaming window of 4 patches (padded to one bucket and to their
+    largest slot widths, copied into WindowBuffers) through the captured
+    step, while a PrefetchLoader thread builds host tables from the same
+    shards during the capture, against 4 eager steps on the same patches
+    and draws: losses, parameters and Adam state bit for bit."""
+    import time
+
+    from facet_graph_convolution_torch.data.dataset import bucket_size, pad_patch_to
+    from facet_graph_convolution_torch.data.stream import PrefetchLoader, ShardedDataset
+    from facet_graph_convolution_torch.training import trainer
+
+    ds, shards, cfg = _stream_case(tmp_path, (3,))
+    target = bucket_size(max(p.num_nodes for p in ds.patches), 64)
+    tensors = [trainer.patch_tensors(pad_patch_to(p, target), str(cuda)) for p in ds.patches[:4]]
+    dims = tuple(tuple(max(w) for w in zip(*lvl))
+                 for lvl in zip(*(trainer._slot_dims(t) for t in tensors)))
+    tensors = [trainer._pad_to_dims(t, dims) for t in tensors]
+    buffers = trainer.WindowBuffers(4)
+    buffers.load(tensors)
+    graph_state = trainer.create_train_state(cfg, device=str(cuda))
+    eager_state = trainer.create_train_state(cfg, device=str(cuda))
+    window = trainer.make_scanned_train_step(graph_state, cfg, buffers, 4)
+    draws = trainer.normals_draws(cfg, torch.Generator().manual_seed(3), range(4), target)
+
+    prepared = []
+
+    def prepare(patch, idx):
+        arrays = trainer.patch_arrays(pad_patch_to(patch, target))
+        prepared.append(time.perf_counter())
+        return arrays
+
+    loader = PrefetchLoader(ShardedDataset(shards), prepare, depth=10**5, num_items=10**5)
+    try:
+        t0 = time.perf_counter()
+        _, losses = window(graph_state, draws)
+        graph_losses = losses.numpy()
+        t1 = time.perf_counter()
+    finally:
+        loader.close()
+    assert window.captures == 1
+    assert any(t0 < t < t1 for t in prepared)          # the loader ran during the capture
+    step = trainer.make_normals_train_step(cfg)
+    eager_losses = []
+    for j in range(4):
+        eager_state, loss = step(eager_state, *tensors[j], rot=draws["rot"][j],
+                                 sample_idx=draws["sample_idx"][j])
+        eager_losses.append(float(loss))
+    np.testing.assert_array_equal(graph_losses, np.asarray(eager_losses, np.float32))
+    _same_state(graph_state, eager_state)
+
+
+def test_streaming_trainer_on_card_equals_single_steps(cuda, tmp_path, capsys):
+    """train_normals_streaming on the card: on a one-patch set, 7 steps at
+    3 a window (one capture, windows 3, 3, 1) and 7 eager steps give the same
+    state bit for bit; on eight patches whose slot widths grow in the middle
+    of the run (seed 5, windows of 2), the graph is captured once more for
+    each growth and K1/K2 launch only at the warm-up steps and captures."""
+    import json
+
+    from facet_graph_convolution_torch.training import trainer
+
+    def summary():
+        line = [x for x in capsys.readouterr().out.splitlines()
+                if x.startswith("streaming summary: ")]
+        return json.loads(line[-1].split(": ", 1)[1])
+
+    _, one_shards, cfg = _stream_case(tmp_path / "one", (3,), max_patch_size=20000)
+    runs = []
+    for spc in (3, 1):
+        c = cfg.replace(train={"network_path": str(tmp_path / f"net{spc}") + "/",
+                               "eval_every": 1})
+        runs.append(trainer.train_normals_streaming(c, one_shards, num_iterations=7,
+                                                    bucket_align=64, steps_per_call=spc,
+                                                    device=str(cuda))[0])
+        assert summary()["captures"] == (1 if spc == 3 else 0)
+    assert runs[0].step == runs[1].step == 7
+    _same_state(runs[0], runs[1])
+
+    _, shards, _ = _stream_case(tmp_path / "multi", (3, 4))
+    c = cfg.replace(train={"network_path": str(tmp_path / "netw") + "/", "seed": 5,
+                           "eval_every": 2})
+    before = [k1.facet_conv_fwd.launches, k1.facet_conv_bwd.launches]
+    state, hist = trainer.train_normals_streaming(c, shards, num_iterations=16, bucket_align=64,
+                                                  steps_per_call=2, device=str(cuda))
+    got = summary()
+    assert got["growths"] >= 1 and got["captures"] == 1 + got["growths"]
+    launched = [k1.facet_conv_fwd.launches - before[0], k1.facet_conv_bwd.launches - before[1]]
+    assert launched == [16 * got["captures"]] * 2
+    assert state.step == 16 and np.isfinite(hist[:, 0]).all()
+
+
+@pytest.mark.parametrize("steps_per_call", [1, 2])
+def test_streaming_device_memory_stays_flat_past_the_memo(cuda, tmp_path, capsys,
+                                                          monkeypatch, steps_per_call):
+    """train_normals_streaming on the card over more patches than it keeps
+    (MAX_PREPARED cut to 3 against eight patches, 40 steps, so that evicted
+    patches are uploaded again): the device memory allocated at the windows
+    after the first epoch stays within one window's uploads (and the
+    allocator's rounding, 512 B a tensor) of its value at the first."""
+    import json
+
+    from facet_graph_convolution_torch.training import trainer
+
+    monkeypatch.setattr(trainer, "MAX_PREPARED", 3)
+    _, shards, cfg = _stream_case(tmp_path, (3, 4))
+    trainer.train_normals_streaming(cfg, shards, num_iterations=40, bucket_align=64,
+                                    steps_per_call=steps_per_call, device=str(cuda))
+    line = [x for x in capsys.readouterr().out.splitlines()
+            if x.startswith("streaming summary: ")]
+    got = json.loads(line[-1].split(": ", 1)[1])
+    first, _, most = got["after"]["allocated"]
+    assert got["after"]["windows"] == 32 // steps_per_call
+    assert got["after"]["h2d_windows"] > 3
+    assert most - first <= got["h2d_bytes_max"] + 512 * 64, got
 
 
 def test_capturable_adam_matches_optax(cuda):

@@ -54,7 +54,7 @@ from facet_graph_convolution_torch.models.unet import (
     train_graph_tensors,
     unet_apply,
 )
-from facet_graph_convolution_torch.ops import facet_conv as k1
+from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
 from facet_graph_convolution_torch.ops.normalization import normalize_tensor
 from facet_graph_convolution_torch.training.graph_step import GraphCache
 

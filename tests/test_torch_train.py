@@ -66,6 +66,7 @@ from facet_graph_convolution_torch.data.dataset import (
     save_dataset,
 )
 from facet_graph_convolution_torch.data.preprocess import preprocess_directory
+from facet_graph_convolution_torch.data.stream import ShardedDataset
 from facet_graph_convolution_torch.data.synthetic import add_vertex_noise, icosphere
 from facet_graph_convolution_torch.geometry.obj_io import load_obj, write_obj
 from facet_graph_convolution_torch.graph.convert import slot_major_arrays
@@ -78,7 +79,7 @@ from facet_graph_convolution_torch.models.losses import (
     charbonnier_face_normals_loss,
     face_normals_loss,
 )
-from facet_graph_convolution_torch.ops import facet_conv as k1
+from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
 from facet_graph_convolution_torch.ops.conv import FacetConvVariant, facet_conv
 from facet_graph_convolution_torch.training import trainer
 from facet_graph_convolution_torch.training.checkpoint import CheckpointManager
@@ -563,12 +564,26 @@ def test_nan_loss_aborts_without_poisoned_checkpoint(port_sphere_set, tmp_path, 
     assert all(torch.isfinite(t).all() for _, t in _flat(served))
 
 
-def test_training_refuses_what_is_not_ported(port_sphere_set):
+def test_training_refuses_what_is_not_ported(port_sphere_set, tmp_path):
+    """An unknown compute_dtype raises; streaming shards, refused before
+    they were ported, are written beside the training set."""
     cfg = default_config().replace(model=MODEL)
     with pytest.raises(ValueError, match="compute_dtype"):
         create_train_state(cfg.replace(model={"compute_dtype": "float16"}), device="cpu")
-    with pytest.raises(NotImplementedError, match="streaming"):
-        preprocess_directory(cfg, shard_size=4)
+    base = tmp_path / "run"
+    v, f = icosphere(2)
+    for sub, name, verts in (("noisy", "sphere_n1.obj", add_vertex_noise(
+            v, f, 0.2, np.random.default_rng(0))), ("original", "sphere.obj", v)):
+        (base / "Data" / "Synthetic" / "train" / sub).mkdir(parents=True)
+        write_obj(verts, f, str(base / "Data" / "Synthetic" / "train" / sub / name))
+    cfg = default_config(str(base)).replace(model=MODEL, data={"max_patch_size": 100})
+    preprocess_directory(cfg, shard_size=3)
+    shards = ShardedDataset(str(base / "Preprocessed_Data" / "trainingShards"))
+    whole = load_dataset(str(base / "Preprocessed_Data" / "trainingSet.npz"))
+    assert len(shards) == len(whole.patches) == 4
+    assert [s["num_patches"] for s in shards.index["shards"]] == [3, 1]
+    for i, p in enumerate(whole.patches):
+        np.testing.assert_array_equal(shards.patch(i).inputs, p.inputs)
 
 
 # ---------------------------------------------------------------------------
@@ -590,12 +605,18 @@ def test_cli_preprocess_train_infer(tmp_path, monkeypatch, capsys):
     write_obj(add_vertex_noise(v, f, 0.2, np.random.default_rng(1)), f,
               str(valid_dir / "sphere_n2.obj"))
     common = ["--base_path", str(base), "--network_path", str(tmp_path / "nets")]
-    cli_preprocess.main(common)
-    for name in ("trainingSet.npz", "validSet.npz"):
+    cli_preprocess.main(common + ["--shard_size", "1"])
+    for name in ("trainingSet.npz", "validSet.npz", "trainingShards/index.json"):
         assert (base / "Preprocessed_Data" / name).is_file()
 
-    with pytest.raises(NotImplementedError, match="streaming"):
-        cli_train.main(common + ["--device", "cpu", "--stream_dir", str(tmp_path)])
+    # streaming from the shards: 50 steps, a history row at eval_every (50)
+    cli_train.main(common + ["--device", "cpu", "--stream_dir",
+                             str(base / "Preprocessed_Data" / "trainingShards"),
+                             "--network_path", str(tmp_path / "nets_stream"),
+                             "--num_iterations", "50"])
+    assert CheckpointManager(str(tmp_path / "nets_stream"), "net").steps() == [50]
+    rows = np.loadtxt(str(tmp_path / "nets_stream" / "net.csv"), delimiter=",", ndmin=2)
+    assert rows.shape == (1, 2) and np.isfinite(rows[0, 0])
     with monkeypatch.context() as mp:
         mp.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):

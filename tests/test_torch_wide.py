@@ -25,7 +25,7 @@ from facet_graph_convolution_torch import params as params_io
 from facet_graph_convolution_torch.config import default_config
 from facet_graph_convolution_torch.inference.driver import infer_directory
 from facet_graph_convolution_torch.models.unet import init_unet
-from facet_graph_convolution_torch.ops import facet_conv as k1
+from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
 from facet_graph_convolution_torch.ops.conv import FacetConvVariant, facet_conv
 
 ATOL = 1e-5
