@@ -188,7 +188,26 @@ Phases, each fatal on failure:
    and K1/K2 8/8 a step through a graph of the run's training set and K1 8
    a served patch in profiles; prints each stage's seconds, the summary
    table and, a noise level, the noisy input's mean angular error beside
-   the denoised one's.
+   the denoised one's;
+19. halo: the halo-sharded path (``parallel/``) in a one-rank NCCL group:
+   K1 and K2 on halo-extended sources (N_src > N: shard 0 of a 4-way
+   partition of the 25,600-node subdivision-5 patch, its halo rows
+   gathered from the whole graph) at the 8 conv shapes, f32 and bf16,
+   against their plain versions and bitwise repeatable; one sharded step
+   at one rank against the flat ``make_normals_train_step`` from the same
+   state and draws (loss and gradients within 1e-5 relative); the
+   1,048,576-face torus (``torus(1024, 512)``, noise 0.2) as one
+   whole-mesh patch: ``train_normals_sharded`` 20 steps in f32 and 20 in
+   bf16 (finite losses, the last below the first; K1/K2 8 launches a step
+   in the run's dtype only, the plain K1/K2 never, 8 of each in a profiled
+   step, the most of three profiles), with host seconds a stage, step ms, conv-edges/s and
+   peak memory, and K1/K2 ns a row at its level 0 beside the kernel
+   phase's 24,832-row level 0; ``infer_normals_sharded`` of the torus
+   whole (random weights; finite, K1 8) and of the subdivision-5
+   icosphere against ``infer_normals`` of the same one-patch mesh within
+   1e-4; then the launcher (``python -m
+   facet_graph_convolution_torch.parallel.launch --num_processes 1 ...
+   train --iterations 40``) in a subprocess, which must exit 0.
 
 Then it prints the kernels' JSON line, the card's ``nvidia-smi`` name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -3202,6 +3221,399 @@ def wang_phase(dev, workdir):
     return launches
 
 
+HALO_TORUS = (1024, 512)     # torus(nu, nv): 2·nu·nv = 1,048,576 faces
+HALO_STEPS = 20              # train_normals_sharded steps, f32 then bf16
+HALO_TIMED = 10              # timed steps of the sharded step after 3 of warm-up
+HALO_SHARDS = 4              # the kernel check's partition of the subdivision-5 patch
+# the one-rank sharded step against the flat step on the same state and
+# draws: the same kernels on the same tables, the sums reassociated only in
+# the normalization's mean and the dense layers' products
+HALO_PARITY_RTOL = 1e-5
+HALO_SERVE_ATOL = 1e-4       # infer_normals_sharded against infer_normals (JAX's bar)
+LEVEL0_CONVS = (("conv1", 6), ("upconv1", 64), ("dconv1", 64))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _extended_inputs(part, level, c_in, m, rng, dev, dtype):
+    """Shard 0's halo-extended ``cat`` [N_src, C+M] at ``level``, gathered on
+    the host from a random whole-graph ``cat`` (zeros in inactive slots),
+    with its ``ux`` [n, M], ``c`` and a cotangent ``dz``."""
+    import torch
+
+    from facet_graph_convolution_torch.parallel.halo import extended_rows
+
+    lvl = part.levels[level]
+    ids = extended_rows(part, level, 0)
+    full = rng.normal(size=(lvl.num_nodes, c_in + m)).astype(np.float32)
+    cat = np.where(ids[:, None] >= 0, full[np.maximum(ids, 0)], 0.0).astype(np.float32)
+    n = lvl.block
+
+    def dev_t(a, dt=dtype):
+        return torch.as_tensor(a, device=dev).to(dt)
+
+    return (dev_t(cat), dev_t(rng.normal(size=(n, m)).astype(np.float32)),
+            dev_t(rng.normal(size=(m,)).astype(np.float32), torch.float32),
+            dev_t(rng.normal(size=(n, m * c_in)).astype(np.float32)))
+
+
+def halo_kernel_checks(dev, patch):
+    """K1 and K2 on halo-extended sources (N_src > N): shard 0 of a
+    HALO_SHARDS-way partition of ``patch``, its cat gathered from the whole
+    graph, at the 8 conv shapes, f32 (KERNEL_ATOL) and bf16
+    (BF16_KERNEL_TOL), each bitwise repeatable; device times by CUDA-graph
+    replay. Returns the worst errors."""
+    import torch
+
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
+    from facet_graph_convolution_torch.parallel.halo import build_partition, partition_operands
+
+    part = build_partition(patch.adjs, HALO_SHARDS)
+    tables = partition_operands(part, 0, dev)
+    rng = np.random.default_rng(17)
+    m = 9
+    worst = {"f32": 0.0, "bf16": 0.0}
+    print(f"halo kernel checks: K1/K2 on shard 0 of a {HALO_SHARDS}-way partition of the "
+          f"{patch.num_nodes}-node patch, halo rows gathered from the whole graph; f32 atol=rtol="
+          f"{KERNEL_ATOL:g}, bf16 {BF16_KERNEL_TOL:g} × max|plain|; bitwise repeatable; "
+          "device ms by CUDA-graph replay (20 calls)")
+    print("  %-8s %6s %6s %4s %3s %9s %9s %9s %9s %9s %9s" % (
+        "conv", "N", "N_src", "C", "K'", "K1_err", "K2_err", "K1_ms", "K2_ms", "bf16_K1",
+        "bf16_K2"))
+    for name, level, c_in in CONVS:
+        t = tables[level]
+        rows = t.mult_rows[:, :, 0].contiguous()
+        row = []
+        for dtype in (torch.float32, torch.bfloat16):
+            cat, ux, c, dz = _extended_inputs(part, level, c_in, m, rng, dev, dtype)
+            if cat.shape[0] <= ux.shape[0]:
+                raise AssertionError(f"no halo rows at {name}: N_src {cat.shape[0]}")
+            fargs = (cat, ux, t.adj_sm, rows, c)
+            bargs = (cat, ux, t.adj_sm, t.adj_t_sm, rows, c, dz)
+            label = f"{name} (halo, {dtype})"
+            if dtype == torch.float32:
+                e1 = fwd_check(k1, fargs, label)[1]
+                e2 = bwd_check(k1, bargs, label)[2]
+            else:
+                z, again = k1.facet_conv_fwd(*fargs), k1.facet_conv_fwd(*fargs)
+                g1, g2 = k1.facet_conv_bwd(*bargs), k1.facet_conv_bwd(*bargs)
+                torch.cuda.synchronize()
+                if not (torch.equal(z, again) and all(torch.equal(a, b) for a, b in zip(g1, g2))):
+                    raise AssertionError(f"K1/K2 gave different bits on the same inputs at {label}")
+                ref = k1.facet_conv_bwd_plain(*bargs)
+                e1 = bf16_close(z, k1.facet_conv_fwd_plain(*fargs), "K1 z", label)
+                e2 = max(bf16_close(g1[0], ref[0], "K2 dcat", label),
+                         bf16_close(g1[1], ref[1], "K2 dux", label))
+            worst["f32" if dtype == torch.float32 else "bf16"] = max(
+                worst["f32" if dtype == torch.float32 else "bf16"], e1, e2)
+            row.append((e1, e2, cuda_ms(lambda: k1.facet_conv_fwd(*fargs), 20)[0],
+                        cuda_ms(lambda: k1.facet_conv_bwd(*bargs), 20)[0]))
+        (e1, e2, f_ms, b_ms), (_, _, f16, b16) = row
+        print("  %-8s %6d %6d %4d %3d %9.2e %9.2e %9.5f %9.5f %9.5f %9.5f" % (
+            name, t.adj_sm.shape[1], t.adj_t_sm.shape[0], c_in, t.adj_sm.shape[0], e1, e2,
+            f_ms, b_ms, f16, b16))
+    return worst
+
+
+def level0_row_ns(dev, adj_sm, adj_t_sm, rows, label):
+    """K1 and K2 at the level-0 conv shapes (LEVEL0_CONVS, M = 9, f32) over
+    the given tables, random inputs; device ms by CUDA-graph replay (5
+    calls). Each beside its bound (:func:`bound_ms`, :func:`bwd_bound_ms`;
+    for K2 also its two-pass floor, the bound plus :func:`dg_round_trip_ms`)
+    from these inputs. Returns {conv: {"ns": (K1, K2) ns an output row,
+    "share": (K1, K2) bound over ms, "floor_share": K2's floor over ms}}."""
+    import torch
+
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
+
+    rng = np.random.default_rng(23)
+    n, m = adj_sm.shape[1], 9
+    out = {}
+    for name, c_in in LEVEL0_CONVS:
+        def t(*shape):
+            return torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev)
+
+        cat, ux, c, dz = t(adj_t_sm.shape[0], c_in + m), t(n, m), t(m), t(n, m * c_in)
+        bargs = (cat, ux, adj_sm, adj_t_sm, rows, c, dz)
+        f_ms = cuda_ms(lambda: k1.facet_conv_fwd(cat, ux, adj_sm, rows, c), 5)[0]
+        b_ms = cuda_ms(lambda: k1.facet_conv_bwd(*bargs), 5)[0]
+        z = k1.facet_conv_fwd(cat, ux, adj_sm, rows, c)
+        f_bound = bound_ms(cat, ux, adj_sm, rows, c, z)[0]
+        b_bound = bwd_bound_ms(bargs, *k1.facet_conv_bwd(*bargs))[0]
+        floor = b_bound + dg_round_trip_ms(bargs)
+        out[name] = {"ns": (1e6 * f_ms / n, 1e6 * b_ms / n),
+                     "share": (f_bound / f_ms, b_bound / b_ms), "floor_share": floor / b_ms}
+        del cat, ux, dz, bargs, z
+    print(f"  level 0, {label} ({n} rows): ns an output row, bound / ms: " + ", ".join(
+        f"{k}: K1 {r['ns'][0]:.4f} ns {r['share'][0]:.3f}, K2 {r['ns'][1]:.4f} ns "
+        f"{r['share'][1]:.3f} (two-pass floor / ms {r['floor_share']:.3f})"
+        for k, r in out.items()))
+    return out
+
+
+def halo_parity(dev, group, patch):
+    """One sharded step at one rank against the flat ``make_normals_train_step``
+    from the same state and draws: loss and every gradient within
+    HALO_PARITY_RTOL relative."""
+    import torch
+
+    from facet_graph_convolution_torch.config import default_config
+    from facet_graph_convolution_torch.parallel.halo import (
+        build_partition,
+        make_sharded_train_step,
+        sample_mask_from,
+        shard_rows,
+    )
+    from facet_graph_convolution_torch.training.trainer import (
+        _leaves,
+        create_train_state,
+        make_normals_train_step,
+        patch_tensors,
+    )
+
+    cfg = default_config()
+    rng = np.random.default_rng(29)
+    idx = np.unique(rng.integers(0, patch.num_nodes, size=cfg.train.loss_samples))
+    rot = torch.as_tensor(np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32))
+    sharded = create_train_state(cfg, device=str(dev))
+    flat = create_train_state(cfg, device=str(dev))
+    step = make_sharded_train_step(cfg, build_partition(patch.adjs, 1), group)
+    sharded, loss = step(sharded, shard_rows(patch.inputs, group),
+                         shard_rows(patch.gt_normals, group),
+                         sample_mask_from(idx, patch.num_nodes, group), rot=rot)
+    flat, loss_ref = make_normals_train_step(cfg)(flat, *patch_tensors(patch, str(dev)), rot=rot,
+                                                  sample_idx=torch.as_tensor(idx))
+    loss, loss_ref = float(loss), float(loss_ref)
+    worst = 0.0
+    for a, b in zip(_leaves(sharded.params), _leaves(flat.params)):
+        worst = max(worst, float((a.grad - b.grad).abs().max()) / (float(b.grad.abs().max())
+                                                                    or 1.0))
+    if abs(loss - loss_ref) > HALO_PARITY_RTOL * abs(loss_ref) or worst > HALO_PARITY_RTOL:
+        raise AssertionError(f"one-rank sharded step differs from the flat step: loss {loss} vs "
+                             f"{loss_ref}, gradient {worst} relative")
+    print(f"  one-rank sharded step vs flat step on the {patch.num_nodes}-node patch: loss "
+          f"{loss:.6f} vs {loss_ref:.6f}, gradients within {worst:.3e} of max|g| "
+          f"(rtol {HALO_PARITY_RTOL:g})")
+
+
+def _halo_run(cfg, patch, group, prepared, label, bf16):
+    """``train_normals_sharded`` for HALO_STEPS steps, then HALO_TIMED timed
+    steps of a step on ``prepared`` (the patch's partition and blocks) and
+    its profiles; checks finite, falling losses,
+    K1/K2 8 launches a step in the run's dtype only, no plain K1/K2, and 8
+    K1 and K2 kernels in a profiled step. Returns its numbers."""
+    import torch
+
+    from facet_graph_convolution_torch.models.augment import random_rotation
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
+    from facet_graph_convolution_torch.parallel.halo import (
+        make_sharded_train_step,
+        sample_mask_from,
+        train_normals_sharded,
+    )
+
+    plain_calls = []
+    plains = {"facet_conv_fwd_plain": k1.facet_conv_fwd_plain,
+              "facet_conv_bwd_plain": k1.facet_conv_bwd_plain}
+
+    def counted(fn):
+        def call(*a, **kw):
+            plain_calls.append(fn.__name__)
+            return fn(*a, **kw)
+        return call
+
+    for fn in (k1.facet_conv_fwd, k1.facet_conv_bwd):
+        fn.launches = fn.launches_bf16 = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for name, fn in plains.items():
+            setattr(k1, name, counted(fn))
+        t0 = time.perf_counter()
+        state, losses = train_normals_sharded(cfg, patch, HALO_STEPS, group=group, log_every=5,
+                                              seed=0)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        for name, fn in plains.items():
+            setattr(k1, name, fn)
+    counts = {k: (fn.launches, fn.launches_bf16)
+              for k, fn in (("fwd", k1.facet_conv_fwd), ("bwd", k1.facet_conv_bwd))}
+    want = (8 * HALO_STEPS, 8 * HALO_STEPS if bf16 else 0)
+    peak = (torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved())
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses}")
+    if counts != {"fwd": want, "bwd": want} or plain_calls:
+        raise AssertionError(f"{label}: launches (all, bf16) {counts}, want {want} each; plain "
+                             f"calls {plain_calls}")
+    part, x, gt, n = prepared
+    step = make_sharded_train_step(cfg, part, group)
+    mask = sample_mask_from(np.random.default_rng(1).integers(0, n, cfg.train.loss_samples), n,
+                            group)
+    rot = random_rotation(torch.Generator().manual_seed(1))
+    times = []
+    for i in range(3 + HALO_TIMED):
+        t0 = time.perf_counter()
+        state, loss = step(state, x, gt, mask, rot=rot)
+        float(loss)
+        times.append(time.perf_counter() - t0)
+    times = sorted(times[3:])
+    # the most of GRAPH_PROFILES profiles: the profiler can drop an activity
+    prof = profiled_launches(lambda: float(step(state, x, gt, mask, rot=rot)[1]), 1)[0]
+    if (prof["K1"], prof["K2"]) != (8, 8):
+        raise AssertionError(f"{label}: a profiled step shows K1/K2 kernels {prof} (want 8)")
+    wall_ms, busy_ms, _ = device_profile(lambda: float(step(state, x, gt, mask, rot=rot)[1]),
+                                         f"one {label} sharded step, {n} nodes")
+    median = times[len(times) // 2]
+    print(f"  {label}: {HALO_STEPS} steps of train_normals_sharded in {run_s:.2f} s, loss "
+          f"{losses[0]:.4f} → {losses[-1]:.4f}; K1/K2 launches (all, bf16) {counts}, plain "
+          f"none; profiled step: K1 {prof['K1']}, K2 {prof['K2']} kernels; step median "
+          f"{1e3 * median:.3f} ms (min {1e3 * times[0]:.3f}, max {1e3 * times[-1]:.3f}) over "
+          f"{HALO_TIMED}; peak allocated {peak[0] / 2**30:.3f} GiB, reserved "
+          f"{peak[1] / 2**30:.3f} GiB")
+    return {"median_s": median, "min_s": times[0], "max_s": times[-1], "peak": peak,
+            "launches": counts, "busy_ms": busy_ms, "wall_ms": wall_ms,
+            "losses": (float(losses[0]), float(losses[-1]))}
+
+
+def halo_phase(dev, workdir, bench_patch):
+    """The halo-sharded path (``parallel/``) on one card: a one-rank NCCL
+    group; K1/K2 on halo-extended sources; the one-rank sharded step against
+    the flat step; the 1,048,576-face torus trained whole (f32, then bf16)
+    and served whole; the sharded serving against ``infer_normals`` on the
+    subdivision-5 icosphere; the launcher in a subprocess. Returns the
+    main path's K1/K2 launches and its numbers."""
+    import torch
+
+    from facet_graph_convolution_torch.config import default_config
+    from facet_graph_convolution_torch.data.dataset import InferenceMesh, TrainingSet, pad_patch_to
+    from facet_graph_convolution_torch.data.synthetic import add_vertex_noise, icosphere, torus
+    from facet_graph_convolution_torch.inference.driver import infer_normals
+    from facet_graph_convolution_torch.inference.sharded import infer_normals_sharded
+    from facet_graph_convolution_torch.models.unet import init_unet, train_graph_tensors
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
+    from facet_graph_convolution_torch.parallel import distributed
+    from facet_graph_convolution_torch.parallel.halo import (
+        _prepare_sharded_mesh_arrays,
+        partition_operands,
+    )
+    from facet_graph_convolution_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    print("halo phase: the halo-sharded path at one rank (parallel/halo.py)")
+    distributed.initialize(f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0,
+                           device="cuda")
+    group = make_mesh(str(dev))
+    if (group.size, group.backend) != (1, "nccl"):
+        raise AssertionError(f"the one-rank group: size {group.size}, backend {group.backend}")
+    out = {"launches": {"fwd": 0, "bwd": 0, "fwd_bf16": 0, "bwd_bf16": 0}}
+    try:
+        out["kernel_err"] = halo_kernel_checks(dev, bench_patch)
+        halo_parity(dev, group, bench_patch)
+
+        cfg = default_config()
+        host = {}
+        t0 = time.perf_counter()
+        v, f = torus(nu=HALO_TORUS[0], nv=HALO_TORUS[1])
+        noisy = add_vertex_noise(v, f, 0.2, np.random.default_rng(0))
+        host["mesh"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds = TrainingSet(max_patch_size=10**9, coarsening_steps=2, coarsening_levels=3,
+                         k_faces=23, seed=0)
+        ds.add_mesh(noisy, f, gt_vertices=v)
+        patch = ds.patches[0]
+        host["dataset_build"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prepared = _prepare_sharded_mesh_arrays(cfg, patch, group)
+        host["pad_partition_upload"] = time.perf_counter() - t0
+        part = prepared[0]
+        edges = count_edges(pad_patch_to(patch, part.fine.num_nodes))
+        print(f"  torus {f.shape[0]} faces: padded nodes a level "
+              f"{[lvl.num_nodes for lvl in part.levels]}, conv-edges a step {edges}; host s "
+              + ", ".join(f"{k} {s:.2f}" for k, s in host.items()))
+        runs = {}
+        for label, bf16 in (("f32", False), ("bf16", True)):
+            c = cfg.replace(model={"compute_dtype": "bfloat16"}) if bf16 else cfg
+            r = runs[label] = _halo_run(c, patch, group, prepared, f"torus {label}", bf16)
+            print(f"  torus {label}: {edges / r['median_s']:.4e} conv-edges/s")
+            for key in ("fwd", "bwd"):
+                a, b16 = r["launches"][key]
+                out["launches"][key] += a - b16
+                out["launches"][key + "_bf16"] += b16
+        fine = partition_operands(part, 0, dev)[0]
+        big = level0_row_ns(dev, fine.adj_sm, fine.adj_t_sm,
+                            fine.mult_rows[:, :, 0].contiguous(), "torus level 0")
+        del fine
+        s_adjs, s_ts, s_rows = train_graph_tensors(phase_patch().adjs, dev)
+        small = level0_row_ns(dev, s_adjs[0], s_ts[0], s_rows[0][:, :, 0].contiguous(),
+                              "kernel phase level 0")
+        ratios = {k: (big[k]["ns"][0] / small[k]["ns"][0], big[k]["ns"][1] / small[k]["ns"][1])
+                  for k in big}
+        print("  ns a row, torus level 0 over the kernel phase's level 0: " + ", ".join(
+            f"{k}: K1 {a:.3f}x K2 {b:.3f}x" for k, (a, b) in ratios.items()))
+        del prepared, part
+        torch.cuda.empty_cache()
+
+        # serving: the same torus whole, random full-width weights
+        params = init_unet(seed=5, device=str(dev))
+        t0 = time.perf_counter()
+        mesh = InferenceMesh(max_patch_size=10**9, coarsening_steps=2, coarsening_levels=3,
+                             k_faces=23, seed=0)
+        mesh.add_mesh(noisy, f)
+        build_s = time.perf_counter() - t0
+        k1.facet_conv_fwd.launches = k1.facet_conv_fwd.launches_bf16 = 0
+        t0 = time.perf_counter()
+        pts, normals = infer_normals_sharded(mesh, cfg, params, group=group)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        served = k1.facet_conv_fwd.launches
+        if (served != 8 or pts.shape != v.shape or normals.shape != (f.shape[0], 3)
+                or not (np.isfinite(pts).all() and np.isfinite(normals).all())):
+            raise AssertionError(f"serving the torus: K1 {served}, shapes {pts.shape} "
+                                 f"{normals.shape}, finite {np.isfinite(pts).all()}")
+        out["launches"]["fwd"] += served
+        print(f"  served the torus whole: mesh build {build_s:.2f} s, infer_normals_sharded "
+              f"{serve_s:.2f} s ({cfg.eval.solver_iterations} solver iterations), K1 {served}")
+        del mesh, pts, normals
+
+        v5, f5 = icosphere(5)
+        mesh = InferenceMesh(max_patch_size=10**9, coarsening_steps=2, coarsening_levels=3,
+                             k_faces=23, seed=0)
+        mesh.add_mesh(add_vertex_noise(v5, f5, 0.2, np.random.default_rng(6)), f5)
+        k1.facet_conv_fwd.launches = 0
+        pts, normals = infer_normals_sharded(mesh, cfg, params, group=group)
+        out["launches"]["fwd"] += k1.facet_conv_fwd.launches
+        ref_pts, ref_normals = infer_normals(mesh, cfg, params, device=str(dev))
+        e_n, e_p = float(np.abs(normals - ref_normals).max()), float(np.abs(pts - ref_pts).max())
+        if e_n > HALO_SERVE_ATOL or e_p > HALO_SERVE_ATOL:
+            raise AssertionError(f"sharded serving vs infer_normals: normals {e_n}, points {e_p}")
+        print(f"  subdivision-5 icosphere, one patch: infer_normals_sharded vs infer_normals "
+              f"normals {e_n:.2e}, points {e_p:.2e} (atol {HALO_SERVE_ATOL:g})")
+        out.update(runs=runs, host=host, edges=edges, ratios=ratios, big=big, small=small)
+    finally:
+        distributed.shutdown()
+
+    port = _free_port()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "facet_graph_convolution_torch.parallel.launch",
+         "--num_processes", "1", "--process_id", "0", "--coordinator", f"127.0.0.1:{port}",
+         "train", "--iterations", "40"], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1]
+    print(f"  launcher, 1 process over NCCL, 40 steps in {time.perf_counter() - t0:.1f} s: "
+          f"{line}")
+    print(f"  halo phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3259,6 +3671,7 @@ def main() -> int:
             dev, vertex_records, default_config().eval.ms_solver_iterations)
         parity_launches = parity_phase(dev, workdir)
         wang_launches = wang_phase(dev, workdir)
+        halo = halo_phase(dev, workdir, trained["bench_patch"])
     print("bf16 vs f32 graph step, whole subdivision-5 icosphere (ms a step; device busy share; "
           "activities a step; capture s; graph MiB):")
     for label, r in bf16["graphs"].items():
@@ -3278,7 +3691,8 @@ def main() -> int:
         "replaces": "facet_graph_convolution_tpu/ops/pallas_conv.py:92",
         # serving, the parity capture, cli.wang (warm-up, capture, serving)
         # and the streaming runs (eager steps, warm-ups, captures)
-        "launches": launches + parity_launches + wang_launches["fwd"] + stream["launches"]["fwd"],
+        "launches": (launches + parity_launches + wang_launches["fwd"]
+                     + stream["launches"]["fwd"] + halo["launches"]["fwd"]),
         "max_abs_err": err,
         # per patch forward: the sum over the 8 conv launches of the largest
         # subdivision-5 patch
@@ -3293,7 +3707,8 @@ def main() -> int:
         "source": "facet_graph_convolution_torch/csrc/facet_conv_bwd.cu",
         "replaces": "facet_graph_convolution_tpu/ops/pallas_conv.py:111",
         # training, cli.wang's warm-up step and capture, and the streaming runs
-        "launches": train_launches["bwd"] + wang_launches["bwd"] + stream["launches"]["bwd"],
+        "launches": (train_launches["bwd"] + wang_launches["bwd"] + stream["launches"]["bwd"]
+                     + halo["launches"]["bwd"]),
         "max_abs_err": err2,
         # per train step: the sum over the 8 conv launches at the same shapes
         "ms": totals2["ms"],
@@ -3321,9 +3736,9 @@ def main() -> int:
         "route": "cuda",
         "source": f"facet_graph_convolution_torch/csrc/{source}.cu",
         "replaces": replaces,
-        # bf16 training's main path: K1/K2 in its default run, K3 in its
-        # rotation-invariant run
-        "launches": bf16["launches"][run][key],
+        # bf16 training's main path: K1/K2 in its default run (and the halo
+        # phase's bf16 torus run), K3 in its rotation-invariant run
+        "launches": bf16["launches"][run][key] + halo["launches"].get(halo_key, 0),
         "max_abs_err": bf16["checks"][key][0],
         # per train step: the 8 convs (K1, K2), conv1 (K3)
         "ms": bf16["checks"][key][1]["ms"],
@@ -3331,13 +3746,14 @@ def main() -> int:
         "bound_ms": bf16["checks"][key][1]["bound_ms"],
         "bound_by": bf16["checks"][key][2],
         "library_ms": bf16["checks"][key][1].get("library_ms"),
-    } for name, source, replaces, key, run in (
+    } for name, source, replaces, key, run, halo_key in (
         ("facet_conv_fwd_bf16", "facet_conv_fwd",
-         "facet_graph_convolution_tpu/ops/pallas_conv.py:92", "K1", "default"),
+         "facet_graph_convolution_tpu/ops/pallas_conv.py:92", "K1", "default", "fwd_bf16"),
         ("facet_conv_bwd_bf16", "facet_conv_bwd",
-         "facet_graph_convolution_tpu/ops/pallas_conv.py:111", "K2", "default"),
+         "facet_graph_convolution_tpu/ops/pallas_conv.py:111", "K2", "default", "bwd_bf16"),
         ("weighted_aggregate_bf16", "weighted_aggregate",
-         "facet_graph_convolution_tpu/ops/pallas_kernels.py:43", "K3", "rotation-invariant"),
+         "facet_graph_convolution_tpu/ops/pallas_kernels.py:43", "K3", "rotation-invariant",
+         None),
     )] + [{
         "name": "tree_pool_ignore_zeros",
         "route": "cuda",

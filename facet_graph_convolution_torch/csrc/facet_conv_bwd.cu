@@ -16,6 +16,11 @@
 //
 //   dcat[j] = [dx | dlog] of j's self slot + sum over the slots that read j
 //
+// cat may hold more rows than the N outputs (N_src >= N, the halo rows of a
+// shard of a partitioned graph after its own rows; parallel/halo.py): the
+// neighbour slots index into all N_src rows, and dcat has N_src rows, of
+// which only the first N have a self slot.
+//
 // The kernels are templates on the storage type of cat, ux, dz and dcat:
 // float32, or bfloat16 (compute_dtype="bfloat16", as _conv_epilogue_bwd runs
 // it there). Each load is upcast and everything is computed in f32; dux is
@@ -73,7 +78,8 @@
 //   smallest that covers C+M, up to 32) starts from j's self row (if live)
 //   and adds the rows of dg that its transpose map adj_t_sm[j] lists (one-
 //   indexed flat slots k*N + i, 0 = pad: row N + that) in the map's order,
-//   four rows' loads in flight at a time, into dcat[j]. A slot is read only
+//   four rows' loads in flight at a time, into dcat[j], for each of the N_src
+//   source rows (only j < N has a self row). A slot is read only
 //   when pass A wrote it (mult != 0 and adj_sm at that slot names j), so dg
 //   needs no clearing and a bad table cannot read unwritten memory.
 // dg at dconv1 is ~100 MB and outlives L2 (50 MB); reading dz from the source
@@ -168,15 +174,15 @@ __device__ __forceinline__ void load_tile_contiguous(float* tile, const S* __res
 // A slot's index: w = mult_rows[k, i] and its source row j, or w = 0, j = -1
 // for a dead slot (mult 0, a pad, or no slot at all).
 __device__ __forceinline__ void slot_index(const float* __restrict__ mult_rows,
-                                           const int* __restrict__ adj_sm, int n, int k, int i,
-                                           bool in, float& w, int& j) {
+                                           const int* __restrict__ adj_sm, int n, int n_src,
+                                           int k, int i, bool in, float& w, int& j) {
   w = 0.f;
   j = -1;
   if (in) {
     w = __ldg(mult_rows + (size_t)k * n + i);
     j = k == 0 ? i : __ldg(adj_sm + (size_t)(k - 1) * n + i) - 1;
   }
-  if (!(w != 0.f && (unsigned)j < (unsigned)n)) {
+  if (!(w != 0.f && (unsigned)j < (unsigned)n_src)) {
     w = 0.f;
     j = -1;
   }
@@ -360,8 +366,8 @@ slot_cotangents_kernel(const S* __restrict__ cat, const S* __restrict__ ux,
                        const int* __restrict__ adj_sm,
                        const float* __restrict__ mult_rows,
                        const float* __restrict__ cvec, const S* __restrict__ dz,
-                       float* __restrict__ dg, float* __restrict__ dux, int n, int k_nbr,
-                       int c_in, int m_rt, int nb, int tc, int wp, int contiguous) {
+                       float* __restrict__ dg, float* __restrict__ dux, int n, int n_src,
+                       int k_nbr, int c_in, int m_rt, int nb, int tc, int wp, int contiguous) {
   constexpr int LS = MM | 1;
   constexpr int UA = (MM + T - 1) / T;
   const int m = MM == 9 ? 9 : m_rt;
@@ -385,7 +391,7 @@ slot_cotangents_kernel(const S* __restrict__ cat, const S* __restrict__ ux,
     const bool in = team < teams && pair < np && i < n;
     float w;
     int j;
-    slot_index(mult_rows, adj_sm, n, k, i, in, w, j);
+    slot_index(mult_rows, adj_sm, n, n_src, k, i, in, w, j);
     const bool live = j >= 0;   // uniform over the team: its lanes share the slot
     float lg[UA], xp[kXS][4], s[MM], dq[MM], tail[4] = {0.f, 0.f, 0.f, 0.f};
     slot_logits<MM, T>(cat, ux, cvec, i, j, width, c_in, m, tl, lg);
@@ -425,8 +431,8 @@ slot_cotangents_pipelined(const S* __restrict__ cat, const S* __restrict__ ux,
                           const int* __restrict__ adj_sm,
                           const float* __restrict__ mult_rows,
                           const float* __restrict__ cvec, const S* __restrict__ dz,
-                          float* __restrict__ dg, float* __restrict__ dux, int n, int k_nbr,
-                          int c_in, int m_rt, int nb, int tc, int wp, int contiguous,
+                          float* __restrict__ dg, float* __restrict__ dux, int n, int n_src,
+                          int k_nbr, int c_in, int m_rt, int nb, int tc, int wp, int contiguous,
                           int groups) {
   constexpr int LS = MM | 1;
   constexpr int UA = (MM + T - 1) / T;
@@ -449,7 +455,8 @@ slot_cotangents_pipelined(const S* __restrict__ cat, const S* __restrict__ ux,
   else load_tile(tiles, dz, g * nb, nb, n, m, c_in, 0, tc, tc, ns, P, tid);
   float w, lg[UA], xp[kXS][4];
   int j;
-  slot_index(mult_rows, adj_sm, n, k, g * nb + node_l, member && g * nb + node_l < n, w, j);
+  slot_index(mult_rows, adj_sm, n, n_src, k, g * nb + node_l, member && g * nb + node_l < n, w,
+             j);
   slot_logits<MM, T>(cat, ux, cvec, g * nb + node_l, j, width, c_in, m, tl, lg);
   slot_x<T>(cat, j, width, c_in, tl, xp);
 
@@ -467,7 +474,7 @@ slot_cotangents_pipelined(const S* __restrict__ cat, const S* __restrict__ ux,
     }
     float wn;
     int jn;
-    slot_index(mult_rows, adj_sm, n, k, gn * nb + node_l,
+    slot_index(mult_rows, adj_sm, n, n_src, k, gn * nb + node_l,
                member && gn < groups && gn * nb + node_l < n, wn, jn);
 
     const bool live = j >= 0;   // uniform over the team: its lanes share the slot
@@ -514,8 +521,8 @@ __global__ void __launch_bounds__(kThreadsAnyM)
 slot_cotangents_any_m(const S* __restrict__ cat, const S* __restrict__ ux,
                       const int* __restrict__ adj_sm, const float* __restrict__ mult_rows,
                       const float* __restrict__ cvec, const S* __restrict__ dz,
-                      float* __restrict__ dg, float* __restrict__ dux, int n, int k_nbr,
-                      int c_in, int m, int wp) {
+                      float* __restrict__ dg, float* __restrict__ dux, int n, int n_src,
+                      int k_nbr, int c_in, int m, int wp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int i = blockIdx.x * (blockDim.x >> 5) + warp;
@@ -529,7 +536,7 @@ slot_cotangents_any_m(const S* __restrict__ cat, const S* __restrict__ ux,
   for (int k = 0; k <= k_nbr; ++k) {
     const float w = __ldg(mult_rows + (size_t)k * n + i);
     const int j = k == 0 ? i : __ldg(adj_sm + (size_t)(k - 1) * n + i) - 1;
-    if (!(w != 0.f && (unsigned)j < (unsigned)n)) continue;   // warp-uniform
+    if (!(w != 0.f && (unsigned)j < (unsigned)n_src)) continue;   // warp-uniform
     const S* row = cat + (size_t)j * width;
     float mx = -INFINITY;
     for (int a = lane; a < m; a += 32) {
@@ -580,16 +587,17 @@ __global__ void __launch_bounds__(kThreadsB)
 transpose_sum_kernel(const float* __restrict__ dg, const int* __restrict__ adj_t,
                      const int* __restrict__ adj_sm,
                      const float* __restrict__ mult_rows, S* __restrict__ dcat,
-                     int n, int k_nbr, int k_t, int width, int wp) {
+                     int n, int n_src, int k_nbr, int k_t, int width, int wp) {
   const int lane = threadIdx.x & 31;
   const int t = lane % TB;
   const unsigned team = (TB == 32 ? kFullMask : ((1u << TB) - 1u)) << (lane - t);
   const int node = (blockIdx.x * blockDim.x + threadIdx.x) / TB;
-  const bool valid = node < n;
+  const bool valid = node < n_src;
   S* row = dcat + (size_t)(valid ? node : 0) * width;
-  // the self slot's row, written by pass A when the slot is live
-  const float* self = dg + (size_t)(valid ? node : 0) * wp;
-  const bool self_live = valid && __ldg(mult_rows + node) != 0.f;
+  // the self slot's row, written by pass A when the slot is live (a source
+  // row past N has none)
+  const float* self = dg + (size_t)(node < n ? node : 0) * wp;
+  const bool self_live = node < n && __ldg(mult_rows + node) != 0.f;
   const long long total = (long long)k_nbr * n;
   for (int b0 = 0; b0 < width; b0 += TB * WB) {   // one block of columns up to 32 * WB
     float acc[WB];
@@ -657,7 +665,7 @@ struct Args {
   float* dg;
   S* dcat;
   float* dux;
-  int n, k_nbr, k_t, c_in, m, wp;
+  int n, n_src, k_nbr, k_t, c_in, m, wp;
   cudaStream_t stream;
 };
 
@@ -710,8 +718,8 @@ int launch_a(const Args<S>& a) {
       return err;
     const int grid = groups < per_sm * sms ? groups : per_sm * sms;
     slot_cotangents_pipelined<S, MM, T><<<grid > 0 ? grid : 1, threads, smem, a.stream>>>(
-        a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.dz, a.dg, a.dux, a.n, a.k_nbr, a.c_in,
-        a.m, nb, c_pad, a.wp, contiguous, groups);
+        a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.dz, a.dg, a.dux, a.n, a.n_src, a.k_nbr,
+        a.c_in, a.m, nb, c_pad, a.wp, contiguous, groups);
     return (int)cudaGetLastError();
   }
   int tc = 0;
@@ -732,8 +740,8 @@ int launch_a(const Args<S>& a) {
   if (err != 0) return err;
   const int threads_g = round_up((nb * ks < kThreadsA / T ? nb * ks : kThreadsA / T) * T, 32);
   slot_cotangents_kernel<S, MM, T><<<(a.n + nb - 1) / nb, threads_g, smem, a.stream>>>(
-      a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.dz, a.dg, a.dux, a.n, a.k_nbr, a.c_in,
-      a.m, nb, tc, a.wp, tc == a.c_in && contiguous);
+      a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.dz, a.dg, a.dux, a.n, a.n_src, a.k_nbr,
+      a.c_in, a.m, nb, tc, a.wp, tc == a.c_in && contiguous);
   return (int)cudaGetLastError();
 }
 
@@ -758,31 +766,32 @@ int launch_a_any_m(const Args<S>& a) {
   if (err != 0) return err;
   slot_cotangents_any_m<S><<<(a.n + kWarpsAnyM - 1) / kWarpsAnyM, kThreadsAnyM, smem,
                              a.stream>>>(
-      a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.dz, a.dg, a.dux, a.n, a.k_nbr, a.c_in, a.m,
-      a.wp);
+      a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.dz, a.dg, a.dux, a.n, a.n_src, a.k_nbr,
+      a.c_in, a.m, a.wp);
   return (int)cudaGetLastError();
 }
 
 template <typename S, int TB, int WB>
 int launch_b(const Args<S>& a) {
-  const long long threads = (long long)a.n * TB;
+  const long long threads = (long long)a.n_src * TB;
   const unsigned blocks = (unsigned)((threads + kThreadsB - 1) / kThreadsB);
   transpose_sum_kernel<S, TB, WB><<<blocks, kThreadsB, 0, a.stream>>>(
-      a.dg, a.adj_t, a.adj_sm, a.mult_rows, a.dcat, a.n, a.k_nbr, a.k_t,
+      a.dg, a.adj_t, a.adj_sm, a.mult_rows, a.dcat, a.n, a.n_src, a.k_nbr, a.k_t,
       a.c_in + a.m, a.wp);
   return (int)cudaGetLastError();
 }
 
 template <typename S>
 int run(const S* cat, const S* ux, const int* adj_sm, const int* adj_t, const float* mult_rows,
-        const float* c, const S* dz, float* dg, S* dcat, float* dux, int n, int k_nbr, int k_t,
-        int c_in, int m, void* stream) {
+        const float* c, const S* dz, float* dg, S* dcat, float* dux, int n, int n_src,
+        int k_nbr, int k_t, int c_in, int m, void* stream) {
   if (n <= 0) return 0;
-  if (c_in < 1 || m < 1 || k_nbr < 0 || k_t < 0 ||
+  // pass B's thread index (n_src * 32 at most) stays below 2^31
+  if (c_in < 1 || m < 1 || k_nbr < 0 || k_t < 0 || n_src < n || n_src > (1 << 26) ||
       reinterpret_cast<uintptr_t>(dg) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const Args<S> a{cat, ux, adj_sm, adj_t, mult_rows, c, dz, dg, dcat, dux,
-                  n, k_nbr, k_t, c_in, m, round_up(c_in + m, 8), (cudaStream_t)stream};
+                  n, n_src, k_nbr, k_t, c_in, m, round_up(c_in + m, 8), (cudaStream_t)stream};
   int err;
   if (m <= 4) err = dispatch_t<S, 4>(a);
   else if (m <= 8) err = dispatch_t<S, 8>(a);
@@ -813,9 +822,10 @@ int facet_conv_bwd_max_m(void) { return kSmemMax / (kWarpsAnyM * 3 * (int)sizeof
 
 #ifndef FACET_CONV_BWD_BF16
 
-// cat [n, c_in + m], ux [n, m], adj_sm [k_nbr, n] (one-indexed, 0 = pad),
-// adj_t [n, k_t] (one-indexed flat slots k*n + i, 0 = pad), mult_rows
-// [k_nbr + 1, n], c [m], dz [n, m * c_in] -> dcat [n, c_in + m], dux [n, m],
+// cat [n_src, c_in + m] (n_src >= n), ux [n, m], adj_sm [k_nbr, n] (one-indexed
+// into cat's rows, 0 = pad), adj_t [n_src, k_t] (one-indexed flat slots k*n + i,
+// 0 = pad), mult_rows [k_nbr + 1, n], c [m], dz [n, m * c_in] -> dcat
+// [n_src, c_in + m], dux [n, m],
 // with dg [(k_nbr + 1) * n, wp] as scratch (wp: c_in + m rounded up to 8,
 // 16-byte aligned); all f32 but the int32 tables, contiguous, on the current
 // device. Launches both passes on `stream` and returns cudaGetLastError()
@@ -823,9 +833,9 @@ int facet_conv_bwd_max_m(void) { return kSmemMax / (kWarpsAnyM * 3 * (int)sizeof
 int facet_conv_bwd_f32(const float* cat, const float* ux, const int* adj_sm,
                        const int* adj_t, const float* mult_rows, const float* c,
                        const float* dz, float* dg, float* dcat, float* dux, int n,
-                       int k_nbr, int k_t, int c_in, int m, void* stream) {
-  return run(cat, ux, adj_sm, adj_t, mult_rows, c, dz, dg, dcat, dux, n, k_nbr, k_t, c_in, m,
-             stream);
+                       int n_src, int k_nbr, int k_t, int c_in, int m, void* stream) {
+  return run(cat, ux, adj_sm, adj_t, mult_rows, c, dz, dg, dcat, dux, n, n_src, k_nbr, k_t,
+             c_in, m, stream);
 }
 
 #else
@@ -835,9 +845,10 @@ int facet_conv_bwd_f32(const float* cat, const float* ux, const int* adj_sm,
 int facet_conv_bwd_bf16(const __nv_bfloat16* cat, const __nv_bfloat16* ux, const int* adj_sm,
                         const int* adj_t, const float* mult_rows, const float* c,
                         const __nv_bfloat16* dz, float* dg, __nv_bfloat16* dcat, float* dux,
-                        int n, int k_nbr, int k_t, int c_in, int m, void* stream) {
-  return run(cat, ux, adj_sm, adj_t, mult_rows, c, dz, dg, dcat, dux, n, k_nbr, k_t, c_in, m,
-             stream);
+                        int n, int n_src, int k_nbr, int k_t, int c_in, int m,
+                        void* stream) {
+  return run(cat, ux, adj_sm, adj_t, mult_rows, c, dz, dg, dcat, dux, n, n_src, k_nbr, k_t,
+             c_in, m, stream);
 }
 
 #endif  // FACET_CONV_BWD_BF16

@@ -15,6 +15,11 @@
 // both, and so are the q tile and the staged z rows in shared memory, so
 // the shared-memory limits (facet_conv_fwd_max_m) hold for both.
 //
+// cat may hold more rows than the N outputs (N_src >= N): a shard of a
+// partitioned graph (parallel/halo.py) appends the halo rows that other
+// shards own after its own N rows, and its neighbour slots index into all
+// N_src rows. The self slot is row i < N either way.
+//
 // The TPU kernel reads a [K', N, C+M] tensor gathered beforehand by XLA,
 // because Mosaic cannot lower a dynamic gather. Here the block loads its
 // nodes' neighbour rows of cat = [x | v.x] itself, so that tensor is never
@@ -88,7 +93,8 @@ facet_conv_fwd_kernel(const S* __restrict__ cat, const S* __restrict__ ux,
                       const int* __restrict__ adj_sm,
                       const float* __restrict__ mult_rows,
                       const float* __restrict__ cvec, S* __restrict__ z,
-                      int n, int k_nbr, int c_in, int m_rt, int nb, int tpn, int groups) {
+                      int n, int n_src, int k_nbr, int c_in, int m_rt, int nb, int tpn,
+                      int groups) {
   // MG = 9, the model's filter count, is instantiated for M = 9 alone, so
   // that every division by M is by a constant
   const int m = MG == 9 ? 9 : m_rt;
@@ -116,7 +122,7 @@ facet_conv_fwd_kernel(const S* __restrict__ cat, const S* __restrict__ ux,
       w = __ldg(mult_rows + (size_t)k * n + i);
       j = k == 0 ? i : __ldg(adj_sm + (size_t)(k - 1) * n + i) - 1;
     }
-    const bool live = w != 0.f && (unsigned)j < (unsigned)n;
+    const bool live = w != 0.f && (unsigned)j < (unsigned)n_src;
     sj[s] = live ? j : -1;
     if (!live) continue;
     float* row = q + s * mp;
@@ -219,7 +225,7 @@ struct Args {
   const float* mult_rows;
   const float* c;
   S* z;
-  int n, k_nbr, c_in, m;
+  int n, n_src, k_nbr, c_in, m;
   cudaStream_t stream;
 };
 
@@ -252,8 +258,8 @@ int launch(const Args<S>& a) {
   const int threads = round_up(nb * team < kThreads ? nb * team : kThreads, 32);
   const unsigned blocks = (unsigned)((a.n + nb - 1) / nb);
   facet_conv_fwd_kernel<S, CB, MG><<<blocks, threads, smem, a.stream>>>(
-      a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.z, a.n, a.k_nbr, a.c_in, a.m, nb, tpn,
-      groups);
+      a.cat, a.ux, a.adj_sm, a.mult_rows, a.c, a.z, a.n, a.n_src, a.k_nbr, a.c_in, a.m, nb,
+      tpn, groups);
   return (int)cudaGetLastError();
 }
 
@@ -268,10 +274,12 @@ int dispatch_c(const Args<S>& a) {
 
 template <typename S>
 int run(const S* cat, const S* ux, const int* adj_sm, const float* mult_rows, const float* c,
-        S* z, int n, int k_nbr, int c_in, int m, void* stream) {
+        S* z, int n, int n_src, int k_nbr, int c_in, int m, void* stream) {
   if (n <= 0) return 0;
-  if (c_in < 1 || c_in > kMaxC || m < 1 || k_nbr < 0) return (int)cudaErrorInvalidValue;
-  const Args<S> a{cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, (cudaStream_t)stream};
+  if (c_in < 1 || c_in > kMaxC || m < 1 || k_nbr < 0 || n_src < n)
+    return (int)cudaErrorInvalidValue;
+  const Args<S> a{cat, ux, adj_sm, mult_rows, c, z, n, n_src, k_nbr, c_in, m,
+                  (cudaStream_t)stream};
   // M-groups of MG filters: M = 9, the model's, in one group of its own
   // width; wider M in groups of 16
   if (m <= 4) return dispatch_c<S, 4>(a);
@@ -300,22 +308,23 @@ int facet_conv_fwd_max_m(int k_nbr, int c_in) {
   return lo;
 }
 
-// cat [n, c_in + m], ux [n, m], adj_sm [k_nbr, n] (one-indexed, 0 = pad),
-// mult_rows [k_nbr + 1, n], c [m] -> z [n, m * c_in]; all f32 but adj_sm
+// cat [n_src, c_in + m] (n_src >= n: rows past n are sources only), ux [n, m],
+// adj_sm [k_nbr, n] (one-indexed into cat's rows, 0 = pad), mult_rows
+// [k_nbr + 1, n], c [m] -> z [n, m * c_in]; all f32 but adj_sm
 // (int32), contiguous, on the current device. Launches on `stream` and
 // returns cudaGetLastError() after the launch (0 when it was accepted).
 int facet_conv_fwd_f32(const float* cat, const float* ux, const int* adj_sm,
                        const float* mult_rows, const float* c, float* z, int n,
-                       int k_nbr, int c_in, int m, void* stream) {
-  return run(cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, stream);
+                       int n_src, int k_nbr, int c_in, int m, void* stream) {
+  return run(cat, ux, adj_sm, mult_rows, c, z, n, n_src, k_nbr, c_in, m, stream);
 }
 
 // The same with cat, ux and z in bfloat16 (mult_rows and c f32): f32 inside,
 // z rounded once.
 int facet_conv_fwd_bf16(const __nv_bfloat16* cat, const __nv_bfloat16* ux, const int* adj_sm,
                         const float* mult_rows, const float* c, __nv_bfloat16* z, int n,
-                        int k_nbr, int c_in, int m, void* stream) {
-  return run(cat, ux, adj_sm, mult_rows, c, z, n, k_nbr, c_in, m, stream);
+                        int n_src, int k_nbr, int c_in, int m, void* stream) {
+  return run(cat, ux, adj_sm, mult_rows, c, z, n, n_src, k_nbr, c_in, m, stream);
 }
 
 }  // extern "C"

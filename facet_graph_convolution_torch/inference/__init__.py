@@ -15,12 +15,13 @@ _EXPORTS = {
     "InferenceServer": "serving",
     "export_forward": "serving",
     "load_forward": "exported",
+    "infer_normals_sharded": "sharded",
 }
 __all__ = sorted(_EXPORTS)
 
-# the JAX package's sharded inference (inference/sharded.py), which waits
-# for the port's multi-GPU slice
-NOT_YET_PORTED = ("infer_normals_sharded", "infer_with_vertices_sharded")
+# the JAX package's multi-scale sharded inference (inference/sharded.py:97),
+# which waits for the sharded multi-scale vertex solver
+NOT_YET_PORTED = ("infer_with_vertices_sharded",)
 
 
 def __getattr__(name):

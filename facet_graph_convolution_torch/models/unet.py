@@ -27,6 +27,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from facet_graph_convolution_torch.graph.convert import (
     batched_level_tables,
@@ -104,12 +105,20 @@ def _no_record(name: str, t: torch.Tensor) -> None:
     pass
 
 
+def _fine_head(fc1, out0, d1, alpha):
+    return linear(out0, lrelu(linear(fc1, d1), alpha))
+
+
 def _network(params: Dict, x: torch.Tensor, conv: Callable, levels: int,
              coarsening_steps: int, alpha: float, multi_scale: bool,
-             record: Callable[[str, torch.Tensor], None] = _no_record) -> Output:
+             record: Callable[[str, torch.Tensor], None] = _no_record,
+             remat_head: bool = False) -> Output:
     """The U-Net of the module docstring around ``conv(name, h, level)``;
     ``record(name, t)`` sees the intermediates of the fine path under the
-    reference's scope names (``evaluation/parity.py``)."""
+    reference's scope names (``evaluation/parity.py``). ``remat_head`` runs
+    the fine fc head (3-level network) under ``torch.utils.checkpoint``, so
+    that its [N, fc] activations are recomputed in the backward rather than
+    kept (``record`` then does not see ``fc1``)."""
     if levels == 1 and multi_scale:
         raise ValueError("multi_scale heads need the 3-level pyramid; got a single "
                          "adjacency level (the reference hard-codes 3 levels, settings.py:32)")
@@ -137,9 +146,13 @@ def _network(params: Dict, x: torch.Tensor, conv: Callable, levels: int,
     u1 = conv("upconv1", u1, 0)
     d1 = lrelu(conv("dconv1", torch.cat([u1, h1], dim=-1), 0), alpha)
 
-    h = lrelu(linear(params["fc1"], d1), alpha)
-    record("fc1", h)
-    y_fine = linear(params["out0"], h)
+    if remat_head:
+        y_fine = torch.utils.checkpoint.checkpoint(
+            _fine_head, params["fc1"], params["out0"], d1, alpha, use_reentrant=False)
+    else:
+        h = lrelu(linear(params["fc1"], d1), alpha)
+        record("fc1", h)
+        y_fine = linear(params["out0"], h)
     record("out0", y_fine)
     if not multi_scale:
         return y_fine

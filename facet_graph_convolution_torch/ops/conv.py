@@ -38,7 +38,7 @@ the position-for-assignment convs (model.py:610-760).
 from __future__ import annotations
 
 import enum
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -193,13 +193,14 @@ class Bf16Matmul(torch.autograd.Function):
         return dz, dw
 
 
-def _facet_conv_rotinv(params, x, adj_sm, adj_t_sm, rows, compute_dtype):
+def _facet_conv_rotinv(params, x, adj_sm, adj_t_sm, rows, compute_dtype, src):
     """The rotation-invariant conv on the padded ``x`` [N', C] (JAX
-    ``_facet_conv_nminor_rotinv``): the neighbours are gathered once, with
-    zeros in pad slots, and serve both the features and K3. The features
-    and the softmax are in x's dtype; q and the slots reach K3 in
-    ``compute_dtype`` (None: x's)."""
-    x_slots = torch.cat([x[None], gather_slots(x, adj_sm, adj_t_sm)], dim=0)   # [S, N', C]
+    ``_facet_conv_nminor_rotinv``): the neighbours are gathered once from
+    the source rows ``src`` (``x``, or ``x`` halo-extended), with zeros in
+    pad slots, and serve both the features and K3. The features and the
+    softmax are in x's dtype; q and the slots reach K3 in ``compute_dtype``
+    (None: x's)."""
+    x_slots = torch.cat([x[None], gather_slots(src, adj_sm, adj_t_sm)], dim=0)  # [S, N', C]
     feats = _rotation_invariant_feats(x, x_slots[1:], self_slot=True)          # [S, N', C]
     q = torch.softmax(feats @ params["u"].T + params["c"], dim=-1) * rows[..., None]
     if compute_dtype is not None:
@@ -215,6 +216,7 @@ def facet_conv(
     variant: FacetConvVariant = FacetConvVariant.DEFAULT,
     adj_t_sm: Optional[torch.Tensor] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    extend: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Facet conv ``x`` [N, C] → [N, out] over the kernel tables of
     :func:`facet_graph_convolution_torch.graph.convert.slot_major_arrays`:
@@ -226,7 +228,13 @@ def facet_conv(
     variant takes 3, 4 or 6 input channels. ``compute_dtype`` (float32 or
     bfloat16; None keeps x's dtype, float64 in the plain checks) is the
     dtype of the conv's interiors (module docstring); under bfloat16 the
-    output is f32."""
+    output is f32.
+
+    ``extend`` (a shard of a partitioned graph, :mod:`..parallel.halo`)
+    maps the N owned source rows to N_src ≥ N: it is applied to ``cat``
+    (in ``compute_dtype``) or, under the rotation-invariant variant, to
+    ``x``, before the gather, and the tables index into the N_src rows
+    (``adj_t_sm`` has N_src rows; ``mult_rows`` N columns, no padding)."""
     if compute_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"facet_conv: compute_dtype {compute_dtype}, needs torch.float32 or "
                          "torch.bfloat16")
@@ -237,16 +245,22 @@ def facet_conv(
 
     # padded destinations have all-zero mult rows → zero z rows
     pad = mult_rows.shape[1] - n
+    if pad and extend is not None:
+        raise ValueError(f"facet_conv: mult_rows has {mult_rows.shape[1]} columns for {n} "
+                         "rows; a halo-extended conv takes unpadded tables")
     if pad:
         x = torch.nn.functional.pad(x, (0, 0, 0, pad))
     rows = mult_rows[:, :, 0]
     if variant == FacetConvVariant.ROTATION_INVARIANT:
-        z = _facet_conv_rotinv(params, x, adj_sm, adj_t_sm, rows, compute_dtype)
+        z = _facet_conv_rotinv(params, x, adj_sm, adj_t_sm, rows, compute_dtype,
+                               x if extend is None else extend(x))
     else:
         proj = -u if variant == FacetConvVariant.TRANSLATION_INVARIANT else params["v"]
         cat, ux = torch.cat([x, x @ proj.T], dim=-1), x @ u.T
         if compute_dtype is not None:
             cat, ux = cat.to(compute_dtype), ux.to(compute_dtype)
+        if extend is not None:
+            cat = extend(cat)
         z = facet_conv_epilogue(cat.contiguous(), ux.contiguous(), c, adj_sm, adj_t_sm, rows)
     # z columns are m-major (m·C + ch)
     w_flat = w.permute(1, 0, 2).reshape(out_ch, m * in_ch)

@@ -23,8 +23,13 @@ index 0 a pad):
     logits = ux[i] + vx[j] + c;  s = softmax_M(logits);  q = s · mult_rows[k, i]
     z[i, m·C + ch] = Σ_k q[m] · x[j, ch]
 
-with ``cat = [x | vx]`` [N, C+M], ``ux`` [N, M], ``adj_sm`` [K', N] int32,
-``mult_rows`` [K'+1, N] f32, ``c`` [M] f32 → ``z`` [N, M·C].
+with ``cat = [x | vx]`` [N_src, C+M], ``ux`` [N, M], ``adj_sm`` [K', N] int32,
+``mult_rows`` [K'+1, N] f32, ``c`` [M] f32 → ``z`` [N, M·C]. ``cat`` may hold
+more rows than the N outputs (N_src ≥ N): a shard of a partitioned graph
+(:mod:`..parallel.halo`) appends the halo rows that other shards own after
+its own, its neighbour slots index into all N_src rows, and the self slot
+is row i < N. K2's ``dcat`` then has N_src rows, and its transpose map
+``adj_t_sm`` lists the slots that read each of them.
 
 Both kernels take float32 or bfloat16 ``cat`` and ``ux`` (one dtype for
 both, and for ``dz``: the conv's compute dtype). In bfloat16 they upcast
@@ -67,9 +72,9 @@ def upcast_bf16(t):
 
 
 def _slots(cat, adj_sm):
-    """[K'+1, N, C+M]: each node's own row, then its gathered neighbour rows
-    (zero rows for pads)."""
-    return torch.cat([cat[None], gather_neighbors(cat, adj_sm)], dim=0)
+    """[K'+1, N, C+M]: each node's own row (the first N of ``cat``'s N_src),
+    then its gathered neighbour rows (zero rows for pads)."""
+    return torch.cat([cat[None, :adj_sm.shape[1]], gather_neighbors(cat, adj_sm)], dim=0)
 
 
 def facet_conv_fwd_plain(cat, ux, adj_sm, mult_rows, c):
@@ -95,9 +100,10 @@ def facet_conv_bwd_plain(cat, ux, adj_sm, adj_t_sm, mult_rows, c, dz):
     ``dx = Σ_m w·s[m]·dz_m``, ``dq[m] = w·⟨x_j, dz_m⟩``,
     ``dlog = s ⊙ (dq − ⟨s, dq⟩)``; ``dux = Σ_k dlog``. The self slot's
     ``[dx | dlog]`` is node i's own row of ``dcat``; a neighbour slot's row
-    goes to its source j through the transpose map ``adj_t_sm`` [N, K_t],
+    goes to its source j through the transpose map ``adj_t_sm`` [N_src, K_t],
     which lists the one-indexed flat slots ``k·N + i`` that read j (0 = pad):
-    a gather-sum, no scatter. On bfloat16 inputs it computes in f32 (upcast)
+    a gather-sum, no scatter; only the first N source rows have a self row.
+    On bfloat16 inputs it computes in f32 (upcast)
     and rounds dcat to cat's dtype once; dux is f32 (K2's contract)."""
     dtype = cat.dtype
     cat, ux, dz = upcast_bf16(cat), upcast_bf16(ux), upcast_bf16(dz)
@@ -113,8 +119,9 @@ def facet_conv_bwd_plain(cat, ux, adj_sm, adj_t_sm, mult_rows, c, dz):
     dlog = s * (dq - (dq * s).sum(dim=-1, keepdim=True))
     dsrc = torch.cat([dx, dlog], dim=-1)                          # [K'+1, N, C+M]
     dg = torch.cat([dsrc.new_zeros(1, dsrc.shape[-1]), dsrc[1:].reshape(-1, dsrc.shape[-1])])
-    dcat = dsrc[0] + dg.index_select(0, adj_t_sm.reshape(-1).long()).reshape(
-        n, adj_t_sm.shape[1], -1).sum(dim=1)
+    n_src = adj_t_sm.shape[0]
+    dcat = torch.nn.functional.pad(dsrc[0], (0, 0, 0, n_src - n)) + dg.index_select(
+        0, adj_t_sm.reshape(-1).long()).reshape(n_src, adj_t_sm.shape[1], -1).sum(dim=1)
     return dcat.to(dtype), dlog.sum(dim=0)
 
 
@@ -133,8 +140,8 @@ def _library(name: str, dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
         # Python ints as 32-bit C ints and cut the addresses
         p, i = ctypes.c_void_p, ctypes.c_int
         for entry in entries:
-            entry.argtypes = ([p] * 6 + [i] * 4 + [p] if name == "facet_conv_fwd"
-                              else [p] * 10 + [i] * 5 + [p])
+            entry.argtypes = ([p] * 6 + [i] * 5 + [p] if name == "facet_conv_fwd"
+                              else [p] * 10 + [i] * 6 + [p])
             entry.restype = ctypes.c_int
         if name == "facet_conv_fwd":
             lib.facet_conv_fwd_max_c.restype = i
@@ -171,8 +178,11 @@ def _check(kernel, cat, ux, adj_sm, mult_rows, c, **extra):
     if cat.dtype not in ENTRY_SUFFIX:
         raise TypeError(f"{kernel}: cat is {cat.dtype}; the kernel takes "
                         f"{sorted(str(d) for d in ENTRY_SUFFIX)}")
+    n_src = cat.shape[0]
+    if n_src < n:
+        raise ValueError(f"{kernel}: cat has {n_src} rows, fewer than the N={n} outputs")
     expect = {
-        "cat": (cat, cat.dtype, (n, cat.shape[1])),
+        "cat": (cat, cat.dtype, (n_src, cat.shape[1])),
         "ux": (ux, cat.dtype, (n, m)),
         "adj_sm": (adj_sm, torch.int32, (k_nbr, n)),
         "mult_rows": (mult_rows, torch.float32, (k_nbr + 1, n)),
@@ -192,6 +202,8 @@ def _check(kernel, cat, ux, adj_sm, mult_rows, c, **extra):
         raise ValueError(f"{kernel}: cat width {cat.shape[1]} leaves no channels for M={m}")
     if n * max(k_nbr, 1) >= 2**31:
         raise ValueError(f"{kernel}: N={n}, K'={k_nbr} overflow the kernel's int32 slot index")
+    if n_src > 2**26:
+        raise ValueError(f"{kernel}: N_src={n_src} source rows overflow K2's int32 thread index")
     lib = _library(kernel, cat.dtype)
     max_m = _max_m(kernel, lib, k_nbr, cat.shape[1] - m)
     if m > max_m:
@@ -229,7 +241,7 @@ def _launch_fwd(lib, cat, ux, adj_sm, mult_rows, c):
         stream = torch.cuda.current_stream(cat.device).cuda_stream
         err = getattr(lib, "facet_conv_fwd" + ENTRY_SUFFIX[cat.dtype])(
             cat.data_ptr(), ux.data_ptr(), adj_sm.data_ptr(), mult_rows.data_ptr(),
-            c.data_ptr(), z.data_ptr(), n, k_nbr, c_in, m, stream)
+            c.data_ptr(), z.data_ptr(), n, cat.shape[0], k_nbr, c_in, m, stream)
     if err != 0:
         raise RuntimeError(f"facet_conv_fwd: kernel launch failed (cudaError {err})")
     facet_conv_fwd.launches += 1
@@ -309,8 +321,9 @@ def facet_conv_bwd(cat, ux, adj_sm, adj_t_sm, mult_rows, c, dz):
     if adj_t_sm.dim() != 2:
         raise ValueError(f"facet_conv_bwd: adj_t_sm has {adj_t_sm.dim()} dims, needs 2")
     k_t = adj_t_sm.shape[1]
+    n_src = cat.shape[0]
     lib = _check("facet_conv_bwd", cat, ux, adj_sm, mult_rows, c,
-                 adj_t_sm=(adj_t_sm, torch.int32, (n, k_t)),
+                 adj_t_sm=(adj_t_sm, torch.int32, (n_src, k_t)),
                  dz=(dz, cat.dtype, (n, m * c_in)))
     # dg holds every live slot's row [dx | dlog] between the kernel's two
     # passes (row k*N + i, the self slots first), padded to 8 floats so that
@@ -319,14 +332,14 @@ def facet_conv_bwd(cat, ux, adj_sm, adj_t_sm, mult_rows, c, dz):
     # rounded once, after the sum of its slots' rows
     dg = torch.empty(((k_nbr + 1) * n, -(-width // 8) * 8), device=cat.device,
                      dtype=torch.float32)
-    dcat = torch.empty((n, width), device=cat.device, dtype=cat.dtype)
+    dcat = torch.empty((n_src, width), device=cat.device, dtype=cat.dtype)
     dux = torch.empty((n, m), device=cat.device, dtype=torch.float32)
     with torch.cuda.device(cat.device):
         stream = torch.cuda.current_stream(cat.device).cuda_stream
         err = getattr(lib, "facet_conv_bwd" + ENTRY_SUFFIX[cat.dtype])(
             cat.data_ptr(), ux.data_ptr(), adj_sm.data_ptr(), adj_t_sm.data_ptr(),
             mult_rows.data_ptr(), c.data_ptr(), dz.data_ptr(), dg.data_ptr(),
-            dcat.data_ptr(), dux.data_ptr(), n, k_nbr, k_t, c_in, m, stream)
+            dcat.data_ptr(), dux.data_ptr(), n, n_src, k_nbr, k_t, c_in, m, stream)
     if err != 0:
         raise RuntimeError(f"facet_conv_bwd: kernel launch failed (cudaError {err})")
     facet_conv_bwd.launches += 1

@@ -1577,3 +1577,132 @@ def test_bf16_kernels_refuse_mixed_dtypes(cuda, rng):
     with pytest.raises(TypeError):
         k3.weighted_aggregate(torch.zeros(3, 8, 4, device=cuda, dtype=torch.bfloat16),
                               torch.zeros(3, 8, 6, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# Halo-extended sources (parallel/halo.py): cat holds N_src > N rows
+# ---------------------------------------------------------------------------
+
+def _halo_tables(rng, n, n_src, k):
+    """Slot tables of N nodes whose neighbours are any of N_src ≥ N source
+    rows (a shard's owned rows, then its halo), with duplicate slots, and
+    the transpose map over all N_src."""
+    from facet_graph_convolution_torch.graph.convert import fused_mult_rows, transpose_adjacency
+
+    adj = np.zeros((n, k), np.int32)
+    adj[:, 0] = np.arange(n) + 1
+    for i in range(n):
+        deg = int(rng.integers(0, k - 1))
+        adj[i, 1:1 + deg] = rng.choice(n_src, size=deg, replace=True) + 1
+    nbr, m_n, s_m = split_self_klist(*dedupe_klist(adj))
+    adj_sm = np.ascontiguousarray(nbr.T)
+    return adj_sm, transpose_adjacency(adj_sm, num_targets=n_src), fused_mult_rows(m_n, s_m)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in", [6, 64, 128])
+def test_kernels_take_halo_extended_sources(cuda, rng, c_in, dtype):
+    """K1 and K2 with N_src = N + 40%: against their plain versions (f32
+    1e-5; bf16 2^-8 × max|plain|) and bitwise repeatable; dcat has N_src
+    rows, the halo rows summing only the slots that read them."""
+    n, n_src, m = 1500, 2100, 9
+    adj_sm, adj_t_sm, rows = _halo_tables(rng, n, n_src, 14)
+    t = [torch.as_tensor(a, device=cuda) for a in (
+        rng.normal(size=(n_src, c_in + m)).astype(np.float32),
+        rng.normal(size=(n, m)).astype(np.float32), adj_sm, adj_t_sm, rows,
+        rng.normal(size=(m,)).astype(np.float32),
+        rng.normal(size=(n, m * c_in)).astype(np.float32))]
+    cat, ux, dz = t[0].to(dtype), t[1].to(dtype), t[6].to(dtype)
+    fwd = (cat, ux, t[2], t[4], t[5])
+    bwd = (cat, ux, t[2], t[3], t[4], t[5], dz)
+    z = k1.facet_conv_fwd(*fwd)
+    dcat, dux = k1.facet_conv_bwd(*bwd)
+    assert z.shape == (n, m * c_in) and dcat.shape == (n_src, c_in + m)
+    assert torch.equal(z, k1.facet_conv_fwd(*fwd))
+    assert all(torch.equal(a, b) for a, b in zip((dcat, dux), k1.facet_conv_bwd(*bwd)))
+    for got, ref in zip((z, dcat, dux), (k1.facet_conv_fwd_plain(*fwd),
+                                         *k1.facet_conv_bwd_plain(*bwd))):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+        else:
+            assert float((got.float() - ref.float()).abs().max()) <= (
+                2.0 ** -8 * float(ref.float().abs().max()))
+
+
+def test_kernels_past_32_bit_element_offsets(cuda, rng):
+    """N = 3,801,088 nodes, C = 64, M = 9: z has N·M·C and K2's scratch
+    (K'+1)·N·80 elements, both past 2^31. The graph is 928 copies of one
+    4,096-node graph with the same inputs, so every copy's rows of z, dcat
+    and dux must equal the first copy's bit for bit, and the first copy's
+    the plain versions' on the 4,096-node tables."""
+    n0, copies, c_in, m, k = 4096, 928, 64, 9, 14
+    adj_sm0, _, rows0 = _all_tables(rng, n0, k)
+    k_nbr = adj_sm0.shape[0]
+    n = n0 * copies
+    assert n * m * c_in > 2**31 and (k_nbr + 1) * n * 80 > 2**31
+    offs = np.repeat(np.arange(copies, dtype=np.int64) * n0, n0)
+    adj_sm = np.where(np.tile(adj_sm0, copies) > 0, np.tile(adj_sm0, copies) + offs, 0)
+    from facet_graph_convolution_torch.graph.convert import transpose_adjacency
+
+    adj_t_sm = transpose_adjacency(adj_sm.astype(np.int32), num_targets=n)
+    small = [rng.normal(size=s).astype(np.float32) for s in (
+        (n0, c_in + m), (n0, m), (m,), (n0, m * c_in))]
+    cat, ux, dz = (torch.as_tensor(a, device=cuda).repeat(copies, 1)
+                   for a in (small[0], small[1], small[3]))
+    c = torch.as_tensor(small[2], device=cuda)
+    tables = [torch.as_tensor(a, device=cuda) for a in (
+        adj_sm.astype(np.int32), adj_t_sm, np.tile(rows0, copies))]
+    z = k1.facet_conv_fwd(cat, ux, tables[0], tables[2], c)
+    dcat, dux = k1.facet_conv_bwd(cat, ux, tables[0], tables[1], tables[2], c, dz)
+    for t in (z, dcat, dux):
+        assert torch.equal(t[-n0:], t[:n0])
+    del cat, ux, dz, tables
+    s = [torch.as_tensor(a, device=cuda) for a in (
+        small[0], small[1], adj_sm0, transpose_adjacency(adj_sm0, num_targets=n0), rows0,
+        small[2], small[3])]
+    torch.testing.assert_close(z[:n0], k1.facet_conv_fwd_plain(*s[:3], *s[4:6]),
+                               atol=1e-5, rtol=1e-5)
+    for got, ref in zip((dcat[:n0], dux[:n0]), k1.facet_conv_bwd_plain(*s)):
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_sharded_step_at_one_rank_equals_flat_step(cuda):
+    """The halo path at one rank (no process group, no exchange) against the
+    flat train step from the same state and draws on the card: loss and
+    every gradient within 1e-5 relative."""
+    from facet_graph_convolution_torch.data.dataset import TrainingSet, bucket_size, pad_patch_to
+    from facet_graph_convolution_torch.parallel.halo import (
+        build_partition,
+        make_sharded_train_step,
+        sample_mask_from,
+        shard_rows,
+    )
+    from facet_graph_convolution_torch.parallel.mesh import GraphGroup
+    from facet_graph_convolution_torch.training.trainer import (
+        _leaves,
+        create_train_state,
+        make_normals_train_step,
+        patch_tensors,
+    )
+
+    v, f = icosphere(3)
+    ds = TrainingSet(max_patch_size=10**9, coarsening_steps=2, coarsening_levels=3,
+                     k_faces=23, seed=0)
+    ds.add_mesh(add_vertex_noise(v, f, 0.1, np.random.default_rng(1)), f, gt_vertices=v)
+    patch = pad_patch_to(ds.patches[0], bucket_size(ds.patches[0].num_nodes, 1024))
+    cfg = default_config().replace(model={"channels": (8, 16, 32), "num_filters": 4,
+                                          "fc_channels": 32}, train={"loss_samples": 512})
+    group = GraphGroup(0, 1, cuda)
+    rng = np.random.default_rng(2)
+    idx = np.unique(rng.integers(0, patch.num_nodes, 512))
+    rot = torch.as_tensor(np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32))
+    a, b = (create_train_state(cfg, device="cuda") for _ in range(2))
+    step = make_sharded_train_step(cfg, build_partition(patch.adjs, 1), group)
+    a, loss = step(a, shard_rows(patch.inputs, group), shard_rows(patch.gt_normals, group),
+                   sample_mask_from(idx, patch.num_nodes, group), rot=rot)
+    b, ref = make_normals_train_step(cfg)(b, *patch_tensors(patch, "cuda"), rot=rot,
+                                          sample_idx=torch.as_tensor(idx))
+    assert abs(float(loss) - float(ref)) <= 1e-5 * abs(float(ref))
+    for p, q in zip(_leaves(a.params), _leaves(b.params)):
+        torch.testing.assert_close(p.grad, q.grad, atol=1e-5 * float(q.grad.abs().max()),
+                                   rtol=0)

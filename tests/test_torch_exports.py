@@ -2,9 +2,13 @@
 
 - Each subpackage's ``__init__`` re-exports the names that its JAX
   namesake's does, and no others, except the named lists: JAX-only entry
-  points (``ops.JAX_ONLY``) and the sharded inference that waits for the
-  multi-GPU slice (``inference.NOT_YET_PORTED``). The JAX ``parallel``
-  subpackage waits for that slice as a whole.
+  points (``ops.JAX_ONLY``, and ``parallel.JAX_ONLY``: the node-minor forms
+  of names the port has in its one layout), the multi-scale sharded
+  inference that waits for the sharded multi-scale solver
+  (``inference.NOT_YET_PORTED``) and the parallel entry points of later
+  slices (``parallel.NOT_YET_PORTED``). JAX's ``distributed`` helpers that
+  ``torch.distributed`` has no use for are named, with a reason, in
+  ``parallel.distributed.NO_COUNTERPART``.
 - The four host functions that the port lacked (``vertex_adjacency_klist``,
   ``permute_data``, ``klist_degrees``, ``klist_to_coo``) equal JAX's bit for
   bit on ``tests/test_graph.py``'s fixtures.
@@ -41,17 +45,19 @@ from facet_graph_convolution_tpu.ops import init_facet_conv as jax_init_facet_co
 from facet_graph_convolution_tpu.ops import init_linear as jax_init_linear
 from facet_graph_convolution_tpu.ops.conv import FacetConvVariant as JaxVariant
 import facet_graph_convolution_torch
-from facet_graph_convolution_torch import graph, inference, ops
+from facet_graph_convolution_torch import graph, inference, ops, parallel
 from facet_graph_convolution_torch.graph.convert import transpose_adjacency
 from facet_graph_convolution_torch.models.unet import init_unet
 from facet_graph_convolution_torch.ops.conv import FacetConvVariant, per_conv_variants
 
 SUBPACKAGES = ("", "data", "evaluation", "geometry", "graph", "inference", "models", "ops",
-               "training", "utils")
+               "parallel", "training", "utils")
 # JAX re-exports per subpackage (the counts its __init__ files list)
 JAX_COUNTS = {"": 2, "data": 11, "evaluation": 12, "geometry": 34, "graph": 18,
-              "inference": 8, "models": 10, "ops": 29, "training": 7, "utils": 5}
-LEFT_OUT = {"ops": set(ops.JAX_ONLY), "inference": set(inference.NOT_YET_PORTED)}
+              "inference": 8, "models": 10, "ops": 29, "parallel": 20, "training": 7,
+              "utils": 5}
+LEFT_OUT = {"ops": set(ops.JAX_ONLY), "inference": set(inference.NOT_YET_PORTED),
+            "parallel": set(parallel.JAX_ONLY) | set(parallel.NOT_YET_PORTED)}
 
 
 def _module(package, sub):
@@ -81,6 +87,21 @@ def test_port_reexports_the_jax_names(sub):
         assert hasattr(port, name), name
     assert not any(hasattr(port, name) for name in left_out)
 
+
+
+def test_parallel_names_without_a_counterpart_exist_in_jax():
+    """Each JAX ``parallel.distributed`` function that the port leaves out
+    exists there, has a reason, and is absent from the port's module, whose
+    own entry points (``initialize``, ``devices_per_host``) are present."""
+    from facet_graph_convolution_torch.parallel import distributed
+    from facet_graph_convolution_tpu.parallel import distributed as jax_distributed
+
+    assert set(distributed.NO_COUNTERPART) == {"make_multihost_mesh", "distribute", "replicate"}
+    for name, reason in distributed.NO_COUNTERPART.items():
+        assert callable(getattr(jax_distributed, name)) and reason
+        assert not hasattr(distributed, name)
+    for name in ("initialize", "devices_per_host"):
+        assert callable(getattr(jax_distributed, name)) and callable(getattr(distributed, name))
 
 def test_the_jax_import_forms_work_in_the_port():
     from facet_graph_convolution_torch.geometry import compute_face_normals

@@ -108,11 +108,14 @@ def build(source, only=None):
     for name, proc in procs.items():
         if proc.wait() != 0:
             raise SystemExit(f"k1_phase_probe: nvcc failed for {design} {name}")
+    # a source from before the entry took the source row count has one int less
+    ints = 5 if "int n_src" in src else 4
     libs = {}
     for name in variants:
         lib = ctypes.CDLL(os.path.join(OUT, f"lib{design}_{name}.so"))
-        lib.facet_conv_fwd_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        lib.facet_conv_fwd_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * ints + [
             ctypes.c_void_p]
+        lib.takes_src = ints == 5
         libs[name] = lib
     return design, libs
 
@@ -141,7 +144,7 @@ def main() -> int:
             def launch(lib=lib):
                 err = lib.facet_conv_fwd_f32(
                     cat.data_ptr(), ux.data_ptr(), adj_sm.data_ptr(), rows.data_ptr(),
-                    c.data_ptr(), z.data_ptr(), n, k_nbr, c_in, m,
+                    c.data_ptr(), z.data_ptr(), n, *((n,) if lib.takes_src else ()), k_nbr, c_in, m,
                     torch.cuda.current_stream().cuda_stream)
                 if err != 0:
                     raise RuntimeError(f"k1_phase_probe: launch failed (cudaError {err})")

@@ -91,7 +91,7 @@ def build():
     libs = {}
     for name in VARIANTS:
         lib = ctypes.CDLL(os.path.join(OUT, f"lib{name}.so"))
-        lib.facet_conv_bwd_f32.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+        lib.facet_conv_bwd_f32.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         libs[name] = lib
     return libs
@@ -122,7 +122,7 @@ def main() -> int:
                 err = lib.facet_conv_bwd_f32(
                     cat.data_ptr(), ux.data_ptr(), adj_sm.data_ptr(), adj_t_sm.data_ptr(),
                     rows.data_ptr(), c.data_ptr(), dz.data_ptr(), dg.data_ptr(),
-                    dcat.data_ptr(), dux.data_ptr(), n, k_nbr, adj_t_sm.shape[1], c_in, m,
+                    dcat.data_ptr(), dux.data_ptr(), n, n, k_nbr, adj_t_sm.shape[1], c_in, m,
                     torch.cuda.current_stream().cuda_stream)
                 if err != 0:
                     raise RuntimeError(f"k2_phase_probe: launch failed (cudaError {err})")
