@@ -208,6 +208,39 @@ Phases, each fatal on failure:
    1e-4; then the launcher (``python -m
    facet_graph_convolution_torch.parallel.launch --num_processes 1 ...
    train --iterations 40``) in a subprocess, which must exit 0.
+   In the same one-rank group, before the launcher, the rest of the
+   multi-GPU path:
+19b. sharded vertex serving: ``infer_with_vertices_sharded`` of the same
+   torus built with vertices, three random full-width heads: finite
+   outputs, K1 8 and K4 100 launches (80 at 4 rounds, 20 at 2; the scale
+   kernel none), the points within 1e-4 of the flat
+   ``update_positions_multiscale`` (the scale kernel) on the same normals;
+   wall seconds by stage, the busy share of a profiled call, peak memory;
+19c. K4 at the sharded solve's pool inputs (the torus's face centres and
+   the training torus's, with zero and -0.0 rows, 4 and 2 rounds): the
+   forward bit for bit against the plain pool, the backward kernel
+   (``tree_pool_iz_bwd``) within 1e-6 of autograd through the plain pool,
+   both bitwise repeatable; device ms, plain ms and bounds a solve;
+19d. sharded vertex training (``parallel/vertex_train.py``) on a
+   102,400-face torus at full width, operator then naive solver: one
+   step's gradients against the flat ``make_vertex_train_step``'s by the
+   pinned-kink comparison at 2e-3 (as they are where no kink differs),
+   the loss within 1e-4 relative; K1/K2 8 a step, K4 100 forward and 99
+   backward under the naive solver (the first pool's input needs no
+   gradient), none under the operator one; 3 driver steps with finite
+   losses; the step's median ms;
+19e. data parallelism at one rank on the training phase's set, f32 and
+   bf16: one ``make_dp_train_step`` step against the flat
+   ``make_normals_train_step`` on the same patch and draws (loss 1e-5
+   relative, gradients 1e-4 scaled), then 20 ``train_normals_dp`` steps
+   (finite losses, K1/K2 8 launches a step in the run's dtype); ms a step
+   and conv-edges/s;
+19f. multi-mesh: ``train_normals_sharded_multi`` on three 262,144-face
+   tori (two of one topology): every mesh's tables of one shape, each
+   mesh's step on the bank's merged partition against the step on its own
+   partition (1e-5 relative), 9 steps with finite losses and K1/K2 8 a
+   step; ms a step a mesh;
+19g. the fc head tensor-parallel at one rank equal to the unsplit forward.
 
 Then it prints the kernels' JSON line, the card's ``nvidia-smi`` name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -3482,13 +3515,14 @@ def _halo_run(cfg, patch, group, prepared, label, bf16):
             "losses": (float(losses[0]), float(losses[-1]))}
 
 
-def halo_phase(dev, workdir, bench_patch):
+def halo_phase(dev, workdir, trained):
     """The halo-sharded path (``parallel/``) on one card: a one-rank NCCL
     group; K1/K2 on halo-extended sources; the one-rank sharded step against
     the flat step; the 1,048,576-face torus trained whole (f32, then bf16)
     and served whole; the sharded serving against ``infer_normals`` on the
-    subdivision-5 icosphere; the launcher in a subprocess. Returns the
-    main path's K1/K2 launches and its numbers."""
+    subdivision-5 icosphere; the multi-GPU phases 19b-19g
+    (:func:`multi_gpu_phases`) in the same group; the launcher in a
+    subprocess. Returns the main paths' K1/K2/K4 launches and the numbers."""
     import torch
 
     from facet_graph_convolution_torch.config import default_config
@@ -3509,6 +3543,7 @@ def halo_phase(dev, workdir, bench_patch):
     print("halo phase: the halo-sharded path at one rank (parallel/halo.py)")
     distributed.initialize(f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0,
                            device="cuda")
+    bench_patch = trained["bench_patch"]
     group = make_mesh(str(dev))
     if (group.size, group.backend) != (1, "nccl"):
         raise AssertionError(f"the one-rank group: size {group.size}, backend {group.backend}")
@@ -3596,6 +3631,10 @@ def halo_phase(dev, workdir, bench_patch):
         print(f"  subdivision-5 icosphere, one patch: infer_normals_sharded vs infer_normals "
               f"normals {e_n:.2e}, points {e_p:.2e} (atol {HALO_SERVE_ATOL:g})")
         out.update(runs=runs, host=host, edges=edges, ratios=ratios, big=big, small=small)
+        del mesh, pts, normals, ref_pts, ref_normals
+        multi = out["multi"] = multi_gpu_phases(dev, group, workdir, (noisy, f), trained)
+        for key in ("fwd", "bwd", "fwd_bf16", "bwd_bf16"):
+            out["launches"][key] += multi[key]
     finally:
         distributed.shutdown()
 
@@ -3612,6 +3651,582 @@ def halo_phase(dev, workdir, bench_patch):
           f"{line}")
     print(f"  halo phase: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# the multi-GPU phases (19b-19g) after the halo phase, in its one-rank group
+MS_TRAIN_TORUS = (256, 200)  # torus(nu, nv): 102,400 faces, sharded vertex training
+MS_TRAIN_STEPS = 3           # driver steps a solver
+MULTI_TORI = ((512, 256), (512, 256), (1024, 128))   # 262,144 faces each; two of one topology
+MULTI_STEPS = 9              # train_normals_sharded_multi steps
+DP_STEPS = 20                # train_normals_dp steps a dtype
+POOL_BWD_ATOL = 1e-6         # K4's backward against the plain backward
+K4_SOLVE = (80, 20)          # K4 launches of a default solve: 80 at 4 rounds, 20 at 2
+
+
+def _stage_timers(module, names, seconds, results):
+    """Wrap ``module``'s functions ``names`` so that each call's wall
+    seconds (after a device synchronise) land in ``seconds`` and its result
+    in ``results``; returns the originals to put back."""
+    import torch
+
+    originals = {name: getattr(module, name) for name in names}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            results[name] = out
+            return out
+        return call
+
+    for name, fn in originals.items():
+        setattr(module, name, timed(name, fn))
+    return originals
+
+
+def sharded_vertex_serving(dev, group, torus_mesh):
+    """19b: ``infer_with_vertices_sharded`` of the 1,048,576-face torus
+    (built with vertices) at full width, three random heads; the points
+    against the flat ``update_positions_multiscale`` (the scale kernel) on
+    the same normals at SOLVER_ATOL; K1 8 and K4 100 launches (80 at 4
+    rounds, 20 at 2); wall seconds by stage, the busy share of a profiled
+    call, peak memory. Returns the launches, the pool inputs of the solve
+    and the numbers."""
+    import torch
+
+    from facet_graph_convolution_torch.config import default_config
+    from facet_graph_convolution_torch.data.dataset import InferenceMesh
+    from facet_graph_convolution_torch.inference import sharded
+    from facet_graph_convolution_torch.models.unet import init_unet
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
+    from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
+    from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
+    from facet_graph_convolution_torch.ops.vertex_update import update_positions_multiscale
+
+    cfg = default_config()
+    noisy, f = torus_mesh
+    t0 = time.perf_counter()
+    vmesh = InferenceMesh(max_patch_size=10**9, coarsening_steps=2, coarsening_levels=3,
+                          k_faces=23, seed=0)
+    vmesh.add_mesh_with_vertices(noisy, f)
+    build_s = time.perf_counter() - t0
+    patch = vmesh.patches[0]
+    params = init_unet(seed=7, multi_scale=True, device=str(dev))
+    seconds, results = {}, {}
+    originals = _stage_timers(sharded, ("_partitioned", "sharded_unet_apply",
+                                        "sharded_update_positions_multiscale"), seconds, results)
+    try:
+        k1.facet_conv_fwd.launches = k4.tree_pool_ignore_zeros.launches = 0
+        ms.naive_scale.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = sharded.infer_with_vertices_sharded(vmesh, cfg, params, group=group)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": k1.facet_conv_fwd.launches, "K4": k4.tree_pool_ignore_zeros.launches,
+                    "scale kernel": ms.naive_scale.launches}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for name, fn in originals.items():
+            setattr(sharded, name, fn)
+    if launches != {"K1": 8, "K4": sum(K4_SOLVE), "scale kernel": 0}:
+        raise AssertionError(f"torus vertex serving: launches {launches}, want K1 8, K4 "
+                             f"{sum(K4_SOLVE)}, the scale kernel none")
+    for key, vals in out.items():
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"torus vertex serving: {key} not finite")
+    n = patch.num_nodes
+    heads = results["sharded_unet_apply"]
+    fn = [heads[0][:n], heads[1][:n // 4], heads[2][:n // 16]]
+    with torch.no_grad():
+        flat, _ = update_positions_multiscale(
+            torch.as_tensor(patch.vertices, device=dev), fn,
+            torch.as_tensor(patch.faces, device=dev), torch.as_tensor(patch.v_faces, device=dev),
+            iter_nums=cfg.eval.ms_solver_iterations)
+    err = float(np.abs(out["points"] - flat.cpu().numpy()).max())
+    if err > SOLVER_ATOL:
+        raise AssertionError(f"torus vertex serving: sharded solve vs the flat solve {err}")
+    busy_ms, activities = device_busy(
+        lambda: sharded.infer_with_vertices_sharded(vmesh, cfg, params, group=group))
+    print(f"  19b sharded vertex serving, torus {f.shape[0]} faces ({patch.num_nodes} nodes, "
+          f"{patch.vertices.shape[0]} vertices): vertex dataset build {build_s:.2f} s; "
+          f"infer_with_vertices_sharded {wall:.2f} s (host tables "
+          f"{seconds['_partitioned']:.2f}, forward {seconds['sharded_unet_apply']:.2f}, solve "
+          f"{seconds['sharded_update_positions_multiscale']:.2f} s incl. its host tables); busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / (1e3 * wall):.1f}% of the wall), {activities} "
+          f"device activities; peak {peak / 2**30:.3f} GiB allocated; launches {launches}; "
+          f"points vs the flat solve {err:.2e} (atol {SOLVER_ATOL:g})")
+    with torch.no_grad():
+        x = torch.as_tensor(patch.vertices, device=dev)
+        faces = torch.as_tensor(patch.faces, device=dev).long()
+        centres = torch.cat([x.new_zeros(1, 3), x])[faces + 1].mean(dim=1).contiguous()
+    return {"launches": launches, "wall_s": wall, "stages": seconds, "busy_ms": busy_ms,
+            "peak": peak, "err": err, "build_s": build_s, "centres": centres}
+
+
+def pool_bwd_bound_ms(x, dy):
+    """Least time for K4's backward: x and dy read once, dx written once at
+    the HBM rate (its operations, a multiply and an add a value a round,
+    are far below the f32 rate)."""
+    return 1e3 * (2 * x.numel() + dy.numel()) * 4 / H100_BYTES_PER_S
+
+
+def pool_path_checks(dev, centres, label):
+    """19c: K4's forward and backward kernels at a solve's two pools of the
+    face centres ``centres`` (4 rounds at the coarse scale, 2 at the mid):
+    forward bit for bit against the plain pool, backward within
+    POOL_BWD_ATOL of the plain backward (autograd through the plain pool),
+    each bitwise repeatable; device ms by CUDA-graph replay beside the
+    bounds and the plain versions. Returns {"fwd"|"bwd": (max err, ms a
+    solve, plain ms a solve, bound ms a solve)}, a solve being K4_SOLVE
+    launches of each."""
+    import torch
+
+    from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
+
+    rng = np.random.default_rng(31)
+    x = centres.clone()
+    x[torch.as_tensor(rng.random(x.shape[0]) < 0.01, device=dev)] = 0.0     # zero rows
+    x[1] = -0.0
+    out = {"fwd": [0.0, 0.0, 0.0, 0.0], "bwd": [0.0, 0.0, 0.0, 0.0]}
+    rows = []
+    for steps, count in zip((4, 2), K4_SOLVE):
+        y, again = k4.tree_pool_ignore_zeros(x, steps), k4.tree_pool_ignore_zeros(x, steps)
+        ref = k4.tree_pool_ignore_zeros_plain(x, steps)
+        dy = torch.as_tensor(rng.normal(size=tuple(y.shape)).astype(np.float32), device=dev)
+        dx, dx2 = k4.tree_pool_ignore_zeros_bwd(x, dy, steps), k4.tree_pool_ignore_zeros_bwd(
+            x, dy, steps)
+        dref = k4.tree_pool_ignore_zeros_bwd_plain(x, dy, steps)
+        torch.cuda.synchronize()
+        e_bwd = float((dx - dref).abs().max())
+        if not (torch.equal(y, ref) and torch.equal(y, again) and torch.equal(dx, dx2)):
+            raise AssertionError(f"{label}: K4 at {steps} rounds not bit for bit or not "
+                                 "repeatable")
+        if e_bwd > POOL_BWD_ATOL:
+            raise AssertionError(f"{label}: K4's backward at {steps} rounds differs by {e_bwd}")
+        t = (cuda_ms(lambda: k4.tree_pool_ignore_zeros(x, steps), 20)[0],
+             cuda_ms(lambda: k4.tree_pool_ignore_zeros_plain(x, steps), 20)[0],
+             pool_bound_ms(x, y, steps)[0],
+             cuda_ms(lambda: k4.tree_pool_ignore_zeros_bwd(x, dy, steps), 20)[0],
+             cuda_ms(lambda: k4.tree_pool_ignore_zeros_bwd_plain(x, dy, steps), 5)[0],
+             pool_bwd_bound_ms(x, dy))
+        for key, (ms_, plain_, bound_) in (("fwd", t[0:3]), ("bwd", t[3:6])):
+            out[key][1] += count * ms_
+            out[key][2] += count * plain_
+            out[key][3] += count * bound_
+        out["bwd"][0] = max(out["bwd"][0], e_bwd)
+        rows.append(f"{steps} rounds: fwd {t[0]:.5f} ms (plain {t[1]:.5f}, bound {t[2]:.5f}), "
+                    f"bwd {t[3]:.5f} ms (plain {t[4]:.5f}, bound {t[5]:.5f}, bound / ms "
+                    f"{t[5] / t[3]:.3f}), bwd err {e_bwd:.1e}")
+    print(f"  19c K4 on {label} ({centres.shape[0]} face centres, C = 3, zero and -0.0 rows): "
+          f"forward bit for bit, backward within {POOL_BWD_ATOL:g}, both repeatable; "
+          + "; ".join(rows) + f"; a solve ({K4_SOLVE[0]} + {K4_SOLVE[1]} launches): fwd "
+          f"{out['fwd'][1]:.4f} ms, bwd {out['bwd'][1]:.4f} ms")
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _grads_of(loss, params):
+    import torch
+
+    names = [(a, b) for a in sorted(params) for b in sorted(params[a])]
+    return [g.double() for g in torch.autograd.grad(loss, [params[a][b] for a, b in names])]
+
+
+def sharded_vertex_grad_check(dev, cfg, patch, group, state, draws):
+    """One sharded vertex step's gradients (one rank) against the flat
+    ``make_vertex_train_step``'s from the same parameters and draws, each
+    gradient scaled to max 1, by the pinned-kink method of
+    :func:`vertex_gradient_check`: the flat step's kinks (each lrelu's
+    derivative, max-pool winner and chamfer nearest point) recorded, the
+    sharded step run once as it is (compared where no kink lies on another
+    side) and once with every kink pinned to the flat step's (compared
+    always) at VERTEX_GRAD_ATOL. Returns (pinned error, as-is error,
+    flipped kinks)."""
+    import torch
+
+    from facet_graph_convolution_torch.models import losses, unet
+    from facet_graph_convolution_torch.parallel import vertex_train
+    from facet_graph_convolution_torch.training import trainer
+
+    rot, idx0, idx1 = draws
+    originals = (unet.lrelu, unet.tree_pool, trainer.full_chamfer_loss,
+                 vertex_train.sharded_chamfer_loss)
+    lrelu, tree_pool, chamfer, sharded_chamfer = originals
+    records, pin = [], {}
+
+    def recorded(kind, value):
+        seen = records[-1].setdefault(kind, [])
+        if pin.get("on"):
+            value = records[0][kind][len(seen)]
+        seen.append(value)
+        return value
+
+    def pinned_lrelu(x, alpha=0.1):
+        d = recorded("lrelu", torch.where(x > 0, 1.0, torch.where(x < 0, alpha, 0.0)).float())
+        y = lrelu(x, alpha)
+        return y.detach() + (x - x.detach()) * d if pin.get("on") else y
+
+    def pinned_pool(x, steps=1, mode="max"):
+        groups = x.reshape(-1, 2 ** steps, x.shape[1])
+        win = recorded("pool", torch.argmax(groups, dim=1))
+        if not pin.get("on"):
+            return tree_pool(x, steps, mode)
+        return torch.gather(groups, 1, win[:, None, :]).squeeze(1)
+
+    def flat_chamfer(p0, p1, i0, i1):
+        with torch.no_grad():
+            recorded("nearest", torch.argmin(losses._pairwise_dist(p0[i0], p1), dim=1))
+            recorded("nearest", torch.argmin(losses._pairwise_dist(p0, p1[i1]), dim=0))
+        return chamfer(p0, p1, i0, i1)
+
+    def pinned_sharded_chamfer(refined, shard, gt_block, sp1, i0, grp):
+        with torch.no_grad():
+            nn0 = recorded("nearest", torch.argmin(losses._pairwise_dist(refined[i0], gt_block),
+                                                   dim=1))
+            nn1 = recorded("nearest", torch.argmin(losses._pairwise_dist(refined, sp1), dim=0))
+        if not pin.get("on"):
+            return sharded_chamfer(refined, shard, gt_block, sp1, i0, grp)
+        d0 = torch.sqrt(torch.sum(torch.square(refined[i0] - gt_block[nn0]), dim=-1) + 1e-20)
+        d1 = torch.sqrt(torch.sum(torch.square(refined[nn1] - sp1), dim=-1) + 1e-20)
+        return 1000.0 * (torch.mean(losses._threshold(d0, 5000.0))
+                         + torch.mean(losses._threshold(d1, 5000.0)))
+
+    arrays, part, ops = vertex_train.prepare_vertex_training(patch, cfg, 1)
+    if arrays["x"].shape[0] != patch.num_nodes:
+        raise AssertionError("the vertex patch is not a multiple of the tree group")
+    step = vertex_train.make_sharded_vertex_train_step(cfg, part, ops, group)
+    shard = vertex_train.vertex_shard(arrays, group)
+    tensors = trainer.vertex_patch_tensors(cfg, patch, str(dev))
+    try:
+        unet.lrelu, unet.tree_pool, trainer.full_chamfer_loss = (pinned_lrelu, pinned_pool,
+                                                                  flat_chamfer)
+        vertex_train.sharded_chamfer_loss = pinned_sharded_chamfer
+        records.append({})
+        flat_loss = trainer.vertex_loss(state.params, cfg, tensors, rot, idx0, idx1)
+        flat = _grads_of(flat_loss, state.params)
+        runs = {}
+        for mode in ("as it is", "pinned"):
+            pin["on"] = mode == "pinned"
+            records.append({})
+            loss = step.loss(state.params, shard, idx0, idx1, rot)
+            runs[mode] = (float(loss.detach()), _grads_of(loss, state.params))
+    finally:
+        pin["on"] = False
+        unet.lrelu, unet.tree_pool, trainer.full_chamfer_loss = originals[:3]
+        vertex_train.sharded_chamfer_loss = originals[3]
+
+    def worst(got):
+        return max(float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+                   for a, b in zip(got, flat))
+
+    flipped = {kind: sum(int((a != b).sum()) for a, b in zip(records[0][kind], records[1][kind]))
+               for kind in records[0]}
+    errs = {mode: worst(g) for mode, (_, g) in runs.items()}
+    for mode, (loss, g) in runs.items():
+        if not all(torch.isfinite(x).all() for x in g):
+            raise AssertionError(f"sharded vertex step ({mode}): non-finite gradient")
+    if errs["pinned"] > VERTEX_GRAD_ATOL or (not any(flipped.values())
+                                              and errs["as it is"] > VERTEX_GRAD_ATOL):
+        raise AssertionError(f"sharded vertex step vs the flat step: gradients {errs}, kinks on "
+                             f"other sides {flipped}")
+    loss, flat_loss = runs["as it is"][0], float(flat_loss.detach())
+    if abs(loss - flat_loss) > 1e-4 * abs(flat_loss):
+        raise AssertionError(f"sharded vertex loss {loss} vs flat {flat_loss}")
+    return errs, flipped, (loss, flat_loss)
+
+
+def sharded_vertex_training(dev, group, workdir):
+    """19d: sharded vertex training (``parallel/vertex_train.py``) on a
+    102,400-face torus at full width, under the operator and the naive
+    solver: one step's gradients against the flat step's
+    (:func:`sharded_vertex_grad_check`), MS_TRAIN_STEPS driver steps
+    (finite losses), the step's median ms over 3 after one, and the K1 /
+    K2 / K4 / K4-backward launches of one step. Returns the launches, the
+    naive solve's pool inputs and the numbers."""
+    import torch
+
+    from facet_graph_convolution_torch.config import default_config
+    from facet_graph_convolution_torch.data.dataset import TrainingSet
+    from facet_graph_convolution_torch.data.synthetic import add_vertex_noise, torus
+    from facet_graph_convolution_torch.models.augment import random_rotation
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
+    from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
+    from facet_graph_convolution_torch.parallel import vertex_train
+    from facet_graph_convolution_torch.training.trainer import create_train_state
+
+    t0 = time.perf_counter()
+    v, f = torus(nu=MS_TRAIN_TORUS[0], nv=MS_TRAIN_TORUS[1])
+    ds = TrainingSet(max_patch_size=10**9, coarsening_steps=2, coarsening_levels=3, k_faces=23,
+                     seed=0)
+    ds.add_mesh_with_vertices(add_vertex_noise(v, f, 0.2, np.random.default_rng(8)), f,
+                              gt_vertices=v)
+    patch = ds.patches[0]
+    build_s = time.perf_counter() - t0
+    out = {"launches": {}, "build_s": build_s}
+    gen = torch.Generator().manual_seed(3)
+    for solver in ("operator", "naive"):
+        cfg = default_config().replace(eval={"vertex_solver": solver}, train={
+            "network_path": os.path.join(workdir, "sharded_vertex", solver)})
+        samples = cfg.train.chamfer_samples
+        draws = (random_rotation(gen).to(dev),
+                 torch.randint(0, patch.vertices.shape[0], (samples,), generator=gen).to(dev),
+                 torch.randint(0, patch.gt_vertices.shape[0], (samples,), generator=gen).to(dev))
+        state = create_train_state(cfg, device=str(dev), multi_scale=True)
+        errs, flipped, losses = sharded_vertex_grad_check(dev, cfg, patch, group, state, draws)
+        t0 = time.perf_counter()
+        arrays, part, ops = vertex_train.prepare_vertex_training(patch, cfg, group.size)
+        step = vertex_train.make_sharded_vertex_train_step(cfg, part, ops, group)
+        shard = vertex_train.vertex_shard(arrays, group)
+        prep_s = time.perf_counter() - t0
+        counters = (k1.facet_conv_fwd, k1.facet_conv_bwd, k4.tree_pool_ignore_zeros,
+                    k4.tree_pool_ignore_zeros_bwd)
+        for fn in counters:
+            fn.launches = 0
+        state, loss = step(state, shard, draws[1], draws[2], rot=draws[0])
+        float(loss)
+        launches = dict(zip(("K1", "K2", "K4", "K4_bwd"), (fn.launches for fn in counters)))
+        # the first iteration pools the input vertices' centres, which need
+        # no gradient: 99 backward launches
+        want = {"K1": 8, "K2": 8, "K4": sum(K4_SOLVE) if solver == "naive" else 0,
+                "K4_bwd": sum(K4_SOLVE) - 1 if solver == "naive" else 0}
+        if launches != want:
+            raise AssertionError(f"sharded vertex step ({solver}): launches {launches}, want "
+                                 f"{want}")
+        out["launches"][solver] = launches
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, loss = step(state, shard, draws[1], draws[2], rot=draws[0])
+            float(loss)
+            times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        _, run_losses = vertex_train.train_with_vertices_sharded(
+            cfg, patch, MS_TRAIN_STEPS, group=group, log_every=1, seed=1)
+        run_s = time.perf_counter() - t0
+        if not np.isfinite(run_losses).all():
+            raise AssertionError(f"train_with_vertices_sharded ({solver}): losses {run_losses}")
+        median = sorted(times)[1]
+        out[solver] = {"step_ms": 1e3 * median, "errs": errs, "flipped": flipped,
+                       "prep_s": prep_s, "run_s": run_s}
+        print(f"  19d sharded vertex training, {solver} solver, torus {f.shape[0]} faces "
+              f"({patch.num_nodes} nodes, {patch.vertices.shape[0]} vertices; dataset "
+              f"{build_s:.2f} s, step tables {prep_s:.2f} s): loss {losses[0]:.6f} vs the flat "
+              f"step's {losses[1]:.6f}; gradients vs the flat step scaled to max 1: as they are "
+              f"{errs['as it is']:.3e} (kinks on other sides {flipped}), kinks pinned "
+              f"{errs['pinned']:.3e} (atol {VERTEX_GRAD_ATOL}); step {1e3 * median:.2f} ms "
+              f"(median of 3, eager); launches a step {launches}; "
+              f"{MS_TRAIN_STEPS} driver steps in {run_s:.2f} s, losses "
+              + ", ".join(f"{x:.3f}" for x in run_losses))
+        del state, step, shard
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        x = torch.as_tensor(patch.vertices, device=dev)
+        faces = torch.as_tensor(patch.faces, device=dev).long()
+        out["centres"] = torch.cat([x.new_zeros(1, 3), x])[faces + 1].mean(dim=1).contiguous()
+    return out
+
+
+def dp_phase(dev, group, trained):
+    """19e: data parallelism at one rank on the training phase's set, f32 and
+    bf16: one DP step against the flat ``make_normals_train_step`` on the
+    same patch and draws (loss rtol 1e-5, gradients GRAD_ATOL scaled), then
+    DP_STEPS ``train_normals_dp`` steps (finite losses, K1/K2 8 launches a
+    step in the run's dtype); ms a step and conv-edges/s. Returns the
+    launches."""
+    import torch
+
+    from facet_graph_convolution_torch.data.dataset import pad_patch_to
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
+    from facet_graph_convolution_torch.parallel import data_parallel as dp
+    from facet_graph_convolution_torch.training.trainer import (
+        _leaves,
+        create_train_state,
+        make_normals_train_step,
+        patch_tensors,
+    )
+
+    train_set = trained["train_set"]
+    out = {"fwd": 0, "bwd": 0, "fwd_bf16": 0, "bwd_bf16": 0}
+    for label in ("f32", "bf16"):
+        cfg = trained["cfg"].replace(model={"compute_dtype": "bfloat16"}) if label == "bf16" \
+            else trained["cfg"]
+        bank = dp.build_patch_bank(train_set.patches, cfg, str(dev))
+        n = bank.xs.shape[1]
+        draws = dp.dp_draws(cfg, torch.Generator().manual_seed(4), 1, n)
+        dp_state = create_train_state(cfg, device=str(dev))
+        flat_state = create_train_state(cfg, device=str(dev))
+        dp_state, loss = dp.make_dp_train_step(cfg, group)(dp_state, bank, [1], draws)
+        flat_state, ref = make_normals_train_step(cfg)(
+            flat_state, *patch_tensors(pad_patch_to(train_set.patches[1], n), str(dev)),
+            rot=draws["rot"][0], sample_idx=draws["sample_idx"][0])
+        loss, ref = float(loss), float(ref)
+        worst = max(float((a.grad - b.grad).abs().max()) / (float(b.grad.abs().max()) or 1.0)
+                    for a, b in zip(_leaves(dp_state.params), _leaves(flat_state.params)))
+        if abs(loss - ref) > 1e-5 * abs(ref) or worst > GRAD_ATOL:
+            raise AssertionError(f"DP step ({label}) vs the flat step: loss {loss} vs {ref}, "
+                                 f"gradients {worst}")
+        for fn in (k1.facet_conv_fwd, k1.facet_conv_bwd):
+            fn.launches = fn.launches_bf16 = 0
+        t0 = time.perf_counter()
+        _, losses = dp.train_normals_dp(cfg, train_set, group=group, num_iterations=DP_STEPS,
+                                        log_every=10)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = {k: (fn.launches, fn.launches_bf16)
+                  for k, fn in (("fwd", k1.facet_conv_fwd), ("bwd", k1.facet_conv_bwd))}
+        want = (8 * DP_STEPS, 8 * DP_STEPS if label == "bf16" else 0)
+        if counts != {"fwd": want, "bwd": want} or not np.isfinite(losses).all():
+            raise AssertionError(f"train_normals_dp ({label}): launches {counts}, want {want}; "
+                                 f"losses {losses}")
+        for key in ("fwd", "bwd"):
+            a, b16 = counts[key]
+            out[key] += a - b16
+            out[key + "_bf16"] += b16
+        # the step alone, on the bank, for its time
+        step = dp.make_dp_train_step(cfg, group)
+        times = []
+        for i in range(8):
+            t0 = time.perf_counter()
+            float(step(dp_state, bank, [i % bank.xs.shape[0]], draws)[1])
+            times.append(time.perf_counter() - t0)
+        median = sorted(times[3:])[2]
+        edges = count_edges(pad_patch_to(train_set.patches[1], n))
+        print(f"  19e DP at one rank ({label}): step vs the flat step on patch 1 ({n} nodes): "
+              f"loss {loss:.6f} vs {ref:.6f}, gradients within {worst:.2e} of "
+              f"max|g| (atol {GRAD_ATOL:g}); train_normals_dp {DP_STEPS} steps in {run_s:.2f} s, "
+              f"loss {losses[0]:.3f} → {losses[-1]:.3f}, K1/K2 launches (all, bf16) {counts}; "
+              f"step {1e3 * median:.3f} ms (median of 5, eager), "
+              f"{edges / median:.4e} conv-edges/s")
+    return out
+
+
+def multi_mesh_phase(dev, group, workdir):
+    """19f: ``train_normals_sharded_multi`` on three tori of 262,144 faces
+    (two of one topology) at full width: every mesh's tables of one shape
+    (the port's form of JAX's one compiled step), each mesh's step on the
+    bank's merged partition against ``train_normals_sharded``'s step on the
+    same padded mesh alone (loss and gradients within HALO_PARITY_RTOL
+    relative), MULTI_STEPS driver steps (finite losses), ms a step a mesh.
+    Returns the K1/K2 launches."""
+    import torch
+
+    from facet_graph_convolution_torch.config import default_config
+    from facet_graph_convolution_torch.data.dataset import TrainingSet, pad_patch_to
+    from facet_graph_convolution_torch.data.synthetic import add_vertex_noise, torus
+    from facet_graph_convolution_torch.models.augment import random_rotation
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
+    from facet_graph_convolution_torch.parallel import halo
+    from facet_graph_convolution_torch.training.trainer import _leaves, create_train_state
+
+    cfg = default_config().replace(train={"network_path": os.path.join(workdir, "multi_mesh")})
+    t0 = time.perf_counter()
+    ds = TrainingSet(max_patch_size=10**9, coarsening_steps=2, coarsening_levels=3, k_faces=23,
+                     seed=0)
+    rng = np.random.default_rng(12)
+    for nu, nv in MULTI_TORI:
+        v, f = torus(nu=nu, nv=nv)
+        ds.add_mesh(add_vertex_noise(v, f, 0.2, rng), f, gt_vertices=v)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts, xs, gts, n = halo.prepare_sharded_mesh_bank(cfg, ds.patches, group)
+    bank_s = time.perf_counter() - t0
+    shapes = [halo.table_shapes(halo.partition_operands(pt, group.rank, dev)) for pt in parts]
+    if any(sh != shapes[0] for sh in shapes):
+        raise AssertionError("the meshes' tables differ in shape")
+    gen = torch.Generator().manual_seed(6)
+    rot = random_rotation(gen)
+    rows = []
+    for m, patch in enumerate(ds.patches):
+        idx = torch.randint(0, n, (cfg.train.loss_samples,), generator=gen).numpy()
+        mask = halo.sample_mask_from(idx, n, group)
+        alone = halo.build_partition(pad_patch_to(patch, n).adjs, group.size)
+        pair = []
+        for part in (parts[m], alone):
+            state = create_train_state(cfg, device=str(dev))
+            step = halo.make_sharded_train_step(cfg, part, group)
+            state, loss = step(state, xs[m], gts[m], mask, rot=rot)
+            pair.append((float(loss), [p.grad.double() for p in _leaves(state.params)], step,
+                         state))
+        (loss, g, step, state), (ref, g_ref, _, _) = pair
+        worst = max(float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+                    for a, b in zip(g, g_ref))
+        if abs(loss - ref) > HALO_PARITY_RTOL * abs(ref) or worst > HALO_PARITY_RTOL:
+            raise AssertionError(f"mesh {m}: the bank's step vs the mesh alone: loss {loss} vs "
+                                 f"{ref}, gradients {worst}")
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            float(step(state, xs[m], gts[m], mask, rot=rot)[1])
+            times.append(time.perf_counter() - t0)
+        rows.append(f"mesh {m} ({patch.num_nodes} nodes): loss {loss:.6f} vs alone {ref:.6f}, "
+                    f"gradients within {worst:.2e}, step {1e3 * sorted(times[1:])[1]:.2f} ms")
+        del pair, state, step
+    for fn in (k1.facet_conv_fwd, k1.facet_conv_bwd):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    _, losses = halo.train_normals_sharded_multi(cfg, ds.patches, MULTI_STEPS, group=group,
+                                                 log_every=3, seed=2)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"fwd": k1.facet_conv_fwd.launches, "bwd": k1.facet_conv_bwd.launches}
+    if not np.isfinite(losses).all() or launches != {"fwd": 8 * MULTI_STEPS,
+                                                     "bwd": 8 * MULTI_STEPS}:
+        raise AssertionError(f"train_normals_sharded_multi: losses {losses}, launches {launches}")
+    print(f"  19f multi-mesh: {len(ds.patches)} tori ({[p.num_nodes for p in ds.patches]} nodes, "
+          f"bank {n}; datasets {build_s:.2f} s, bank {bank_s:.2f} s), tables of one shape; "
+          + "; ".join(rows) + f" (rtol {HALO_PARITY_RTOL:g}); train_normals_sharded_multi "
+          f"{MULTI_STEPS} steps in {run_s:.2f} s, losses finite, K1/K2 {launches}")
+    return launches
+
+
+def tp_phase(dev, group, trained):
+    """19g: the fc head tensor-parallel at one rank (``shard_unet_params`` +
+    ``unet_apply(tp_group=...)``): the three heads equal the unsplit
+    forward's on the kernel phase's patch (FORWARD_ATOL)."""
+    import torch
+
+    from facet_graph_convolution_torch.models.unet import init_unet, train_graph_tensors, unet_apply
+    from facet_graph_convolution_torch.parallel.tensor_parallel import shard_unet_params
+
+    params = init_unet(seed=9, multi_scale=True, device=str(dev))
+    patch = trained["bench_patch"]
+    adjs, adj_ts, rows = train_graph_tensors(patch.adjs, str(dev))
+    x = torch.as_tensor(patch.inputs, device=dev)
+    with torch.no_grad():
+        want = unet_apply(params, x, adjs, rows, multi_scale=True)
+        got = unet_apply(shard_unet_params(params, group), x, adjs, rows, multi_scale=True,
+                         tp_group=group)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if err > FORWARD_ATOL:
+        raise AssertionError(f"the tensor-parallel head differs by {err}")
+    print(f"  19g tensor-parallel fc head at one rank: three heads vs the unsplit forward "
+          f"{err:.2e} (atol {FORWARD_ATOL:g})")
+
+
+def multi_gpu_phases(dev, group, workdir, torus_mesh, trained):
+    """19b-19g after the halo phase, in its one-rank NCCL group. Returns the
+    launches of their main paths and the K4 numbers."""
+    t_phase = time.perf_counter()
+    serving = sharded_vertex_serving(dev, group, torus_mesh)
+    pools = {"serving": pool_path_checks(dev, serving.pop("centres"), "the torus's solve")}
+    training = sharded_vertex_training(dev, group, workdir)
+    pools["training"] = pool_path_checks(dev, training.pop("centres"),
+                                         "the training torus's solve")
+    dp = dp_phase(dev, group, trained)
+    multi = multi_mesh_phase(dev, group, workdir)
+    tp_phase(dev, group, trained)
+    naive = training["launches"]["naive"]
+    print(f"  multi-GPU phases: {time.perf_counter() - t_phase:.1f} s")
+    return {"K4": serving["launches"]["K4"] + naive["K4"],
+            "K4_bwd": naive["K4_bwd"],
+            "fwd": (serving["launches"]["K1"] + sum(r["K1"] for r in training["launches"].values())
+                    + dp["fwd"] + multi["fwd"]),
+            "bwd": sum(r["K2"] for r in training["launches"].values()) + dp["bwd"]
+            + multi["bwd"],
+            "fwd_bf16": dp["fwd_bf16"], "bwd_bf16": dp["bwd_bf16"], "pools": pools}
 
 
 def main() -> int:
@@ -3671,7 +4286,7 @@ def main() -> int:
             dev, vertex_records, default_config().eval.ms_solver_iterations)
         parity_launches = parity_phase(dev, workdir)
         wang_launches = wang_phase(dev, workdir)
-        halo = halo_phase(dev, workdir, trained["bench_patch"])
+        halo = halo_phase(dev, workdir, trained)
     print("bf16 vs f32 graph step, whole subdivision-5 icosphere (ms a step; device busy share; "
           "activities a step; capture s; graph MiB):")
     for label, r in bf16["graphs"].items():
@@ -3759,8 +4374,10 @@ def main() -> int:
         "route": "cuda",
         "source": "facet_graph_convolution_torch/csrc/tree_pool_iz.cu",
         "replaces": "facet_graph_convolution_tpu/ops/pallas_kernels.py:91",
-        # the naive solver runs the scale kernel below, not this one: 0
-        "launches": vertex_launches["K4"],
+        # the sharded naive solver's pools: the torus served (100) and the
+        # naive sharded vertex step (100); the flat naive solver runs the
+        # scale kernel below instead
+        "launches": vertex_launches["K4"] + halo["multi"]["K4"],
         "max_abs_err": err4,
         # per served patch of the largest size as the naive solver ran K4
         # before the scale kernel: 180 launches at the two solver shapes
@@ -3769,6 +4386,24 @@ def main() -> int:
         "bound_ms": totals4["bound_ms"],
         "bound_by": bound_by4,
         # no single PyTorch call computes a zero-ignoring pairwise mean
+        "library_ms": None,
+    }, {
+        "name": "tree_pool_ignore_zeros_bwd",
+        "route": "cuda",
+        "source": "facet_graph_convolution_torch/csrc/tree_pool_iz.cu",
+        # no Pallas backward: jax.grad of the pool K4 computes
+        "replaces": "facet_graph_convolution_tpu/ops/pallas_kernels.py:91",
+        # the naive sharded vertex step's backward: 99 a step (the first
+        # iteration's pool input needs no gradient)
+        "launches": halo["multi"]["K4_bwd"],
+        "max_abs_err": halo["multi"]["pools"]["training"]["bwd"][0],
+        # per naive sharded vertex step of the 102,400-face torus: 100
+        # launches (80 at 4 rounds, 20 at 2) at the solve's pool shapes
+        "ms": halo["multi"]["pools"]["training"]["bwd"][1],
+        "plain_ms": halo["multi"]["pools"]["training"]["bwd"][2],
+        "bound_ms": halo["multi"]["pools"]["training"]["bwd"][3],
+        "bound_by": "bytes",
+        # no single PyTorch call computes this backward
         "library_ms": None,
     }, {
         "name": "ms_solver_naive",

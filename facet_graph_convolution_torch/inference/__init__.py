@@ -16,12 +16,12 @@ _EXPORTS = {
     "export_forward": "serving",
     "load_forward": "exported",
     "infer_normals_sharded": "sharded",
+    "infer_with_vertices_sharded": "sharded",
 }
 __all__ = sorted(_EXPORTS)
 
-# the JAX package's multi-scale sharded inference (inference/sharded.py:97),
-# which waits for the sharded multi-scale vertex solver
-NOT_YET_PORTED = ("infer_with_vertices_sharded",)
+# every JAX re-export has its counterpart
+NOT_YET_PORTED = ()
 
 
 def __getattr__(name):

@@ -105,20 +105,33 @@ def _no_record(name: str, t: torch.Tensor) -> None:
     pass
 
 
-def _fine_head(fc1, out0, d1, alpha):
-    return linear(out0, lrelu(linear(fc1, d1), alpha))
+def _out(params: Dict[str, torch.Tensor], h: torch.Tensor,
+         head_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]]) -> torch.Tensor:
+    """An out layer; under tensor parallelism (``head_reduce``) ``h`` and
+    ``w`` hold this rank's share of the hidden axis, so the partial product
+    is summed over the ranks before the (replicated) bias."""
+    if head_reduce is None:
+        return linear(params, h)
+    return head_reduce(h @ params["w"]) + params["b"]
+
+
+def _fine_head(fc1, out0, d1, alpha, head_reduce=None):
+    return _out(out0, lrelu(linear(fc1, d1), alpha), head_reduce)
 
 
 def _network(params: Dict, x: torch.Tensor, conv: Callable, levels: int,
              coarsening_steps: int, alpha: float, multi_scale: bool,
              record: Callable[[str, torch.Tensor], None] = _no_record,
-             remat_head: bool = False) -> Output:
+             remat_head: bool = False,
+             head_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> Output:
     """The U-Net of the module docstring around ``conv(name, h, level)``;
     ``record(name, t)`` sees the intermediates of the fine path under the
     reference's scope names (``evaluation/parity.py``). ``remat_head`` runs
     the fine fc head (3-level network) under ``torch.utils.checkpoint``, so
     that its [N, fc] activations are recomputed in the backward rather than
-    kept (``record`` then does not see ``fc1``)."""
+    kept (``record`` then does not see ``fc1``). ``head_reduce`` sums the out
+    layers' partial products over the ranks of a tensor-parallel head
+    (:mod:`..parallel.tensor_parallel`); None: the head is whole."""
     if levels == 1 and multi_scale:
         raise ValueError("multi_scale heads need the 3-level pyramid; got a single "
                          "adjacency level (the reference hard-codes 3 levels, settings.py:32)")
@@ -126,7 +139,7 @@ def _network(params: Dict, x: torch.Tensor, conv: Callable, levels: int,
     record("conv1_act", h1)
     if levels == 1:
         h = lrelu(linear(params["fc1"], h1), alpha)
-        return linear(params["out0"], h)
+        return _out(params["out0"], h, head_reduce)
 
     p1 = tree_pool(h1, steps=coarsening_steps)
     record("pool1", p1)
@@ -148,16 +161,17 @@ def _network(params: Dict, x: torch.Tensor, conv: Callable, levels: int,
 
     if remat_head:
         y_fine = torch.utils.checkpoint.checkpoint(
-            _fine_head, params["fc1"], params["out0"], d1, alpha, use_reentrant=False)
+            _fine_head, params["fc1"], params["out0"], d1, alpha, head_reduce,
+            use_reentrant=False)
     else:
         h = lrelu(linear(params["fc1"], d1), alpha)
         record("fc1", h)
-        y_fine = linear(params["out0"], h)
+        y_fine = _out(params["out0"], h, head_reduce)
     record("out0", y_fine)
     if not multi_scale:
         return y_fine
-    y_mid = linear(params["out1"], lrelu(linear(params["fc_mid"], d2), alpha))
-    y_coarse = linear(params["out2"], lrelu(linear(params["fc_coarse"], d3), alpha))
+    y_mid = _out(params["out1"], lrelu(linear(params["fc_mid"], d2), alpha), head_reduce)
+    y_coarse = _out(params["out2"], lrelu(linear(params["fc_coarse"], d3), alpha), head_reduce)
     return y_fine, y_mid, y_coarse
 
 
@@ -172,6 +186,7 @@ def unet_apply(
     adj_ts: Optional[Sequence[torch.Tensor]] = None,
     multi_scale: bool = False,
     compute_dtype: Optional[torch.dtype] = None,
+    tp_group=None,
 ) -> Output:
     """Forward pass: ``x`` [N, C] → [N, out]. ``adjs`` are the per-level
     slot-major [K', N'] neighbour lists and ``mult_rows`` the [K'+1, N', 1]
@@ -183,8 +198,19 @@ def unet_apply(
     (``unet_apply_pallas(compute_dtype=...)``; None keeps x's dtype): under
     bfloat16 the convs' interiors are bfloat16 and their outputs f32, and
     lrelu, the pools and the dense layers stay f32
-    (:func:`..ops.conv.facet_conv`)."""
+    (:func:`..ops.conv.facet_conv`). ``tp_group`` (a
+    :class:`..parallel.mesh.GraphGroup`) runs the fc head tensor-parallel
+    over its ranks: ``params`` are then this rank's share
+    (:func:`..parallel.tensor_parallel.shard_unet_params`), and one
+    all-reduce sums each out layer's partial product. Without it the
+    forward is unchanged."""
     v_first, v_rest = per_conv_variants(variant)
+    head_reduce = None
+    if tp_group is not None and tp_group.size > 1:
+        from facet_graph_convolution_torch.parallel.halo import all_reduce_sum
+
+        def head_reduce(t):
+            return all_reduce_sum(t, tp_group)
 
     def conv(name, h, level):
         return facet_conv(params[name], h, adjs[level], mult_rows[level],
@@ -192,7 +218,8 @@ def unet_apply(
                           adj_t_sm=None if adj_ts is None else adj_ts[level],
                           compute_dtype=compute_dtype)
 
-    return _network(params, x, conv, len(adjs), coarsening_steps, alpha, multi_scale)
+    return _network(params, x, conv, len(adjs), coarsening_steps, alpha, multi_scale,
+                    head_reduce=head_reduce)
 
 
 def unet_apply_rowmajor(

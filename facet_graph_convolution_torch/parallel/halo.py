@@ -48,7 +48,7 @@ import dataclasses
 import functools
 import math
 import os
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -89,6 +89,15 @@ from facet_graph_convolution_torch.training.trainer import (
     compute_dtype,
     create_train_state,
 )
+
+# JAX functions of this module without a counterpart, and why
+NO_COUNTERPART = {
+    "build_level_windows": "the windowed conv's tables (ops/windowed_conv.py): K1/K2 gather "
+                           "through their own tables on the card, and the windowed conv was "
+                           "measured not needed there",
+    "unify_level_windows": "the windowed conv's shared geometry across meshes; with no "
+                           "windowed conv there is nothing to unify",
+}
 
 
 # ---------------------------------------------------------------------------
@@ -462,10 +471,11 @@ class ExchangeTables(NamedTuple):
     owned rows sent for each ring offset (to rank − d), ``recv_mask`` the
     same shape (1 where a received slot is a requested row), the batched
     cross-host ``cross_send`` / ``cross_mask`` [D, Hx] (None without), and
-    ``send_t`` [n, K_s], the transpose map of everything sent: for each
-    owned row, the one-indexed positions in the concatenated sent rows
-    (rings first, then the cross blocks) that carry it live (0 = pad). The
-    backward sums the returned cotangents through it."""
+    ``send_t`` [n, len(offsets) (+ D)], the transpose map of everything
+    sent: for each owned row, the one-indexed positions in the concatenated
+    sent rows (rings first, then the cross blocks) that carry it live (0 =
+    pad), as wide as a row can be sent. The backward sums the returned
+    cotangents through it."""
 
     offsets: Tuple[int, ...]
     send_idx: Optional[torch.Tensor]
@@ -512,6 +522,11 @@ def exchange_tables(offsets, send_idx, recv_mask, cross_send, cross_mask, shard:
         return ExchangeTables((), None, None, None, None, None)
     sent, live = np.concatenate(sent).astype(np.int64), np.concatenate(live)
     send_t = transpose_adjacency(np.where(live, sent + 1, 0).reshape(-1, 1), num_targets=block)
+    # a row is sent at most once a ring offset and once a destination of the
+    # all-to-all: pad the map to that width, so that its shape follows the
+    # partition's geometry and not the data (train_normals_sharded_multi)
+    width = len(offsets) + (num_shards if cross_send is not None else 0)
+    send_t = np.pad(send_t, ((0, 0), (0, width - send_t.shape[1])))
 
     def tensor(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
@@ -867,6 +882,66 @@ def _prepare_sharded_mesh_arrays(cfg: Config, patch, group: GraphGroup):
             shard_rows(padded.gt_normals, group, torch.float32), padded.num_nodes)
 
 
+def sharded_driver_loop(cfg: Config, group: GraphGroup, state: TrainState, num_iterations: int,
+                        step_once: Callable[[int], torch.Tensor],
+                        validate: Optional[Callable[[], float]], log_every: int,
+                        checkpoint: bool, label: str, save_every: Optional[int] = None):
+    """The loop of the sharded drivers (JAX ``train_normals_sharded`` and
+    its kin): ``step_once(it)`` runs step ``it`` and returns its loss; a
+    validation (``validate()``, when given) every ``valid_every``; every
+    ``log_every`` steps the mean loss printed by rank 0 and a history row
+    ``(mean, last validation)``, aborting on a non-finite mean; a
+    checkpoint every ``save_every`` (default ``cfg.train.save_every``),
+    aborting instead on a non-finite loss; resume from the latest
+    checkpoint before the first step and a final save unless aborted (rank
+    0 writes, every rank restores: ``<network_path>/<net_name>/``); the
+    history appended to ``<network_path>/<net_name>.csv`` by rank 0.
+    Returns ``(state, losses)``; the state is updated in place."""
+    save_every = save_every or cfg.train.save_every
+    ckpt = CheckpointManager(cfg.train.network_path, cfg.train.net_name) if checkpoint else None
+    start_step = 0
+    if ckpt is not None:
+        state, start_step = ckpt.restore(state)
+
+    def save(it):
+        if group.rank == 0:
+            ckpt.save(start_step + it, state)
+
+    losses: List[float] = []
+    loss_hist: List[Tuple[float, float]] = []
+    last_valid = float("nan")
+    aborted = False
+    for it in range(num_iterations):
+        losses.append(float(step_once(it)))
+        if validate is not None and it % cfg.train.valid_every == 0:
+            last_valid = validate()
+        if it % log_every == 0:
+            avg = float(np.mean(losses[-log_every:]))
+            loss_hist.append((avg, last_valid))
+            if group.rank == 0:
+                print(f"iter {it}: {label} {avg:.4f}"
+                      + (f" valid {last_valid:.4f}" if validate is not None else ""), flush=True)
+            if not np.isfinite(avg):
+                print("NaN training loss — aborting", flush=True)
+                aborted = True
+                break
+        if ckpt is not None and it > 0 and it % save_every == 0:
+            if not np.isfinite(losses[-1]):
+                print("NaN training loss — aborting at checkpoint", flush=True)
+                aborted = True
+                break
+            save(it)
+    if ckpt is not None and not aborted:
+        # a NaN abort leaves the state poisoned: never persist it
+        save(num_iterations)
+    if group.rank == 0 and loss_hist:
+        os.makedirs(cfg.train.network_path, exist_ok=True)
+        csv_path = os.path.join(cfg.train.network_path, cfg.train.net_name + ".csv")
+        with open(csv_path, "ab") as fh:
+            np.savetxt(fh, np.asarray(loss_hist, dtype=np.float64), delimiter=",")
+    return state, np.asarray(losses)
+
+
 def train_normals_sharded(
     cfg: Config,
     patch,
@@ -888,73 +963,145 @@ def train_normals_sharded(
     ``save_every``, every rank resumes from the latest), a validation sweep
     over ``valid_patches`` every ``valid_every`` (each partitioned over the
     same group), the NaN abort (no final save then), and the loss history
-    ``<network_path>/<net_name>.csv`` appended by rank 0 only. Every
-    step's rotation and loss samples, and the validation's samples, come
-    from one ``torch.Generator`` seeded with ``seed``, alike on every rank,
-    so the ranks stay in lockstep (JAX draws them from its key and a NumPy
-    generator: other numbers). ``group`` defaults to :func:`..mesh.make_mesh` on
-    ``device`` (CUDA unless ``"cpu"``). Returns ``(state, losses)``."""
+    ``<network_path>/<net_name>.csv`` appended by rank 0 only
+    (:func:`sharded_driver_loop`). Every step's rotation and loss samples,
+    and the validation's samples, come from one ``torch.Generator`` seeded
+    with ``seed``, alike on every rank, so the ranks stay in lockstep (JAX
+    draws them from its key and a NumPy generator: other numbers).
+    ``group`` defaults to :func:`..mesh.make_mesh` on ``device`` (CUDA
+    unless ``"cpu"``). Returns ``(state, losses)``."""
     group = group or make_mesh(device)
     part, x, gt, n = _prepare_sharded_mesh_arrays(cfg, patch, group)
     state = create_train_state(cfg.replace(train={"seed": seed}), num_steps=num_iterations,
                                device=group.device)
     generator = torch.Generator().manual_seed(seed)
     step = make_sharded_train_step(cfg, part, group, remat=remat)
-
-    ckpt = CheckpointManager(cfg.train.network_path, cfg.train.net_name) if checkpoint else None
-    start_step = 0
-    if ckpt is not None:
-        state, start_step = ckpt.restore(state)
-
-    def save(it):
-        if group.rank == 0:
-            ckpt.save(start_step + it, state)
-
     valid = []
     for vp in valid_patches or []:
         vpart, vx, vgt, vn = _prepare_sharded_mesh_arrays(cfg, vp, group)
         valid.append((make_sharded_train_step(cfg, vpart, group).eval, vx, vgt, vn))
-
     samples = loss_samples or cfg.train.loss_samples
-    losses: List[float] = []
-    loss_hist: List[Tuple[float, float]] = []
-    last_valid = float("nan")
-    aborted = False
+
     def draw_mask(num_nodes, count):
         idx = torch.randint(0, num_nodes, (count,), generator=generator)
         return sample_mask_from(idx.numpy(), num_nodes, group)
 
-    for it in range(num_iterations):
+    def step_once(it):
+        nonlocal state
         rot = random_rotation(generator) if cfg.train.augment_rotations else None
         state, loss = step(state, x, gt, draw_mask(n, samples), rot=rot)
-        losses.append(float(loss))
-        if valid and it % cfg.train.valid_every == 0:
-            vloss = 0.0
-            for eval_fn, vx, vgt, vn in valid:
-                vloss += float(eval_fn(state.params, vx, vgt, draw_mask(vn, min(samples, vn))))
-            last_valid = vloss / len(valid)
-        if it % log_every == 0:
-            avg = float(np.mean(losses[-log_every:]))
-            loss_hist.append((avg, last_valid))
-            if group.rank == 0:
-                print(f"iter {it}: sharded loss {avg:.4f}"
-                      + (f" valid {last_valid:.4f}" if valid else ""), flush=True)
-            if not np.isfinite(avg):
-                print("NaN training loss — aborting", flush=True)
-                aborted = True
-                break
-        if ckpt is not None and it > 0 and it % cfg.train.save_every == 0:
-            if not np.isfinite(losses[-1]):
-                print("NaN training loss — aborting at checkpoint", flush=True)
-                aborted = True
-                break
-            save(it)
-    if ckpt is not None and not aborted:
-        # a NaN abort leaves the state poisoned: never persist it
-        save(num_iterations)
-    if group.rank == 0 and loss_hist:
-        os.makedirs(cfg.train.network_path, exist_ok=True)
-        csv_path = os.path.join(cfg.train.network_path, cfg.train.net_name + ".csv")
-        with open(csv_path, "ab") as fh:
-            np.savetxt(fh, np.asarray(loss_hist, dtype=np.float64), delimiter=",")
-    return state, np.asarray(losses)
+        return loss
+
+    def validate():
+        return sum(float(eval_fn(state.params, vx, vgt, draw_mask(vn, min(samples, vn))))
+                   for eval_fn, vx, vgt, vn in valid) / len(valid)
+
+    return sharded_driver_loop(cfg, group, state, num_iterations, step_once,
+                               validate if valid else None, log_every, checkpoint,
+                               "sharded loss")
+
+
+# ---------------------------------------------------------------------------
+# Several whole meshes through one step's table shapes
+# ---------------------------------------------------------------------------
+
+def prepare_sharded_mesh_bank(cfg: Config, patches: Sequence, group: GraphGroup):
+    """Partition SEVERAL whole-mesh patches so that one sharded step's table
+    shapes serve them all (JAX ``prepare_sharded_mesh_bank``): pad every
+    mesh to the common node bucket, partition each (host-aware when
+    torchrun says how many ranks share a host), unify each level's exchange
+    mode (a level that batches its halo into the all-to-all in any mesh
+    does so in all: :func:`merge_geometry` needs one mode), merge the
+    levels' :class:`LevelGeometry` (offset union, widest tables) and
+    partition again only the meshes whose geometry differs from the merge.
+    JAX then unifies its windowed-gather geometry (``unify_level_windows``);
+    the port has no windowed conv (K1 gathers through its tables on the
+    card), so there is nothing to unify.
+
+    Returns ``(parts, xs, gts, num_nodes)``: each mesh's partition and this
+    rank's blocks of its inputs and GT normals."""
+    n_dev = group.size
+    align = (2 ** cfg.model.coarsening_steps) ** (cfg.model.coarsening_levels - 1)
+    target = max(bucket_size(p.num_nodes, align * n_dev) for p in patches)
+    padded = [pad_patch_to(p, target) for p in patches]
+    dph = devices_per_host() if n_dev > 1 else None
+    parts = [build_partition(pp.adjs, n_dev, devices_per_host=dph) for pp in padded]
+    for i in range(len(parts[0].levels)):
+        if any(pt.levels[i].cross_send is not None for pt in parts):
+            for m, pt in enumerate(parts):
+                if pt.levels[i].cross_send is None:
+                    pt.levels[i] = _partition_level(np.asarray(padded[m].adjs[i]), n_dev,
+                                                    dph or 1)
+    geoms = [level_geometry(lvl) for lvl in parts[0].levels]
+    for pt in parts[1:]:
+        geoms = [merge_geometry(g, level_geometry(lvl)) for g, lvl in zip(geoms, pt.levels)]
+    for m, pt in enumerate(parts):
+        if any(level_geometry(lvl) != g for lvl, g in zip(pt.levels, geoms)):
+            parts[m] = build_partition(padded[m].adjs, n_dev, devices_per_host=dph,
+                                       geometry=geoms)
+    xs = [shard_rows(pp.inputs, group, torch.float32) for pp in padded]
+    gts = [shard_rows(pp.gt_normals, group, torch.float32) for pp in padded]
+    return parts, xs, gts, target
+
+
+def table_shapes(tables: Sequence[ShardTables]) -> List[Tuple]:
+    """The shape and dtype of every tensor of a rank's tables, in order (the
+    port's form of JAX's operand-pytree signature)."""
+    out = []
+    for t in tables:
+        ex = t.exchange
+        for a in (t.adj_sm, t.adj_t_sm, t.mult_rows, ex.send_idx, ex.recv_mask, ex.cross_send,
+                  ex.cross_mask, ex.send_t):
+            out.append(None if a is None else (tuple(a.shape), a.dtype))
+        out.append(ex.offsets)
+    return out
+
+
+def train_normals_sharded_multi(
+    cfg: Config,
+    patches: Sequence,
+    num_iterations: int,
+    group: Optional[GraphGroup] = None,
+    loss_samples: Optional[int] = None,
+    log_every: int = 50,
+    seed: int = 0,
+    checkpoint: bool = False,
+    remat: bool = False,
+    device: str = "cuda",
+):
+    """Dataset-scale sharded training (JAX ``train_normals_sharded_multi``):
+    SEVERAL large partitioned meshes cycled in one driver call, a random
+    mesh a step (the reference's random patch per iteration, train.py:558,
+    with each "patch" a whole partitioned mesh). The meshes come from
+    :func:`prepare_sharded_mesh_bank`; each has its step
+    (:func:`make_sharded_train_step` over its partition), all updating one
+    state. JAX's assertion that one compiled executable serves every mesh
+    becomes this: every mesh's :class:`ShardTables` have the same shapes
+    and offsets as the first's (:func:`table_shapes`), asserted before the
+    first step. The driver contract is :func:`train_normals_sharded`'s (no
+    validation); each step's mesh, rotation and loss samples come from one
+    ``torch.Generator`` seeded with ``seed``, alike on every rank. Returns
+    ``(state, losses)``."""
+    group = group or make_mesh(device)
+    parts, xs, gts, n = prepare_sharded_mesh_bank(cfg, patches, group)
+    state = create_train_state(cfg.replace(train={"seed": seed}), num_steps=num_iterations,
+                               device=group.device)
+    steps = [make_sharded_train_step(cfg, pt, group, remat=remat) for pt in parts]
+    want = table_shapes(steps[0].tables)
+    for m, st in enumerate(steps[1:], 1):
+        assert table_shapes(st.tables) == want, (
+            f"mesh {m}: its tables' shapes differ from mesh 0's")
+    generator = torch.Generator().manual_seed(seed)
+    samples = loss_samples or cfg.train.loss_samples
+
+    def step_once(it):
+        nonlocal state
+        m = int(torch.randint(0, len(steps), (1,), generator=generator))
+        rot = random_rotation(generator) if cfg.train.augment_rotations else None
+        idx = torch.randint(0, n, (samples,), generator=generator)
+        state, loss = steps[m](state, xs[m], gts[m], sample_mask_from(idx.numpy(), n, group),
+                               rot=rot)
+        return loss
+
+    return sharded_driver_loop(cfg, group, state, num_iterations, step_once, None, log_every,
+                               checkpoint, "sharded multi-mesh loss")

@@ -1,5 +1,7 @@
-"""One command a process runs sharded training or its benchmark (the port's
-counterpart of ``facet_graph_convolution_tpu/parallel/launch.py``).
+"""One command a process runs sharded training, its benchmark, data-parallel
+training or sharded vertex training (the port's counterpart of
+``facet_graph_convolution_tpu/parallel/launch.py``, with ``dp`` and
+``vertex`` added).
 
     python -m facet_graph_convolution_torch.parallel.launch train --iterations 40
 
@@ -13,8 +15,11 @@ over gloo with ``--device cpu``) take JAX's flags:
 or, without them, ``torchrun``'s environment (``torchrun --nproc_per_node 4
 -m facet_graph_convolution_torch.parallel.launch bench``). Every process
 runs the same arguments; the host-side draws are seeded, so the processes
-stay in lockstep. ``train`` prints one JSON line of the first and last
-loss, ``bench`` one of the step time and edges/s.
+stay in lockstep. ``train`` (``train_normals_sharded``), ``dp``
+(``train_normals_dp`` on patches of a synthetic mesh, a patch a rank a
+step) and ``vertex`` (``train_with_vertices_sharded``, ``--vertex_solver
+operator|naive``) print one JSON line of the first and last loss, ``bench``
+one of the step time and edges/s.
 """
 
 from __future__ import annotations
@@ -24,8 +29,10 @@ import json
 import time
 
 
-def _build_patch(subdiv: int, seed: int):
-    """A seeded synthetic whole-mesh patch (noisy icosphere + GT)."""
+def _build_set(subdiv: int, seed: int, max_patch_size: int = 10**9,
+               with_vertices: bool = False):
+    """A seeded synthetic training set of one noisy icosphere and its GT,
+    cut into patches of at most ``max_patch_size`` faces."""
     import numpy as np
 
     from facet_graph_convolution_torch.config import default_config
@@ -36,9 +43,15 @@ def _build_patch(subdiv: int, seed: int):
     v, f = icosphere(subdiv)
     noisy = add_vertex_noise(v, f, 0.15, np.random.default_rng(seed))
     ds = TrainingSet(
-        max_patch_size=10**9, coarsening_steps=cfg.model.coarsening_steps,
+        max_patch_size=max_patch_size, coarsening_steps=cfg.model.coarsening_steps,
         coarsening_levels=cfg.model.coarsening_levels, k_faces=cfg.data.k_faces, seed=seed)
-    ds.add_mesh(noisy, f, gt_vertices=v)
+    (ds.add_mesh_with_vertices if with_vertices else ds.add_mesh)(noisy, f, gt_vertices=v)
+    return cfg, ds
+
+
+def _build_patch(subdiv: int, seed: int, with_vertices: bool = False):
+    """A seeded synthetic whole-mesh patch (noisy icosphere + GT)."""
+    cfg, ds = _build_set(subdiv, seed, with_vertices=with_vertices)
     return cfg, ds.patches[0]
 
 
@@ -62,6 +75,17 @@ def run(argv=None) -> int:
     p_train.add_argument("--subdiv", type=int, default=3)
     p_train.add_argument("--seed", type=int, default=0)
     p_train.add_argument("--checkpoint_dir", default=None)
+    p_dp = sub.add_parser("dp", help="data-parallel training on a synthetic mesh's patches")
+    p_dp.add_argument("--iterations", type=int, default=40)
+    p_dp.add_argument("--subdiv", type=int, default=4)
+    p_dp.add_argument("--max_patch_size", type=int, default=1000)
+    p_dp.add_argument("--steps_per_call", type=int, default=1)
+    p_dp.add_argument("--compute_dtype", default="float32")
+    p_vertex = sub.add_parser("vertex", help="sharded vertex training on a synthetic mesh")
+    p_vertex.add_argument("--iterations", type=int, default=10)
+    p_vertex.add_argument("--subdiv", type=int, default=3)
+    p_vertex.add_argument("--seed", type=int, default=0)
+    p_vertex.add_argument("--vertex_solver", default="operator")
     p_bench = sub.add_parser("bench", help="sharded train-step throughput")
     p_bench.add_argument("--steps", type=int, default=10)
     p_bench.add_argument("--repeats", type=int, default=3)
@@ -72,6 +96,7 @@ def run(argv=None) -> int:
     import torch
 
     from facet_graph_convolution_torch.parallel import distributed
+    from facet_graph_convolution_torch.parallel.data_parallel import train_normals_dp
     from facet_graph_convolution_torch.parallel.halo import (
         _prepare_sharded_mesh_arrays,
         make_sharded_train_step,
@@ -79,6 +104,7 @@ def run(argv=None) -> int:
         train_normals_sharded,
     )
     from facet_graph_convolution_torch.parallel.mesh import make_mesh
+    from facet_graph_convolution_torch.parallel.vertex_train import train_with_vertices_sharded
     from facet_graph_convolution_torch.training.trainer import create_train_state
 
     rank, size = distributed.initialize(args.coordinator, args.num_processes, args.process_id,
@@ -87,15 +113,29 @@ def run(argv=None) -> int:
         group = make_mesh(args.device)
         print(f"[launch] rank {rank}/{size} on {group.device} ({group.backend or 'no group'})",
               flush=True)
-        if args.cmd == "train":
-            cfg, patch = _build_patch(args.subdiv, args.seed)
-            cfg = cfg.replace(train={"loss_samples": min(2000, patch.num_nodes)})
-            if args.checkpoint_dir:
-                cfg = cfg.replace(train={"network_path": args.checkpoint_dir})
-            _, losses = train_normals_sharded(cfg, patch, args.iterations, group=group,
-                                              seed=args.seed, log_every=10,
-                                              checkpoint=bool(args.checkpoint_dir))
-            print(json.dumps({"metric": "sharded_final_loss", "first_loss": float(losses[0]),
+        if args.cmd in ("train", "dp", "vertex"):
+            if args.cmd == "train":
+                cfg, patch = _build_patch(args.subdiv, args.seed)
+                cfg = cfg.replace(train={"loss_samples": min(2000, patch.num_nodes)})
+                if args.checkpoint_dir:
+                    cfg = cfg.replace(train={"network_path": args.checkpoint_dir})
+                _, losses = train_normals_sharded(cfg, patch, args.iterations, group=group,
+                                                  seed=args.seed, log_every=10,
+                                                  checkpoint=bool(args.checkpoint_dir))
+            elif args.cmd == "dp":
+                cfg, ds = _build_set(args.subdiv, 0, args.max_patch_size)
+                cfg = cfg.replace(model={"compute_dtype": args.compute_dtype},
+                                  train={"loss_samples": 2000})
+                _, losses = train_normals_dp(cfg, ds, group=group, num_iterations=args.iterations,
+                                             log_every=10, steps_per_call=args.steps_per_call)
+            else:
+                cfg, patch = _build_patch(args.subdiv, args.seed, with_vertices=True)
+                cfg = cfg.replace(eval={"vertex_solver": args.vertex_solver})
+                _, losses = train_with_vertices_sharded(cfg, patch, args.iterations, group=group,
+                                                        seed=args.seed)
+            metric = {"train": "sharded_final_loss", "dp": "dp_final_loss",
+                      "vertex": "sharded_vertex_final_loss"}[args.cmd]
+            print(json.dumps({"metric": metric, "first_loss": float(losses[0]),
                               "value": float(losses[-1]), "process": rank}), flush=True)
             return 0
 

@@ -10,9 +10,11 @@ running only the port may not have.)
 
 Tolerances, float32 with TF32 off: K1, K2 and K3 atol 1e-5 + rtol 1e-5 (the
 same sums in another order); K4 bit for bit (the same float operations in the
-same order); the U-Net forward and inference atol 1e-4; a train step's loss
-atol 1e-4 degrees and its gradients atol 1e-4 on each gradient scaled to max
-1 (the backward through 8 convs, summed in another order); a vertex request's
+same order), and its backward kernel equal to autograd through the plain pool
+(the same halvings and sums, exact); the U-Net forward and inference atol
+1e-4; a train step's loss atol 1e-4 degrees and its gradients atol 1e-4 on
+each gradient scaled to max 1 (the backward through 8 convs, summed in
+another order); a vertex request's
 normals and points atol 1e-4; a vertex train step's loss rtol 1e-4 and its
 gradients atol 1e-4 scaled to max 1; the operator solver's points atol 1e-5
 + rtol 1e-4 and its gradients atol 1e-4 scaled to max 1; the scale kernel's
@@ -559,13 +561,40 @@ def test_tree_pool_kernel_refuses_what_it_does_not_take(cuda):
 
 
 def test_tree_pool_kernel_raises_under_grad(cuda):
-    """K4 has no backward: it refuses a tensor that needs a gradient rather
-    than cut the gradient; under no_grad it runs."""
+    """Under grad K4 no longer raises: it runs the forward kernel and, in the
+    backward, the backward kernel (one launch each); under no_grad the
+    forward alone."""
     x = torch.randn(16, 3, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        k4.tree_pool_ignore_zeros(x, 2)
+    before = (k4.tree_pool_ignore_zeros.launches, k4.tree_pool_ignore_zeros_bwd.launches)
+    k4.tree_pool_ignore_zeros(x, 2).sum().backward()
+    assert (k4.tree_pool_ignore_zeros.launches, k4.tree_pool_ignore_zeros_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
     with torch.no_grad():
         assert k4.tree_pool_ignore_zeros(x, 2).shape == (4, 3)
+    with pytest.raises(ValueError, match="exceeds"):
+        k4.tree_pool_ignore_zeros_bwd(torch.randn(2048, 3, device=cuda),
+                                      torch.randn(1, 3, device=cuda), 11)
+
+
+@pytest.mark.parametrize("steps", [0, 1, 2, 4, 5, 6, 10])
+@pytest.mark.parametrize("c", [1, 3, 9, 40])
+def test_tree_pool_backward_kernel_matches_plain(cuda, rng, c, steps):
+    """The backward kernel against autograd through the plain pool, on zero
+    rows, zero groups and -0.0 rows: equal values (bit for bit up to the
+    sign of a zero), and the same bits on a second launch; its zero flags
+    in a register (up to 5 rounds) and in local memory (6 and 10)."""
+    x = torch.as_tensor(_pool_input(rng, 3 * 1024, c), device=cuda)
+    dy = torch.as_tensor(rng.normal(size=(x.shape[0] >> steps, c)).astype(np.float32),
+                         device=cuda)
+    before = k4.tree_pool_ignore_zeros_bwd.launches
+    dx = k4.tree_pool_ignore_zeros_bwd(x, dy, steps)
+    again = k4.tree_pool_ignore_zeros_bwd(x, dy, steps)
+    assert k4.tree_pool_ignore_zeros_bwd.launches == before + 2
+    ref = k4.tree_pool_ignore_zeros_bwd_plain(x, dy, steps)
+    assert torch.equal(dx, ref) and torch.equal(dx, again)
+    leaf = x.clone().requires_grad_()
+    k4.TreePoolIgnoreZeros.apply(leaf, steps).backward(dy)
+    assert torch.equal(leaf.grad, ref)
 
 
 def _solver_patch():

@@ -3,12 +3,14 @@
 - Each subpackage's ``__init__`` re-exports the names that its JAX
   namesake's does, and no others, except the named lists: JAX-only entry
   points (``ops.JAX_ONLY``, and ``parallel.JAX_ONLY``: the node-minor forms
-  of names the port has in its one layout), the multi-scale sharded
-  inference that waits for the sharded multi-scale solver
-  (``inference.NOT_YET_PORTED``) and the parallel entry points of later
-  slices (``parallel.NOT_YET_PORTED``). JAX's ``distributed`` helpers that
-  ``torch.distributed`` has no use for are named, with a reason, in
-  ``parallel.distributed.NO_COUNTERPART``.
+  of names the port has in its one layout). ``parallel.NOT_YET_PORTED`` and
+  ``inference.NOT_YET_PORTED`` are empty. Every public function and class
+  of each JAX ``parallel/`` and ``inference/`` module resolves in the
+  port's module of the same name, but those lists and the named ones
+  without a counterpart: JAX's ``distributed`` helpers that
+  ``torch.distributed`` has no use for
+  (``parallel.distributed.NO_COUNTERPART``) and the windowed conv's
+  geometry (``parallel.halo.NO_COUNTERPART``), each with a reason.
 - The four host functions that the port lacked (``vertex_adjacency_klist``,
   ``permute_data``, ``klist_degrees``, ``klist_to_coo``) equal JAX's bit for
   bit on ``tests/test_graph.py``'s fixtures.
@@ -22,6 +24,7 @@
 
 import ast
 import importlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -87,6 +90,29 @@ def test_port_reexports_the_jax_names(sub):
         assert hasattr(port, name), name
     assert not any(hasattr(port, name) for name in left_out)
 
+
+
+def test_nothing_of_parallel_or_inference_is_left_to_port():
+    assert parallel.NOT_YET_PORTED == () and inference.NOT_YET_PORTED == ()
+    from facet_graph_convolution_torch.parallel import distributed, halo
+
+    skip = set(parallel.JAX_ONLY) | set(distributed.NO_COUNTERPART) | set(halo.NO_COUNTERPART)
+    for sub in ("parallel", "inference"):
+        jax_pkg = importlib.import_module(f"facet_graph_convolution_tpu.{sub}")
+        folder = jax_pkg.__path__[0]
+        for fn in sorted(os.listdir(folder)):
+            if not fn.endswith(".py") or fn == "__init__.py":
+                continue
+            with open(os.path.join(folder, fn)) as fh:
+                tree = ast.parse(fh.read())
+            names = {n.name for n in tree.body
+                     if isinstance(n, (ast.FunctionDef, ast.ClassDef)) and n.name[0] != "_"}
+            port = importlib.import_module(f"facet_graph_convolution_torch.{sub}.{fn[:-3]}")
+            assert not [n for n in names - skip if not hasattr(port, n)], (sub, fn)
+    for name, reason in halo.NO_COUNTERPART.items():
+        from facet_graph_convolution_tpu.parallel import halo as jax_halo
+
+        assert callable(getattr(jax_halo, name)) and reason and not hasattr(halo, name)
 
 
 def test_parallel_names_without_a_counterpart_exist_in_jax():

@@ -1,5 +1,7 @@
-"""Rank processes for the port's halo tests (tests/test_torch_halo.py,
-tests/test_torch_sharded_infer.py). It imports no JAX: each rank is
+"""Rank processes for the port's multi-rank tests (tests/test_torch_halo.py,
+tests/test_torch_sharded_infer.py, tests/test_torch_sharded_vertex.py,
+tests/test_torch_sharded_vertex_train.py, tests/test_torch_dp.py,
+tests/test_torch_multi_mesh.py). It imports no JAX: each rank is
 
     python -m tests.torch_halo_ranks <job> <rank> <world> <workdir>
 
@@ -9,6 +11,8 @@ the job, and writing its result to ``<workdir>/out_<rank>.pt``. Every
 collective fails after :data:`TIMEOUT` instead of hanging.
 """
 
+import copy
+import dataclasses
 import datetime
 import os
 import pickle
@@ -112,8 +116,6 @@ def job_driver(p, group):
     keyword overrides."""
     from facet_graph_convolution_torch.parallel.halo import train_normals_sharded
 
-    import dataclasses
-
     out = []
     for run in p["runs"]:
         cfg = p["cfg"].replace(**run.pop("cfg", {}))
@@ -142,6 +144,154 @@ def job_infer(p, group):
 
     return infer_normals_sharded(p["mesh"], p["cfg"], params_from_jax(p["params"], "cpu"),
                                  group=group, solver_iterations=p["iterations"])
+
+
+def _grads(params):
+    return {layer: {k: _numpy(t.grad) for k, t in leaves.items()}
+            for layer, leaves in params.items()}
+
+
+def job_multiscale(p, group):
+    """``sharded_update_positions_multiscale`` of ``p["args"]``."""
+    from facet_graph_convolution_torch.parallel.vertex_halo import (
+        sharded_update_positions_multiscale,
+    )
+
+    return sharded_update_positions_multiscale(*p["args"], group=group, iter_nums=p["iters"])
+
+
+def job_infer_vertices(p, group):
+    from facet_graph_convolution_torch.inference.sharded import infer_with_vertices_sharded
+
+    return infer_with_vertices_sharded(p["mesh"], p["cfg"], params_from_jax(p["params"], "cpu"),
+                                       group=group)
+
+
+def job_vertex_train(p, group):
+    """One sharded vertex step of each config of ``p["cfgs"]`` from
+    ``p["params"]`` on the injected draws: loss, parameters, gradients, and
+    the eval loss of the starting parameters."""
+    from facet_graph_convolution_torch.parallel import vertex_train as vt
+    from facet_graph_convolution_torch.training.trainer import create_train_state
+
+    out = {}
+    for name, cfg in p["cfgs"].items():
+        arrays, part, ops = vt.prepare_vertex_training(p["patch"], cfg, group.size)
+        state = create_train_state(cfg, device="cpu", params=params_from_jax(p["params"], "cpu"),
+                                   multi_scale=True)
+        step = vt.make_sharded_vertex_train_step(cfg, part, ops, group)
+        shard = vt.vertex_shard(arrays, group)
+        idx0, idx1 = torch.as_tensor(p["idx0"]), torch.as_tensor(p["idx1"])
+        evaluated = float(step.eval(state.params, shard, idx0, idx1))
+        state, loss = step(state, shard, idx0, idx1, rot=torch.as_tensor(p["rot"]))
+        out[name] = {"loss": float(loss), "eval": evaluated, "grads": _grads(state.params),
+                     "params": params_to_numpy(state.params)}
+    return out
+
+
+def job_vertex_driver(p, group):
+    """``train_with_vertices_sharded(device="cpu")`` runs in order."""
+    from facet_graph_convolution_torch.parallel.vertex_train import train_with_vertices_sharded
+
+    out = []
+    for run in p["runs"]:
+        cfg = p["cfg"].replace(**run.pop("cfg", {}))
+        patch = p["patch"]
+        if run.pop("nan_inputs", False):
+            patch = dataclasses.replace(patch, inputs=patch.inputs * np.float32("nan"))
+        if run.pop("validate", False):
+            run["valid_patches"] = [p["valid"]]
+        state, losses = train_with_vertices_sharded(cfg, patch, group=group, device="cpu", **run)
+        out.append({"losses": losses, "step": state.step})
+    return out
+
+
+def job_dp(p, group):
+    """One DP step from ``p["params"]`` on the bank of ``p["patches"]`` at
+    ``p["idx"]`` with ``p["draws"]``: mean loss, parameters, gradients, and
+    the eval loss of the starting parameters; then ``p["more"]`` steps
+    through ``make_dp_scanned_step`` and the chunk runner."""
+    from facet_graph_convolution_torch.parallel import data_parallel as dp
+    from facet_graph_convolution_torch.training.trainer import create_train_state
+
+    cfg = p["cfg"]
+    bank = dp.build_patch_bank(p["patches"], cfg, "cpu")
+    state = create_train_state(cfg, device="cpu", params=params_from_jax(p["params"], "cpu"))
+    step = dp.make_dp_train_step(cfg, group)
+    draws = {k: torch.as_tensor(v) for k, v in p["draws"].items()}
+    evaluated = float(step.eval(state.params, bank, p["idx"], draws))
+    state, loss = step(state, bank, p["idx"], draws)
+    # copies: the runs below update the parameters in place
+    out = {"loss": float(loss), "eval": evaluated, "grads": _grads(state.params),
+           "params": copy.deepcopy(params_to_numpy(state.params)), "nodes": bank.xs.shape[1]}
+    more = {k: torch.as_tensor(v) for k, v in p["more"].items()}
+    idxs = np.zeros((more["sample_idx"].shape[0], group.size), np.int64)
+    state, scanned = dp.make_dp_scanned_step(step)(state, bank, idxs, more)
+    select, run = dp.make_dp_chunk_runner(cfg, group)
+    state, chunked = run(state, select(bank, idxs[0]), more)
+    out.update(scanned=_numpy(scanned), chunked=_numpy(chunked),
+               final=params_to_numpy(state.params))
+    return out
+
+
+def job_dp_driver(p, group):
+    """``train_normals_dp(device="cpu")`` runs in order, each a dict of
+    keyword overrides (``cfg`` overrides the config)."""
+    from facet_graph_convolution_torch.parallel.data_parallel import train_normals_dp
+
+    out = []
+    for run in p["runs"]:
+        cfg = p["cfg"].replace(**run.pop("cfg", {}))
+        ds = p["set"]
+        if run.pop("nan_inputs", False):
+            ds = copy.copy(ds)
+            ds.patches = [dataclasses.replace(q, inputs=q.inputs * np.float32("nan"))
+                          for q in ds.patches]
+        if run.pop("validate", False):
+            run["valid_set"] = p["set"]
+        state, losses = train_normals_dp(cfg, ds, group=group, device="cpu", **run)
+        out.append({"losses": losses, "step": state.step})
+    return out
+
+
+def job_multi(p, group):
+    """``prepare_sharded_mesh_bank`` of ``p["patches"]``, a step on each
+    mesh from ``p["params"]`` with ``p["rot"]`` and ``p["masks"][m]``
+    (loss, gradients), then ``train_normals_sharded_multi``'s runs."""
+    from facet_graph_convolution_torch.parallel.halo import train_normals_sharded_multi
+    from facet_graph_convolution_torch.training.trainer import create_train_state
+
+    cfg = p["cfg"]
+    parts, xs, gts, n = halo.prepare_sharded_mesh_bank(cfg, p["patches"], group)
+    steps = []
+    for m, part in enumerate(parts):
+        state = create_train_state(cfg, device="cpu", params=params_from_jax(p["params"], "cpu"))
+        step = halo.make_sharded_train_step(cfg, part, group)
+        state, loss = step(state, xs[m], gts[m], halo.shard_rows(p["masks"][m], group),
+                           rot=torch.as_tensor(p["rot"]))
+        steps.append({"loss": float(loss), "grads": _grads(state.params),
+                      "shapes": halo.table_shapes(step.tables)})
+    runs = []
+    for run in p["runs"]:
+        state, losses = train_normals_sharded_multi(cfg, p["patches"], group=group,
+                                                    device="cpu", **run)
+        runs.append({"losses": losses, "step": state.step})
+    return {"nodes": n, "steps": steps, "runs": runs}
+
+
+def job_tp(p, group):
+    """The U-Net forward with the fc head split over the ranks
+    (``shard_unet_params`` + ``unet_apply(tp_group=...)``), each head, and
+    this rank's fc1 weight."""
+    from facet_graph_convolution_torch.models.unet import train_graph_tensors, unet_apply
+    from facet_graph_convolution_torch.parallel.tensor_parallel import shard_unet_params
+
+    params = shard_unet_params(params_from_jax(p["params"], "cpu"), group)
+    adjs, adj_ts, rows = train_graph_tensors(p["adjs"], "cpu")
+    heads = unet_apply(params, torch.as_tensor(p["x"]), adjs, rows, adj_ts=adj_ts,
+                       multi_scale=True, tp_group=group)
+    return {"heads": [_numpy(h) for h in heads], "fc1_w": _numpy(params["fc1"]["w"]),
+            "out0_w": _numpy(params["out0"]["w"])}
 
 
 JOBS = {name[4:]: fn for name, fn in globals().items() if name.startswith("job_")}
