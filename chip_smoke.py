@@ -220,7 +220,9 @@ Phases, each fatal on failure:
    the training torus's, with zero and -0.0 rows, 4 and 2 rounds): the
    forward bit for bit against the plain pool, the backward kernel
    (``tree_pool_iz_bwd``) within 1e-6 of autograd through the plain pool,
-   both bitwise repeatable; device ms, plain ms and bounds a solve;
+   both bitwise repeatable; device ms (warm L2, and cold after a 64 MiB
+   write), plain ms and bounds a launch and a solve, beside the times of
+   the team kernels, the design before the lane kernels;
 19d. sharded vertex training (``parallel/vertex_train.py``) on a
    102,400-face torus at full width, operator then naive solver: one
    step's gradients against the flat ``make_vertex_train_step``'s by the
@@ -3661,6 +3663,14 @@ MULTI_STEPS = 9              # train_normals_sharded_multi steps
 DP_STEPS = 20                # train_normals_dp steps a dtype
 POOL_BWD_ATOL = 1e-6         # K4's backward against the plain backward
 K4_SOLVE = (80, 20)          # K4 launches of a default solve: 80 at 4 rounds, 20 at 2
+# K4's team kernels (C = 3, a thread a group), the design before the lane
+# kernels, on an NVIDIA H100 80GB HBM3 at 700 W, by this script's 19c:
+# forward and backward ms a launch at (4, 2) rounds on the torus's 1,273,920
+# centres, and a solve's (K4_SOLVE launches) on each torus by its centres
+TEAM_POOL_LAUNCH_MS = {4: (0.01680, 0.08506), 2: (0.01000, 0.05107)}
+TEAM_POOL_SOLVE_MS = {1_273_920: (1.5442, 7.8266), 126_256: (0.8516, 2.5146)}
+COLD_FLUSH_BYTES = 64 << 20  # written between cold launches: more than the 50 MB L2
+COLD_REPS = 20
 
 
 def _stage_timers(module, names, seconds, results):
@@ -3774,15 +3784,37 @@ def pool_bwd_bound_ms(x, dy):
     return 1e3 * (2 * x.numel() + dy.numel()) * 4 / H100_BYTES_PER_S
 
 
+def cold_ms(fn, reps=COLD_REPS):
+    """Median device ms of ``reps`` single calls of ``fn``, each after a
+    COLD_FLUSH_BYTES write that evicts the L2 and a sleep kernel that keeps
+    the device busy while the host enqueues the timed call (so that no host
+    gap falls between the two events)."""
+    import torch
+
+    flush = torch.empty(COLD_FLUSH_BYTES // 4, device="cuda")
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    fn()
+    for start, end in zip(starts, ends):
+        flush.fill_(1.0)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+
+
 def pool_path_checks(dev, centres, label):
     """19c: K4's forward and backward kernels at a solve's two pools of the
     face centres ``centres`` (4 rounds at the coarse scale, 2 at the mid):
     forward bit for bit against the plain pool, backward within
     POOL_BWD_ATOL of the plain backward (autograd through the plain pool),
-    each bitwise repeatable; device ms by CUDA-graph replay beside the
-    bounds and the plain versions. Returns {"fwd"|"bwd": (max err, ms a
-    solve, plain ms a solve, bound ms a solve)}, a solve being K4_SOLVE
-    launches of each."""
+    each bitwise repeatable; device ms by CUDA-graph replay (warm L2)
+    beside the bounds, the plain versions, a cold-L2 time (``cold_ms``) and
+    the team kernels' times (TEAM_POOL_*_MS). Returns {"fwd"|"bwd": (max
+    err, ms a solve, plain ms a solve, bound ms a solve)}, a solve being
+    K4_SOLVE launches of each."""
     import torch
 
     from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
@@ -3813,18 +3845,29 @@ def pool_path_checks(dev, centres, label):
              cuda_ms(lambda: k4.tree_pool_ignore_zeros_bwd(x, dy, steps), 20)[0],
              cuda_ms(lambda: k4.tree_pool_ignore_zeros_bwd_plain(x, dy, steps), 5)[0],
              pool_bwd_bound_ms(x, dy))
+        cold = (cold_ms(lambda: k4.tree_pool_ignore_zeros(x, steps)),
+                cold_ms(lambda: k4.tree_pool_ignore_zeros_bwd(x, dy, steps)))
         for key, (ms_, plain_, bound_) in (("fwd", t[0:3]), ("bwd", t[3:6])):
             out[key][1] += count * ms_
             out[key][2] += count * plain_
             out[key][3] += count * bound_
         out["bwd"][0] = max(out["bwd"][0], e_bwd)
-        rows.append(f"{steps} rounds: fwd {t[0]:.5f} ms (plain {t[1]:.5f}, bound {t[2]:.5f}), "
-                    f"bwd {t[3]:.5f} ms (plain {t[4]:.5f}, bound {t[5]:.5f}, bound / ms "
-                    f"{t[5] / t[3]:.3f}), bwd err {e_bwd:.1e}")
+        before = TEAM_POOL_LAUNCH_MS[steps] if x.shape[0] == 1_273_920 else None
+        was = (lambda i: f", team kernel {before[i]:.5f}") if before else (lambda i: "")
+        rows.append(f"{steps} rounds: fwd {t[0]:.5f} ms{was(0)} (cold L2 {cold[0]:.5f}, plain "
+                    f"{t[1]:.5f}, bound {t[2]:.5f}, bound / ms {t[2] / t[0]:.3f}, cold "
+                    f"{t[2] / cold[0]:.3f}), bwd {t[3]:.5f} ms{was(1)} (cold L2 {cold[1]:.5f}, "
+                    f"plain {t[4]:.5f}, bound {t[5]:.5f}, bound / ms {t[5] / t[3]:.3f}, cold "
+                    f"{t[5] / cold[1]:.3f}), bwd err {e_bwd:.1e}")
+    before = TEAM_POOL_SOLVE_MS.get(x.shape[0])
+    was = (lambda i: f" (team kernels {before[i]:.4f})") if before else (lambda i: "")
     print(f"  19c K4 on {label} ({centres.shape[0]} face centres, C = 3, zero and -0.0 rows): "
-          f"forward bit for bit, backward within {POOL_BWD_ATOL:g}, both repeatable; "
-          + "; ".join(rows) + f"; a solve ({K4_SOLVE[0]} + {K4_SOLVE[1]} launches): fwd "
-          f"{out['fwd'][1]:.4f} ms, bwd {out['bwd'][1]:.4f} ms")
+          f"forward bit for bit, backward within {POOL_BWD_ATOL:g}, both repeatable; warm L2 "
+          f"by graph replay, cold L2 the median of {COLD_REPS} after a "
+          f"{COLD_FLUSH_BYTES >> 20} MiB write; " + "; ".join(rows)
+          + f"; a solve ({K4_SOLVE[0]} + {K4_SOLVE[1]} launches): fwd {out['fwd'][1]:.4f} ms"
+          f"{was(0)}, bwd {out['bwd'][1]:.4f} ms{was(1)}, bound {out['fwd'][3]:.4f} / "
+          f"{out['bwd'][3]:.4f}")
     return {k: tuple(v) for k, v in out.items()}
 
 

@@ -5,8 +5,10 @@
 ``facet_graph_convolution_tpu/ops/pallas_kernels.py::_pool_iz_kernel``
 (launched by ``tree_pool_ignore_zeros``, two fused rounds), with the number
 of rounds as an argument. The source's head note says what bounds it on an
-H100 (launch latency, at the solver's C = 3) and how its design answers
-that. :func:`tree_pool_ignore_zeros_plain` is the same function in plain
+H100 (bytes, at the sharded naive solver's C = 3 and up to 1.27M rows) and
+how its design answers that: a lane a leaf row and the rounds by warp
+shuffles for C <= 8 and up to 5 rounds, a team a group past those.
+:func:`tree_pool_ignore_zeros_plain` is the same function in plain
 PyTorch: the wrapper takes it for CPU tensors, and the tests and
 ``chip_smoke.py`` hold the kernel against it, bit for bit.
 

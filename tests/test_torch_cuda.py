@@ -517,10 +517,11 @@ def test_rotinv_conv_on_card_keeps_its_gradient(cuda, rng):
         torch.testing.assert_close(g_card, g_cpu, atol=1e-4, rtol=1e-4)
 
 
-def _pool_input(rng, n, c):
-    """Rows with zeros, all-zero rows and groups, and −0.0 rows."""
+def _pool_input(rng, n, c, zeros=0.3):
+    """Rows with zeros (a share ``zeros`` of them), all-zero rows and
+    groups, and −0.0 rows."""
     x = rng.normal(size=(n, c)).astype(np.float32)
-    x[rng.random(n) < 0.3] = 0.0
+    x[rng.random(n) < zeros] = 0.0
     x[8:16] = 0.0
     x[1] = -0.0
     x[17, :] = 0.0
@@ -581,8 +582,9 @@ def test_tree_pool_kernel_raises_under_grad(cuda):
 def test_tree_pool_backward_kernel_matches_plain(cuda, rng, c, steps):
     """The backward kernel against autograd through the plain pool, on zero
     rows, zero groups and -0.0 rows: equal values (bit for bit up to the
-    sign of a zero), and the same bits on a second launch; its zero flags
-    in a register (up to 5 rounds) and in local memory (6 and 10)."""
+    sign of a zero), and the same bits on a second launch; the lane kernel
+    at C <= 8 up to 5 rounds, the team kernel's zero flags in a register (C
+    > 8 up to 5 rounds) and in local memory (6 and 10)."""
     x = torch.as_tensor(_pool_input(rng, 3 * 1024, c), device=cuda)
     dy = torch.as_tensor(rng.normal(size=(x.shape[0] >> steps, c)).astype(np.float32),
                          device=cuda)
@@ -595,6 +597,52 @@ def test_tree_pool_backward_kernel_matches_plain(cuda, rng, c, steps):
     leaf = x.clone().requires_grad_()
     k4.TreePoolIgnoreZeros.apply(leaf, steps).backward(dy)
     assert torch.equal(leaf.grad, ref)
+
+
+def _pool_checks(x, steps, dy):
+    """K4 and its backward through the wrappers against the plain pool and
+    autograd through it: bit for bit, the sign of zero included, one launch
+    each, and the same bits on a second launch."""
+    before = (k4.tree_pool_ignore_zeros.launches, k4.tree_pool_ignore_zeros_bwd.launches)
+    out, again = k4.tree_pool_ignore_zeros(x, steps), k4.tree_pool_ignore_zeros(x, steps)
+    dx, dx2 = k4.tree_pool_ignore_zeros_bwd(x, dy, steps), k4.tree_pool_ignore_zeros_bwd(x, dy,
+                                                                                         steps)
+    assert (k4.tree_pool_ignore_zeros.launches, k4.tree_pool_ignore_zeros_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    ref = k4.tree_pool_ignore_zeros_plain(x, steps)
+    dref = k4.tree_pool_ignore_zeros_bwd_plain(x, dy, steps)
+    for got, want, twice in ((out, ref, again), (dx, dref, dx2)):
+        assert got.shape == want.shape
+        assert torch.equal(got, want) and torch.equal(got, twice)
+        assert torch.equal(torch.signbit(got), torch.signbit(want))
+        assert torch.equal(torch.signbit(got), torch.signbit(twice))
+
+
+@pytest.mark.parametrize("c,steps", [(3, 2), (3, 4), (1, 0), (3, 1), (3, 5), (8, 5), (9, 5),
+                                     (8, 6), (9, 6)])
+def test_tree_pool_kernels_on_ragged_warps_and_blocks(cuda, rng, c, steps):
+    """The main path's shapes (C = 3 at 4 and 2 rounds) and the dispatch's
+    edge (C 8 / 9 at 5 / 6 rounds: the lane kernels on one side, the team
+    kernels on the other), at N = 111 · 2^steps rows: groups end mid-warp
+    below 5 rounds, and the last block is ragged."""
+    x = torch.as_tensor(_pool_input(rng, 111 << steps, c), device=cuda)
+    assert x.shape[0] % 256 and (steps >= 5 or x.shape[0] % 32)
+    dy = torch.as_tensor(rng.normal(size=(111, c)).astype(np.float32), device=cuda)
+    _pool_checks(x, steps, dy)
+
+
+@pytest.mark.parametrize("zeros", [0.3, 0.002])
+@pytest.mark.parametrize("steps", [4, 2])
+def test_tree_pool_kernels_at_the_sharded_solve_size(cuda, rng, steps, zeros):
+    """1,273,920 face centres, C = 3, as the sharded naive solver pools the
+    1,048,576-face torus: zero rows (dense, or sparse so that most warps
+    hold none and merge without the zero rule), zero groups, -0.0 rows."""
+    x = torch.as_tensor(_pool_input(rng, 1_273_920, 3, zeros), device=cuda)
+    x[4096:4096 + 64] = 0.0
+    x[-5] = -0.0
+    dy = torch.as_tensor(rng.normal(size=(x.shape[0] >> steps, 3)).astype(np.float32),
+                         device=cuda)
+    _pool_checks(x, steps, dy)
 
 
 def _solver_patch():
