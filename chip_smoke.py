@@ -198,12 +198,24 @@ Phases, each fatal on failure:
    state and draws (loss and gradients within 1e-5 relative); the
    1,048,576-face torus (``torus(1024, 512)``, noise 0.2) as one
    whole-mesh patch: ``train_normals_sharded`` 20 steps in f32 and 20 in
-   bf16 (finite losses, the last below the first; K1/K2 8 launches a step
-   in the run's dtype only, the plain K1/K2 never, 8 of each in a profiled
-   step, the most of three profiles), with host seconds a stage, step ms, conv-edges/s and
-   peak memory, and K1/K2 ns a row at its level 0 beside the kernel
-   phase's 24,832-row level 0; ``infer_normals_sharded`` of the torus
-   whole (random weights; finite, K1 8) and of the subdivision-5
+   bf16 (finite losses, the last below the first), its levels 0 and 1
+   (1,273,920 and 318,480 rows) through K5, the windowed fused conv
+   (``ops/windowed_conv.py``), by default: K1/K2 2 launches a step and K5
+   and its backward 6, in the run's dtype only, no plain K1/K2/K5, as many
+   of each in a profiled step (the most of three profiles); then the same
+   runs with the windows off (K1/K2 8 a step), each loss within
+   WINDOWED_LOSS_RTOL of the windowed run's; host seconds a stage, step
+   ms, conv-edges/s and peak memory, windowed beside flat, and K1/K2 ns a
+   row at its level 0 beside the kernel phase's 24,832-row level 0;
+   the windowed phase: the torus's windows a level (block, window,
+   bwd_window, slabs), K5 and its backward at the 6 windowed convs in f32
+   (1e-5 × max|plain|) and bf16 (2^-8 × max|plain|) against their plain
+   versions, bitwise repeatable, ms a launch warm and cold L2, bound /
+   ms, the plain versions' ms and the flat path's K1 + z GEMM (K2 + its
+   two GEMMs) at the same inputs, then on shard 0 of a 4-way partition
+   of the 25,600-node patch with forced windows (halo rows, N_src > N);
+   ``infer_normals_sharded`` of the torus whole (random weights; finite,
+   K1 2 and K5 6) and of the subdivision-5
    icosphere against ``infer_normals`` of the same one-patch mesh within
    1e-4; then the launcher (``python -m
    facet_graph_convolution_torch.parallel.launch --num_processes 1 ...
@@ -212,8 +224,8 @@ Phases, each fatal on failure:
    multi-GPU path:
 19b. sharded vertex serving: ``infer_with_vertices_sharded`` of the same
    torus built with vertices, three random full-width heads: finite
-   outputs, K1 8 and K4 100 launches (80 at 4 rounds, 20 at 2; the scale
-   kernel none), the points within 1e-4 of the flat
+   outputs, K1 2, K5 6 and K4 100 launches (80 at 4 rounds, 20 at 2; the
+   scale kernel none), the points within 1e-4 of the flat
    ``update_positions_multiscale`` (the scale kernel) on the same normals;
    wall seconds by stage, the busy share of a profiled call, peak memory;
 19c. K4 at the sharded solve's pool inputs (the torus's face centres and
@@ -240,8 +252,9 @@ Phases, each fatal on failure:
 19f. multi-mesh: ``train_normals_sharded_multi`` on three 262,144-face
    tori (two of one topology): every mesh's tables of one shape, each
    mesh's step on the bank's merged partition against the step on its own
-   partition (1e-5 relative), 9 steps with finite losses and K1/K2 8 a
-   step; ms a step a mesh;
+   partition (1e-5 relative), 9 steps with finite losses and K1/K2 at the
+   flat levels' convs, K5 at the windowed ones' (every mesh's windows of
+   one geometry); ms a step a mesh;
 19g. the fc head tensor-parallel at one rank equal to the unsplit forward.
 
 Then it prints the kernels' JSON line, the card's ``nvidia-smi`` name and
@@ -3440,13 +3453,16 @@ def halo_parity(dev, group, patch):
 def _halo_run(cfg, patch, group, prepared, label, bf16):
     """``train_normals_sharded`` for HALO_STEPS steps, then HALO_TIMED timed
     steps of a step on ``prepared`` (the patch's partition and blocks) and
-    its profiles; checks finite, falling losses,
-    K1/K2 8 launches a step in the run's dtype only, no plain K1/K2, and 8
-    K1 and K2 kernels in a profiled step. Returns its numbers."""
+    its profiles; checks finite, falling losses, and a step's launches in
+    the run's dtype only: K1/K2 at the convs of the flat levels, K5 and its
+    backward at those of the windowed levels (:func:`conv_split`, under the
+    current window settings), no plain K1/K2/K5, and as many K1, K2, K5
+    and K5-backward kernels in a profiled step. Returns its numbers."""
     import torch
 
     from facet_graph_convolution_torch.models.augment import random_rotation
     from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
+    from facet_graph_convolution_torch.ops import windowed_conv as k5
     from facet_graph_convolution_torch.parallel.halo import (
         make_sharded_train_step,
         sample_mask_from,
@@ -3454,8 +3470,9 @@ def _halo_run(cfg, patch, group, prepared, label, bf16):
     )
 
     plain_calls = []
-    plains = {"facet_conv_fwd_plain": k1.facet_conv_fwd_plain,
-              "facet_conv_bwd_plain": k1.facet_conv_bwd_plain}
+    plains = [(k1, "facet_conv_fwd_plain"), (k1, "facet_conv_bwd_plain"),
+              (k5, "windowed_fused_conv_fwd_plain"), (k5, "windowed_fused_conv_bwd_plain")]
+    originals = [getattr(mod, name) for mod, name in plains]
 
     def counted(fn):
         def call(*a, **kw):
@@ -3463,31 +3480,35 @@ def _halo_run(cfg, patch, group, prepared, label, bf16):
             return fn(*a, **kw)
         return call
 
-    for fn in (k1.facet_conv_fwd, k1.facet_conv_bwd):
+    wrappers = {"fwd": k1.facet_conv_fwd, "bwd": k1.facet_conv_bwd,
+                "k5_fwd": k5.windowed_conv_fwd, "k5_bwd": k5.windowed_conv_bwd}
+    for fn in wrappers.values():
         fn.launches = fn.launches_bf16 = 0
+    part, x, gt, n = prepared
+    flat_n, win_n = conv_split(part)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     try:
-        for name, fn in plains.items():
-            setattr(k1, name, counted(fn))
+        for (mod, name), fn in zip(plains, originals):
+            setattr(mod, name, counted(fn))
         t0 = time.perf_counter()
         state, losses = train_normals_sharded(cfg, patch, HALO_STEPS, group=group, log_every=5,
                                               seed=0)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
     finally:
-        for name, fn in plains.items():
-            setattr(k1, name, fn)
-    counts = {k: (fn.launches, fn.launches_bf16)
-              for k, fn in (("fwd", k1.facet_conv_fwd), ("bwd", k1.facet_conv_bwd))}
-    want = (8 * HALO_STEPS, 8 * HALO_STEPS if bf16 else 0)
+        for (mod, name), fn in zip(plains, originals):
+            setattr(mod, name, fn)
+    counts = {k: (fn.launches, fn.launches_bf16) for k, fn in wrappers.items()}
+    want = {k: (c * HALO_STEPS, c * HALO_STEPS if bf16 else 0)
+            for k, c in (("fwd", flat_n), ("bwd", flat_n), ("k5_fwd", win_n),
+                         ("k5_bwd", win_n))}
     peak = (torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved())
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: losses {losses}")
-    if counts != {"fwd": want, "bwd": want} or plain_calls:
-        raise AssertionError(f"{label}: launches (all, bf16) {counts}, want {want} each; plain "
+    if counts != want or plain_calls:
+        raise AssertionError(f"{label}: launches (all, bf16) {counts}, want {want}; plain "
                              f"calls {plain_calls}")
-    part, x, gt, n = prepared
     step = make_sharded_train_step(cfg, part, group)
     mask = sample_mask_from(np.random.default_rng(1).integers(0, n, cfg.train.loss_samples), n,
                             group)
@@ -3500,31 +3521,341 @@ def _halo_run(cfg, patch, group, prepared, label, bf16):
         times.append(time.perf_counter() - t0)
     times = sorted(times[3:])
     # the most of GRAPH_PROFILES profiles: the profiler can drop an activity
-    prof = profiled_launches(lambda: float(step(state, x, gt, mask, rot=rot)[1]), 1)[0]
-    if (prof["K1"], prof["K2"]) != (8, 8):
-        raise AssertionError(f"{label}: a profiled step shows K1/K2 kernels {prof} (want 8)")
+    prof, profiles, _ = profiled_launches(lambda: float(step(state, x, gt, mask, rot=rot)[1]), 1)
+    for key, kernel in (("K5", "windowed_conv_fwd_kernel"),
+                        ("K5_bwd", "windowed_bwd_dcat_kernel")):
+        prof[key] = max(sum(kernel in name for name, _ in events) for events in profiles)
+    if (prof["K1"], prof["K2"], prof["K5"], prof["K5_bwd"]) != (flat_n, flat_n, win_n, win_n):
+        raise AssertionError(f"{label}: a profiled step shows kernels {prof} (want K1/K2 "
+                             f"{flat_n}, K5 and its backward {win_n})")
     wall_ms, busy_ms, _ = device_profile(lambda: float(step(state, x, gt, mask, rot=rot)[1]),
                                          f"one {label} sharded step, {n} nodes")
     median = times[len(times) // 2]
     print(f"  {label}: {HALO_STEPS} steps of train_normals_sharded in {run_s:.2f} s, loss "
-          f"{losses[0]:.4f} → {losses[-1]:.4f}; K1/K2 launches (all, bf16) {counts}, plain "
-          f"none; profiled step: K1 {prof['K1']}, K2 {prof['K2']} kernels; step median "
-          f"{1e3 * median:.3f} ms (min {1e3 * times[0]:.3f}, max {1e3 * times[-1]:.3f}) over "
-          f"{HALO_TIMED}; peak allocated {peak[0] / 2**30:.3f} GiB, reserved "
-          f"{peak[1] / 2**30:.3f} GiB")
+          f"{losses[0]:.4f} → {losses[-1]:.4f}; launches (all, bf16) {counts}, plain none; "
+          f"profiled step: K1 {prof['K1']}, K2 {prof['K2']}, K5 {prof['K5']}, K5 backward "
+          f"{prof['K5_bwd']} kernels; step median {1e3 * median:.3f} ms (min "
+          f"{1e3 * times[0]:.3f}, max {1e3 * times[-1]:.3f}) over {HALO_TIMED}; peak allocated "
+          f"{peak[0] / 2**30:.3f} GiB, reserved {peak[1] / 2**30:.3f} GiB")
     return {"median_s": median, "min_s": times[0], "max_s": times[-1], "peak": peak,
             "launches": counts, "busy_ms": busy_ms, "wall_ms": wall_ms,
-            "losses": (float(losses[0]), float(losses[-1]))}
+            "losses": np.asarray(losses, np.float64)}
+
+
+# K5, the windowed fused conv (ops/windowed_conv.py), in the halo phase: the
+# U-Net's 8 convs by level (models/unet.py::_network: conv1, conv2, conv3,
+# dconv3, upconv2, dconv2, upconv1, dconv1), and the convs of the levels that
+# the torus windows, (name, level, C, out) at full width
+CONV_LEVELS = (0, 1, 2, 2, 1, 1, 0, 0)
+WINDOWED_CONVS = (("conv1", 0, 6, 32), ("upconv1", 0, 64, 32), ("dconv1", 0, 64, 32),
+                  ("conv2", 1, 32, 64), ("upconv2", 1, 128, 64), ("dconv2", 1, 128, 64))
+K5_TOL = 1e-5                # K5 f32 against its plain version, × max|plain| per output
+H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core rate, SXM data sheet
+# the shard check's forced windows on the 4-way partition of the kernel
+# phase's patch (6,400 rows a shard at level 0, 1,600 at level 1)
+K5_SHARD_WINDOWS = {"WINDOWED_MIN_NODES": 1024, "WINDOWED_BLOCK": 768}
+# windowed against flat torus steps, the same draws: the losses a step
+# (float32 sums reassociated; bfloat16 rounds at other points, VALUE_TOL of
+# tests/test_variant_matrix.py)
+WINDOWED_LOSS_RTOL = {"f32": 1e-3, "bf16": 0.03}
+
+
+def conv_split(part):
+    """(convs on K1/K2, convs on K5) of one forward over ``part`` under the
+    current window settings (``parallel.halo.build_level_windows``)."""
+    from facet_graph_convolution_torch.parallel.halo import build_level_windows
+
+    windows = build_level_windows(part)
+    win = sum(windows[level] is not None for level in CONV_LEVELS)
+    return len(CONV_LEVELS) - win, win
+
+
+def graph_ms(fn, reps):
+    """Device ms a call: ``reps`` calls captured in one CUDA graph, replayed
+    between two CUDA events (warm L2)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def event_ms(fn):
+    """Device ms of one eager call between CUDA events, after a warm-up call:
+    for calls that a CUDA graph cannot capture, or timed as they run eagerly
+    (``tools/k5_probe.py``, ``tools/k5_phase_probe.py``)."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def k5_inputs(tables, c_in, out, rng, dev, dtype):
+    """K5's arguments at one windowed level's shard tables: random ``cat``
+    [N_src, C+9] in ``dtype``, ``ux`` f32 (the path passes it so), ``wf``
+    [out, 9·C] scaled by 1/sqrt(9·C), ``c``, the level's ``mult_rows``;
+    and a cotangent ``gy`` [N, out]."""
+    import torch
+
+    geometry = tables.windows.geometry
+    n_src, n, m = geometry[3], geometry[4], 9
+
+    def r(*shape, scale=1.0):
+        return torch.as_tensor((rng.normal(size=shape) * scale).astype(np.float32), device=dev)
+
+    args = (geometry, r(n_src, c_in + m).to(dtype), r(n, m), r(out, m * c_in,
+                                                              scale=(m * c_in) ** -0.5),
+            r(m), tables.mult_rows[:, :, 0].contiguous(), tables.windows.arrays)
+    return args, r(n, out)
+
+
+def k5_check(args, gy, label, bf16):
+    """K5 and its backward on ``args`` against their plain versions (f32
+    within K5_TOL × max|plain| per output, bf16 within BF16_KERNEL_TOL ×
+    max|plain|) and against themselves (two launches, the same bits).
+    Returns (y, (dcat, dux, dwf, dc), fwd max abs err, bwd max abs err,
+    (plain fwd ms, plain bwd ms)): the plain versions' device ms of these
+    calls, by CUDA events."""
+    import torch
+
+    from facet_graph_convolution_torch.ops import windowed_conv as k5
+
+    y, again = k5.windowed_conv_fwd(*args), k5.windowed_conv_fwd(*args)
+    grads, grads2 = k5.windowed_conv_bwd(*args, gy), k5.windowed_conv_bwd(*args, gy)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, again) and all(torch.equal(a, b) for a, b in zip(grads, grads2))):
+        raise AssertionError(f"K5 gave different bits on the same inputs at {label}")
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    y_ref = k5.windowed_fused_conv_fwd_plain(*args)
+    events[1].record()
+    refs = [y_ref, *k5.windowed_fused_conv_bwd_plain(*args, gy)]
+    events[2].record()
+    torch.cuda.synchronize()
+    plain_ms = (events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2]))
+    errs = []
+    for name, got, ref in zip(("y", "dcat", "dux", "dwf", "dc"), (y, *grads), refs):
+        if got.dtype != ref.dtype or got.shape != ref.shape:
+            raise AssertionError(f"K5 {name} at {label}: {got.dtype} {tuple(got.shape)}, plain "
+                                 f"{ref.dtype} {tuple(ref.shape)}")
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        if err > (BF16_KERNEL_TOL if bf16 else K5_TOL) * scale:
+            raise AssertionError(f"K5 {name} disagrees with its plain version at {label}: "
+                                 f"{err} (max |plain| {scale})")
+        errs.append(err)
+    return y, grads, errs[0], max(errs[1:]), plain_ms
+
+
+def k5_bounds(args, gy, y, grads):
+    """Least times for K5's forward and backward on these inputs: each
+    input read once and each output written once at the HBM rate, against
+    the operations this data needs at the peak rate of the inputs' type
+    (f32 67 TFLOP/s, bf16 989): per live slot (mult > 0) M·(2C + 6) for the
+    slot sums and the softmax, per row 2·M·C·out for the transform; the
+    backward twice the transform (dz, dwf), the slot sums again, and per
+    live slot M·(4C + 8) for dq, dx and dlog. Returns ((fwd ms, by), (bwd
+    ms, by))."""
+    import torch
+
+    geometry, cat, ux, wf, c, rows, tabs = args
+    n_src, n = geometry[3], geometry[4]
+    m = ux.shape[1]
+    c_in = cat.shape[1] - m
+    out = wf.shape[0]
+    tail = n_src > n
+    sz = cat.element_size()
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    fwd_tabs = tabs[0:3] + (tabs[7:9] if tail else ())
+    bwd_tabs = (tabs[4], tabs[5], tabs[6]) + (tabs[9:11] if tail else ())
+    inputs = (cat.numel() + ux.numel() + wf.numel()) * sz + nbytes((c, rows)) + nbytes(fwd_tabs)
+    live = int(torch.count_nonzero(rows))
+    transform = 2 * n * m * c_in * out
+    slots = live * m * (2 * c_in + 6)
+    rate = H100_BF16_FLOPS if cat.dtype == torch.bfloat16 else H100_F32_FLOPS
+    out_bounds = []
+    for nb, ops in ((inputs + nbytes((y,)), transform + slots),
+                    (inputs + nbytes(bwd_tabs) + nbytes((gy, *grads)),
+                     2 * transform + slots + live * m * (4 * c_in + 8))):
+        t_bytes, t_ops = nb / H100_BYTES_PER_S, ops / rate
+        out_bounds.append((1e3 * max(t_bytes, t_ops),
+                           "bytes" if t_bytes >= t_ops else "operations"))
+    return out_bounds
+
+
+def flat_yardstick_ms(args, gy, flat, dtype):
+    """What the flat path runs at the same level and inputs, device ms a
+    call (CUDA-graph replay): K1 and the z GEMM (``z @ W_flatᵀ``; bf16 with
+    an f32 sum, ``ops/conv.py::_mm_f32``), and K2 with the backward's two
+    GEMMs (``dz = gy · W_flat``, ``dW = gyᵀ · z``)."""
+    import torch
+
+    from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
+    from facet_graph_convolution_torch.ops.conv import _mm_f32
+
+    _, cat, ux, wf, c, rows, _ = args
+    adj_sm, adj_t_sm = flat.adj_sm, flat.adj_t_sm
+    ux, wf = ux.to(dtype), wf.to(dtype)
+
+    def mm(a, b):
+        return _mm_f32(a, b) if dtype == torch.bfloat16 else a @ b
+
+    def fwd():
+        return mm(k1.facet_conv_fwd(cat, ux, adj_sm, rows, c), wf.t())
+
+    z = k1.facet_conv_fwd(cat, ux, adj_sm, rows, c)
+
+    def bwd():
+        dz = mm(gy.to(dtype), wf).to(dtype)
+        return k1.facet_conv_bwd(cat, ux, adj_sm, adj_t_sm, rows, c, dz), mm(gy.to(dtype).t(), z)
+
+    return graph_ms(fwd, 3), graph_ms(bwd, 3)
+
+
+def windowed_phase(dev, part, bench_patch):
+    """K5 in the halo phase's group: the torus's windows a level; K5 and its
+    backward at the 6 convs of its windowed levels 0 and 1, f32 and bf16,
+    against their plain versions and bitwise repeatable (:func:`k5_check`),
+    with ms a launch (warm L2 by graph replay, cold after a 64 MiB write),
+    bounds (:func:`k5_bounds`), the plain versions' ms and the flat path's
+    K1 + GEMM (K2 + GEMMs) at the same inputs; then shard 0 of a 4-way
+    partition of ``bench_patch`` (halo rows, N_src > N) with forced windows,
+    untimed. Returns {dtype: per-step sums of the 6 convs}."""
+    import torch
+
+    from facet_graph_convolution_torch.ops import windowed_conv as k5
+    from facet_graph_convolution_torch.parallel import halo
+
+    t_phase = time.perf_counter()
+    windows = halo.build_level_windows(part)
+    print("windowed phase: the torus's windows (block, window, bwd_window, slabs) a level: "
+          + ", ".join(f"level {i} ({lvl.block} rows) "
+                      + ("flat" if wt is None else
+                         f"{wt.block}, {wt.window}, {wt.bwd_window}, {len(wt.out_starts)}")
+                      for i, (lvl, wt) in enumerate(zip(part.levels, windows))))
+    tables = halo.partition_operands(part, 0, dev, windows)
+    flat = halo.partition_operands(part, 0, dev)
+    rng = np.random.default_rng(31)
+    print(f"  K5 vs plain (f32 atol {K5_TOL:g} × max|plain|, bf16 {BF16_KERNEL_TOL:g} × "
+          "max|plain|), bitwise repeatable; ms a launch warm (graph replay) / cold (64 MiB "
+          "write before each); bound / warm ms; flat: K1 + z GEMM, K2 + 2 GEMMs")
+    print("  %-8s %-4s %8s %4s %3s %9s %9s %9s %9s %9s %9s %9s %9s %6s %6s %9s %9s" % (
+        "conv", "type", "N", "C", "out", "fwd_err", "bwd_err", "fwd_ms", "fwd_cold", "bwd_ms",
+        "bwd_cold", "plain_f", "plain_b", "f_shr", "b_shr", "flat_fwd", "flat_bwd"))
+    sums = {}
+    for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        s = sums[label] = {"fwd": {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                   "flat_ms": 0.0, "err": 0.0, "by": set()},
+                           "bwd": {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                   "flat_ms": 0.0, "err": 0.0, "by": set()}}
+        for name, level, c_in, out in WINDOWED_CONVS:
+            if tables[level].windows is None:
+                raise AssertionError(f"the torus's level {level} is not windowed")
+            args, gy = k5_inputs(tables[level], c_in, out, rng, dev, dtype)
+            y, grads, e_f, e_b, (p_f, p_b) = k5_check(args, gy, f"{name} ({label})",
+                                                       label == "bf16")
+            (b_f, by_f), (b_b, by_b) = k5_bounds(args, gy, y, grads)
+            del y, grads
+            row = {"fwd": {"err": e_f, "ms": graph_ms(lambda: k5.windowed_conv_fwd(*args), 3),
+                           "cold_ms": cold_ms(lambda: k5.windowed_conv_fwd(*args)),
+                           "plain_ms": p_f, "bound_ms": b_f, "by": by_f},
+                   "bwd": {"err": e_b,
+                           "ms": graph_ms(lambda: k5.windowed_conv_bwd(*args, gy), 3),
+                           "cold_ms": cold_ms(lambda: k5.windowed_conv_bwd(*args, gy)),
+                           "plain_ms": p_b, "bound_ms": b_b, "by": by_b}}
+            row["fwd"]["flat_ms"], row["bwd"]["flat_ms"] = flat_yardstick_ms(
+                args, gy, flat[level], dtype)
+            for d in ("fwd", "bwd"):
+                for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "flat_ms"):
+                    s[d][key] += row[d][key]
+                s[d]["err"] = max(s[d]["err"], row[d]["err"])
+                s[d]["by"].add(row[d]["by"])
+            f, b = row["fwd"], row["bwd"]
+            print("  %-8s %-4s %8d %4d %3d %9.2e %9.2e %9.5f %9.5f %9.5f %9.5f %9.4f %9.4f "
+                  "%6.3f %6.3f %9.5f %9.5f" % (
+                      name, label, args[0][4], c_in, out, f["err"], b["err"], f["ms"],
+                      f["cold_ms"], b["ms"], b["cold_ms"], f["plain_ms"], b["plain_ms"],
+                      f["bound_ms"] / f["ms"], b["bound_ms"] / b["ms"], f["flat_ms"],
+                      b["flat_ms"]))
+            del args, gy
+        for d in ("fwd", "bwd"):
+            t = s[d]
+            t["bound_by"] = "bytes" if t.pop("by") == {"bytes"} else "operations"
+            flat_name = "K1 + GEMM" if d == "fwd" else "K2 + 2 GEMMs"
+            print(f"  K5 {d} {label}, the 6 convs a step: {t['ms']:.5f} ms warm, "
+                  f"{t['cold_ms']:.5f} cold (plain {t['plain_ms']:.4f}, bound "
+                  f"{t['bound_ms']:.5f} {t['bound_by']}, bound / ms "
+                  f"{t['bound_ms'] / t['ms']:.3f}); the flat path's {flat_name} "
+                  f"{t['flat_ms']:.5f} ms")
+    del tables, flat
+    torch.cuda.empty_cache()
+
+    # shard 0 of a 4-way partition: halo rows after the owned ones
+    shard_part = halo.build_partition(bench_patch.adjs, HALO_SHARDS)
+    saved = {k: getattr(halo, k) for k in K5_SHARD_WINDOWS}
+    try:
+        for k, v in K5_SHARD_WINDOWS.items():
+            setattr(halo, k, v)
+        shard = halo.partition_operands(shard_part, 0, dev, halo.build_level_windows(shard_part))
+    finally:
+        for k, v in saved.items():
+            setattr(halo, k, v)
+    worst = {}
+    checked = [(name, level, c_in, out) for name, level, c_in, out in (
+        ("upconv1", 0, 64, 32), ("upconv2", 1, 128, 64)) if shard[level].windows is not None]
+    if not checked:
+        raise AssertionError("no level of the 4-way partition's shard 0 windowed")
+    for name, level, c_in, out in checked:
+        g = shard[level].windows.geometry
+        if g[3] <= g[4]:
+            raise AssertionError(f"shard 0's level {level} has no halo rows: {g}")
+        for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            args, gy = k5_inputs(shard[level], c_in, out, rng, dev, dtype)
+            _, _, e_f, e_b, _ = k5_check(args, gy, f"{name}, 4-way shard 0 ({label})",
+                                         label == "bf16")
+            worst[label] = max(worst.get(label, 0.0), e_f, e_b)
+        print(f"  K5 on shard 0 of a {HALO_SHARDS}-way partition of the {bench_patch.num_nodes}"
+              f"-node patch, {name} (N {g[4]}, N_src {g[3]}, block {g[0]}, window {g[1]}): "
+              "f32 and bf16 agree with the plain versions, bitwise repeatable")
+    print(f"  windowed phase: {time.perf_counter() - t_phase:.1f} s")
+    return sums
 
 
 def halo_phase(dev, workdir, trained):
     """The halo-sharded path (``parallel/``) on one card: a one-rank NCCL
     group; K1/K2 on halo-extended sources; the one-rank sharded step against
-    the flat step; the 1,048,576-face torus trained whole (f32, then bf16)
-    and served whole; the sharded serving against ``infer_normals`` on the
-    subdivision-5 icosphere; the multi-GPU phases 19b-19g
+    the flat step; the 1,048,576-face torus trained whole (f32, then bf16),
+    its levels 0 and 1 through K5 (the windowed conv, by default), then the
+    same runs with the windows off (the flat path: K1/K2 at every level),
+    the losses a step compared; K5's checks and times (:func:`windowed_phase`);
+    the torus served whole; the sharded serving against ``infer_normals`` on
+    the subdivision-5 icosphere; the multi-GPU phases 19b-19g
     (:func:`multi_gpu_phases`) in the same group; the launcher in a
-    subprocess. Returns the main paths' K1/K2/K4 launches and the numbers."""
+    subprocess. Returns the main paths' K1/K2/K4/K5 launches and the
+    numbers."""
     import torch
 
     from facet_graph_convolution_torch.config import default_config
@@ -3533,8 +3864,10 @@ def halo_phase(dev, workdir, trained):
     from facet_graph_convolution_torch.inference.driver import infer_normals
     from facet_graph_convolution_torch.inference.sharded import infer_normals_sharded
     from facet_graph_convolution_torch.models.unet import init_unet, train_graph_tensors
+    from facet_graph_convolution_torch.inference import sharded
     from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
-    from facet_graph_convolution_torch.parallel import distributed
+    from facet_graph_convolution_torch.ops import windowed_conv as k5
+    from facet_graph_convolution_torch.parallel import distributed, halo
     from facet_graph_convolution_torch.parallel.halo import (
         _prepare_sharded_mesh_arrays,
         partition_operands,
@@ -3549,7 +3882,8 @@ def halo_phase(dev, workdir, trained):
     group = make_mesh(str(dev))
     if (group.size, group.backend) != (1, "nccl"):
         raise AssertionError(f"the one-rank group: size {group.size}, backend {group.backend}")
-    out = {"launches": {"fwd": 0, "bwd": 0, "fwd_bf16": 0, "bwd_bf16": 0}}
+    out = {"launches": {key + sfx: 0 for key in ("fwd", "bwd", "k5_fwd", "k5_bwd")
+                        for sfx in ("", "_bf16")}}
     try:
         out["kernel_err"] = halo_kernel_checks(dev, bench_patch)
         halo_parity(dev, group, bench_patch)
@@ -3579,10 +3913,32 @@ def halo_phase(dev, workdir, trained):
             c = cfg.replace(model={"compute_dtype": "bfloat16"}) if bf16 else cfg
             r = runs[label] = _halo_run(c, patch, group, prepared, f"torus {label}", bf16)
             print(f"  torus {label}: {edges / r['median_s']:.4e} conv-edges/s")
-            for key in ("fwd", "bwd"):
+            for key in ("fwd", "bwd", "k5_fwd", "k5_bwd"):
                 a, b16 = r["launches"][key]
                 out["launches"][key] += a - b16
                 out["launches"][key + "_bf16"] += b16
+        # the same runs on the flat path: no level windowed
+        saved = halo.WINDOWED_MIN_NODES
+        try:
+            halo.WINDOWED_MIN_NODES = 10**9
+            for label, bf16 in (("f32", False), ("bf16", True)):
+                c = cfg.replace(model={"compute_dtype": "bfloat16"}) if bf16 else cfg
+                flat = runs[label + " flat"] = _halo_run(c, patch, group, prepared,
+                                                         f"torus {label} flat", bf16)
+                win = runs[label]
+                rel = float(np.max(np.abs(win["losses"] - flat["losses"])
+                                   / np.abs(flat["losses"])))
+                if rel > WINDOWED_LOSS_RTOL[label]:
+                    raise AssertionError(f"torus {label}: windowed losses {win['losses']} vs "
+                                         f"flat {flat['losses']}")
+                print(f"  torus {label}, windowed (K5 at levels 0-1) vs flat: step "
+                      f"{1e3 * win['median_s']:.3f} vs {1e3 * flat['median_s']:.3f} ms, peak "
+                      f"allocated {win['peak'][0] / 2**30:.3f} vs {flat['peak'][0] / 2**30:.3f} "
+                      f"GiB, losses within {rel:.2e} relative a step (bar "
+                      f"{WINDOWED_LOSS_RTOL[label]:g})")
+        finally:
+            halo.WINDOWED_MIN_NODES = saved
+        out["windowed"] = windowed_phase(dev, part, bench_patch)
         fine = partition_operands(part, 0, dev)[0]
         big = level0_row_ns(dev, fine.adj_sm, fine.adj_t_sm,
                             fine.mult_rows[:, :, 0].contiguous(), "torus level 0")
@@ -3605,18 +3961,28 @@ def halo_phase(dev, workdir, trained):
         mesh.add_mesh(noisy, f)
         build_s = time.perf_counter() - t0
         k1.facet_conv_fwd.launches = k1.facet_conv_fwd.launches_bf16 = 0
-        t0 = time.perf_counter()
-        pts, normals = infer_normals_sharded(mesh, cfg, params, group=group)
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
-        served = k1.facet_conv_fwd.launches
-        if (served != 8 or pts.shape != v.shape or normals.shape != (f.shape[0], 3)
+        k5.windowed_conv_fwd.launches = 0
+        stages = {}
+        originals = _stage_timers(sharded, ("_partitioned",), {}, stages)
+        try:
+            t0 = time.perf_counter()
+            pts, normals = infer_normals_sharded(mesh, cfg, params, group=group)
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+        finally:
+            sharded._partitioned = originals["_partitioned"]
+        served = (k1.facet_conv_fwd.launches, k5.windowed_conv_fwd.launches)
+        want = conv_split(stages["_partitioned"][1])
+        if (served != want or pts.shape != v.shape or normals.shape != (f.shape[0], 3)
                 or not (np.isfinite(pts).all() and np.isfinite(normals).all())):
-            raise AssertionError(f"serving the torus: K1 {served}, shapes {pts.shape} "
-                                 f"{normals.shape}, finite {np.isfinite(pts).all()}")
-        out["launches"]["fwd"] += served
+            raise AssertionError(f"serving the torus: K1, K5 {served} (want {want}), shapes "
+                                 f"{pts.shape} {normals.shape}, finite {np.isfinite(pts).all()}")
+        out["launches"]["fwd"] += served[0]
+        out["launches"]["k5_fwd"] += served[1]
         print(f"  served the torus whole: mesh build {build_s:.2f} s, infer_normals_sharded "
-              f"{serve_s:.2f} s ({cfg.eval.solver_iterations} solver iterations), K1 {served}")
+              f"{serve_s:.2f} s ({cfg.eval.solver_iterations} solver iterations), K1 "
+              f"{served[0]}, K5 {served[1]}")
+        del stages
         del mesh, pts, normals
 
         v5, f5 = icosphere(5)
@@ -3635,8 +4001,8 @@ def halo_phase(dev, workdir, trained):
         out.update(runs=runs, host=host, edges=edges, ratios=ratios, big=big, small=small)
         del mesh, pts, normals, ref_pts, ref_normals
         multi = out["multi"] = multi_gpu_phases(dev, group, workdir, (noisy, f), trained)
-        for key in ("fwd", "bwd", "fwd_bf16", "bwd_bf16"):
-            out["launches"][key] += multi[key]
+        for key in out["launches"]:
+            out["launches"][key] += multi.get(key, 0)
     finally:
         distributed.shutdown()
 
@@ -3700,10 +4066,11 @@ def sharded_vertex_serving(dev, group, torus_mesh):
     """19b: ``infer_with_vertices_sharded`` of the 1,048,576-face torus
     (built with vertices) at full width, three random heads; the points
     against the flat ``update_positions_multiscale`` (the scale kernel) on
-    the same normals at SOLVER_ATOL; K1 8 and K4 100 launches (80 at 4
-    rounds, 20 at 2); wall seconds by stage, the busy share of a profiled
-    call, peak memory. Returns the launches, the pool inputs of the solve
-    and the numbers."""
+    the same normals at SOLVER_ATOL; K1 at the flat levels' convs and K5 at
+    the windowed ones' (:func:`conv_split`: 2 and 6), K4 100 launches (80
+    at 4 rounds, 20 at 2); wall seconds by stage, the busy share of a
+    profiled call, peak memory. Returns the launches, the pool inputs of
+    the solve and the numbers."""
     import torch
 
     from facet_graph_convolution_torch.config import default_config
@@ -3713,6 +4080,7 @@ def sharded_vertex_serving(dev, group, torus_mesh):
     from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
     from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
+    from facet_graph_convolution_torch.ops import windowed_conv as k5
     from facet_graph_convolution_torch.ops.vertex_update import update_positions_multiscale
 
     cfg = default_config()
@@ -3729,22 +4097,24 @@ def sharded_vertex_serving(dev, group, torus_mesh):
                                         "sharded_update_positions_multiscale"), seconds, results)
     try:
         k1.facet_conv_fwd.launches = k4.tree_pool_ignore_zeros.launches = 0
-        ms.naive_scale.launches = 0
+        ms.naive_scale.launches = k5.windowed_conv_fwd.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = sharded.infer_with_vertices_sharded(vmesh, cfg, params, group=group)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"K1": k1.facet_conv_fwd.launches, "K4": k4.tree_pool_ignore_zeros.launches,
+        launches = {"K1": k1.facet_conv_fwd.launches, "K5": k5.windowed_conv_fwd.launches,
+                    "K4": k4.tree_pool_ignore_zeros.launches,
                     "scale kernel": ms.naive_scale.launches}
         peak = torch.cuda.max_memory_allocated()
     finally:
         for name, fn in originals.items():
             setattr(sharded, name, fn)
-    if launches != {"K1": 8, "K4": sum(K4_SOLVE), "scale kernel": 0}:
-        raise AssertionError(f"torus vertex serving: launches {launches}, want K1 8, K4 "
-                             f"{sum(K4_SOLVE)}, the scale kernel none")
+    flat_n, win_n = conv_split(results["_partitioned"][1])
+    if launches != {"K1": flat_n, "K5": win_n, "K4": sum(K4_SOLVE), "scale kernel": 0}:
+        raise AssertionError(f"torus vertex serving: launches {launches}, want K1 {flat_n}, "
+                             f"K5 {win_n}, K4 {sum(K4_SOLVE)}, the scale kernel none")
     for key, vals in out.items():
         if not np.isfinite(vals).all():
             raise AssertionError(f"torus vertex serving: {key} not finite")
@@ -4152,8 +4522,9 @@ def multi_mesh_phase(dev, group, workdir):
     (the port's form of JAX's one compiled step), each mesh's step on the
     bank's merged partition against ``train_normals_sharded``'s step on the
     same padded mesh alone (loss and gradients within HALO_PARITY_RTOL
-    relative), MULTI_STEPS driver steps (finite losses), ms a step a mesh.
-    Returns the K1/K2 launches."""
+    relative), MULTI_STEPS driver steps (finite losses; K1/K2 at the flat
+    levels' convs, K5 and its backward at the windowed ones'), ms a step a
+    mesh. Returns the K1/K2/K5 launches."""
     import torch
 
     from facet_graph_convolution_torch.config import default_config
@@ -4161,6 +4532,7 @@ def multi_mesh_phase(dev, group, workdir):
     from facet_graph_convolution_torch.data.synthetic import add_vertex_noise, torus
     from facet_graph_convolution_torch.models.augment import random_rotation
     from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
+    from facet_graph_convolution_torch.ops import windowed_conv as k5
     from facet_graph_convolution_torch.parallel import halo
     from facet_graph_convolution_torch.training.trainer import _leaves, create_train_state
 
@@ -4176,9 +4548,12 @@ def multi_mesh_phase(dev, group, workdir):
     t0 = time.perf_counter()
     parts, xs, gts, n = halo.prepare_sharded_mesh_bank(cfg, ds.patches, group)
     bank_s = time.perf_counter() - t0
-    shapes = [halo.table_shapes(halo.partition_operands(pt, group.rank, dev)) for pt in parts]
+    shapes = [halo.table_shapes(halo.partition_operands(pt, group.rank, dev,
+                                                        halo.build_level_windows(pt)))
+              for pt in parts]
     if any(sh != shapes[0] for sh in shapes):
-        raise AssertionError("the meshes' tables differ in shape")
+        raise AssertionError("the meshes' tables, windows included, differ in shape")
+    flat_n, win_n = conv_split(parts[0])
     gen = torch.Generator().manual_seed(6)
     rot = random_rotation(gen)
     rows = []
@@ -4207,21 +4582,25 @@ def multi_mesh_phase(dev, group, workdir):
         rows.append(f"mesh {m} ({patch.num_nodes} nodes): loss {loss:.6f} vs alone {ref:.6f}, "
                     f"gradients within {worst:.2e}, step {1e3 * sorted(times[1:])[1]:.2f} ms")
         del pair, state, step
-    for fn in (k1.facet_conv_fwd, k1.facet_conv_bwd):
+    wrappers = {"fwd": k1.facet_conv_fwd, "bwd": k1.facet_conv_bwd,
+                "k5_fwd": k5.windowed_conv_fwd, "k5_bwd": k5.windowed_conv_bwd}
+    for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
     _, losses = halo.train_normals_sharded_multi(cfg, ds.patches, MULTI_STEPS, group=group,
                                                  log_every=3, seed=2)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {"fwd": k1.facet_conv_fwd.launches, "bwd": k1.facet_conv_bwd.launches}
-    if not np.isfinite(losses).all() or launches != {"fwd": 8 * MULTI_STEPS,
-                                                     "bwd": 8 * MULTI_STEPS}:
-        raise AssertionError(f"train_normals_sharded_multi: losses {losses}, launches {launches}")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    want = {"fwd": flat_n * MULTI_STEPS, "bwd": flat_n * MULTI_STEPS,
+            "k5_fwd": win_n * MULTI_STEPS, "k5_bwd": win_n * MULTI_STEPS}
+    if not np.isfinite(losses).all() or launches != want:
+        raise AssertionError(f"train_normals_sharded_multi: losses {losses}, launches "
+                             f"{launches}, want {want}")
     print(f"  19f multi-mesh: {len(ds.patches)} tori ({[p.num_nodes for p in ds.patches]} nodes, "
           f"bank {n}; datasets {build_s:.2f} s, bank {bank_s:.2f} s), tables of one shape; "
           + "; ".join(rows) + f" (rtol {HALO_PARITY_RTOL:g}); train_normals_sharded_multi "
-          f"{MULTI_STEPS} steps in {run_s:.2f} s, losses finite, K1/K2 {launches}")
+          f"{MULTI_STEPS} steps in {run_s:.2f} s, losses finite, launches {launches}")
     return launches
 
 
@@ -4269,6 +4648,7 @@ def multi_gpu_phases(dev, group, workdir, torus_mesh, trained):
                     + dp["fwd"] + multi["fwd"]),
             "bwd": sum(r["K2"] for r in training["launches"].values()) + dp["bwd"]
             + multi["bwd"],
+            "k5_fwd": serving["launches"]["K5"] + multi["k5_fwd"], "k5_bwd": multi["k5_bwd"],
             "fwd_bf16": dp["fwd_bf16"], "bwd_bf16": dp["bwd_bf16"], "pools": pools}
 
 
@@ -4477,7 +4857,26 @@ def main() -> int:
         "bound_by": bound_by6,
         # no single PyTorch call computes the loop's adjoint
         "library_ms": None,
-    }]}))
+    }] + [{
+        "name": f"windowed_conv_{d}{'_bf16' if dtype == 'bf16' else ''}",
+        "route": "cuda",
+        "source": f"facet_graph_convolution_torch/csrc/windowed_conv_{d}.cu",
+        # no Pallas kernel: the JAX package's XLA scan over the slabs (its
+        # forward, its custom VJP)
+        "replaces": ("facet_graph_convolution_tpu/ops/windowed_conv.py:110" if d == "fwd"
+                     else "facet_graph_convolution_tpu/ops/windowed_conv.py:137"),
+        # the torus's windowed levels (0 and 1): training in the run's dtype,
+        # serving (forward) and the multi-mesh bank
+        "launches": halo["launches"][f"k5_{d}{'_bf16' if dtype == 'bf16' else ''}"],
+        "max_abs_err": halo["windowed"][dtype][d]["err"],
+        # per torus step: the sum over its 6 windowed convs, warm L2
+        "ms": halo["windowed"][dtype][d]["ms"],
+        "plain_ms": halo["windowed"][dtype][d]["plain_ms"],
+        "bound_ms": halo["windowed"][dtype][d]["bound_ms"],
+        "bound_by": halo["windowed"][dtype][d]["bound_by"],
+        # no single PyTorch call computes the fused conv
+        "library_ms": None,
+    } for dtype in ("f32", "bf16") for d in ("fwd", "bwd")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

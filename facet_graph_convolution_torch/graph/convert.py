@@ -6,8 +6,10 @@ needs, and of its public helpers (reference ``listToSparse``
 utils.py:1718-1750, ``listToSparseWNormals`` utils.py:1753-1796,
 ``sparseToList`` utils.py:1799-1827, ``inv_perm`` utils.py:1830-1835), plus
 :func:`slot_major_arrays`, the tables of the kernel configuration
-(``facet_graph_convolution_tpu/ops/pallas_conv.py::slot_major_arrays``), and
-:func:`lane_tables`, those of the vertex solver's node-minor gathers.
+(``facet_graph_convolution_tpu/ops/pallas_conv.py::slot_major_arrays``),
+:func:`lane_tables`, those of the vertex solver's node-minor gathers, and
+:func:`windowed_lane_tables`, the per-slab tables of the windowed conv
+(``ops/windowed_conv.py``) at HBM scale.
 """
 
 from __future__ import annotations
@@ -201,6 +203,212 @@ def lane_tables(
     adj_t_t = transpose_adjacency(
         adj_t, num_targets=adj_nbr.shape[0] if num_sources is None else num_sources)
     return adj_t, np.ascontiguousarray(adj_t_t.T)
+
+
+def lane_tables_pre(
+    adj_nbr: np.ndarray, num_sources: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`lane_tables` with their index math done once on the host:
+    ``(adjT0, validF, idxT, validT)`` (the JAX package's
+    ``lane_tables_pre``).
+
+    - ``adjT0`` [K, N] int32: the zero-based forward table clamped at 0
+      (``max(adjT − 1, 0)``: a pad slot reads row 0);
+    - ``validF`` [K, N] bool: the forward's live slots (``adjT > 0``);
+    - ``idxT`` [S, N_src] int32 / ``validT`` [S, N_src] bool: the
+      zero-based backward slot map over the flat slots ``k·N + n`` and its
+      live entries."""
+    adjT, adjT_t = lane_tables(adj_nbr, num_sources)
+    adjT0 = np.maximum(adjT - 1, 0).astype(np.int32)
+    validF = adjT > 0
+    idxT = np.maximum(adjT_t - 1, 0).astype(np.int32)
+    validT = adjT_t > 0
+    return adjT0, validF, idxT, validT
+
+
+class WindowedLaneTables:
+    """Per-slab windowed gather tables of an RCM-ordered level (the JAX
+    package's ``WindowedLaneTables``, array for array).
+
+    On a locality-ordered pyramid (``coarsen_graph(reorder="rcm")``) every
+    node's neighbours lie in a narrow band of indices, so the output rows
+    are cut into ``block``-row slabs, each of which reads a ``window`` of
+    source rows. The slabs start every ``block`` rows; the LAST one starts
+    at ``N − block`` and so overlaps its predecessor (both give the same
+    values on the overlap). ``window`` / ``bwd_window`` are the largest
+    source spans of any slab, shared by every slab.
+
+    - forward: slot k of row ``out_starts[b] + j`` reads source row
+      ``win_starts[b] + relT[b, k, j]`` (pad slots read a clamped row of
+      the window: a consumer zeroes them, through ``mult_rows`` or
+      ``validF``);
+    - backward: source row ``out_starts[b] + j`` sums the cotangents of the
+      flat slots ``k·N + n`` given by ``relS[b, s, j] = k·bwd_window +
+      (n − bwd_starts[b])``, where ``validS[b, s, j]``.
+
+    Halo-extended sources (a shard of a partitioned level, ``num_sources >
+    num_out``): the H halo rows sit after the N owned ones, outside any
+    band. Slots that read them carry a pack of their own: ``not_tail``
+    zeroes the window's clamped row for them, ``tailT`` (one-indexed into
+    the halo rows, 0 elsewhere) reads them, and the backward sums the
+    cotangents of each halo row's flat slots ``tailS`` [S, H] where
+    ``tailV``. With ``num_sources == num_out`` the pack is absent."""
+
+    def __init__(self, block, window, bwd_window, out_starts, win_starts,
+                 relT, validF, bwd_starts, relS, validS, num_sources,
+                 num_out, not_tail=None, tailT=None, tailS=None, tailV=None):
+        self.block = int(block)
+        self.window = int(window)
+        self.bwd_window = int(bwd_window)
+        self.out_starts = out_starts
+        self.win_starts = win_starts
+        self.relT = relT
+        self.validF = validF
+        self.bwd_starts = bwd_starts
+        self.relS = relS
+        self.validS = validS
+        self.num_sources = int(num_sources)
+        self.num_out = int(num_out)
+        self.not_tail = not_tail
+        self.tailT = tailT
+        self.tailS = tailS
+        self.tailV = tailV
+
+    @property
+    def has_tail(self):
+        return self.num_sources > self.num_out
+
+    @property
+    def arrays(self):
+        """The tables in their fixed order: 7, or 11 with the halo pack."""
+        base = (self.out_starts, self.win_starts, self.relT, self.validF,
+                self.bwd_starts, self.relS, self.validS)
+        if self.has_tail:
+            return base + (self.not_tail, self.tailT, self.tailS, self.tailV)
+        return base
+
+    @property
+    def geometry(self):
+        """``(block, window, bwd_window, num_sources, num_out)``."""
+        return (self.block, self.window, self.bwd_window,
+                self.num_sources, self.num_out)
+
+
+def _round_up(x: int, align: int) -> int:
+    return ((int(x) + align - 1) // align) * align
+
+
+def windowed_lane_tables(
+    adj_nbr: np.ndarray,
+    num_sources: Optional[int] = None,
+    block: int = 32768,
+    align: int = 512,
+    max_window_ratio: float = 8.0,
+    window: Optional[int] = None,
+    bwd_window: Optional[int] = None,
+    tables: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+) -> Optional[WindowedLaneTables]:
+    """:class:`WindowedLaneTables` of the one-indexed neighbours-only K-list
+    ``adj_nbr`` [N, K] (the JAX package's ``windowed_lane_tables``, array
+    for array).
+
+    ``num_sources > N`` builds the halo pack: entries up to N ride the
+    windows, larger ones read the halo rows. ``tables`` = the one-indexed
+    ``(adjT [K, N], adjT_t [S, N_src])`` of :func:`lane_tables` (a
+    partition's ``lane_adj[d]`` / ``lane_adj_t[d]``) is used in place of
+    deriving them from ``adj_nbr``. ``window`` / ``bwd_window`` force a span
+    at least that wide (one geometry for several meshes).
+
+    Returns None where windows cannot help: fewer than two slabs, or no
+    locality among the owned entries (a span past ``max_window_ratio ×
+    block``, as a pyramid without ``reorder="rcm"`` gives)."""
+    if tables is not None:
+        adjT, adjT_t = tables
+        n = adjT.shape[1]
+    else:
+        n = adj_nbr.shape[0]
+    nsrc = n if num_sources is None else num_sources
+    if n < 2 * block or nsrc < n:
+        return None
+    if tables is not None:
+        adjT0 = np.maximum(adjT - 1, 0).astype(np.int32)
+        validF = adjT > 0
+        idxT = np.maximum(adjT_t - 1, 0).astype(np.int32)
+        validT = adjT_t > 0
+    else:
+        adjT0, validF, idxT, validT = lane_tables_pre(adj_nbr, num_sources)
+    k, _ = adjT0.shape
+    # the backward's flat slots k·N + n are int32
+    assert k * n < 2**31, (k, n)
+    s = idxT.shape[0]
+    owned = validF & (adjT0 < n)                 # the banded (non-halo) entries
+
+    out_starts = np.arange(0, n - block + 1, block, dtype=np.int32)
+    if int(out_starts[-1]) != n - block:
+        out_starts = np.append(out_starts, np.int32(n - block))
+    nblk = out_starts.shape[0]
+
+    def spans(idx2d, valid2d):
+        """Each slab's least and greatest live index."""
+        lo = np.full(nblk, 0, np.int64)
+        hi = np.full(nblk, 0, np.int64)
+        for b, st in enumerate(out_starts):
+            sub = idx2d[:, st: st + block]
+            va = valid2d[:, st: st + block]
+            if va.any():
+                vals = sub[va]
+                lo[b], hi[b] = int(vals.min()), int(vals.max())
+        return lo, hi
+
+    f_lo, f_hi = spans(adjT0, owned)
+    needed = min(_round_up(int((f_hi - f_lo).max()) + 1, align), n)
+    if needed > max_window_ratio * block:
+        return None
+    window = min(max(needed, window or 0), n)
+    win_starts = np.clip(f_lo, 0, n - window).astype(np.int32)
+
+    # the backward's spans over the n of the flat slots k·N + n of the owned
+    # source rows (the halo rows' slots ride tailS)
+    k_arr = (idxT // n).astype(np.int64)
+    n_arr = (idxT % n).astype(np.int64)
+    b_lo, b_hi = spans(n_arr[:, :n], validT[:, :n])
+    bwd_needed = min(_round_up(int((b_hi - b_lo).max()) + 1, align), n)
+    if bwd_needed > max_window_ratio * block:
+        return None
+    bwd_window = min(max(bwd_needed, bwd_window or 0), n)
+    bwd_starts = np.clip(b_lo, 0, n - bwd_window).astype(np.int32)
+
+    relT = np.empty((nblk, k, block), np.int32)
+    vF = np.empty((nblk, k, block), bool)
+    relS = np.empty((nblk, s, block), np.int32)
+    vS = np.empty((nblk, s, block), bool)
+    for b, st in enumerate(out_starts):
+        cols = slice(int(st), int(st) + block)
+        relT[b] = np.clip(adjT0[:, cols] - win_starts[b], 0, window - 1)
+        vF[b] = owned[:, cols]
+        flat = k_arr[:, cols] * bwd_window + (n_arr[:, cols] - bwd_starts[b])
+        relS[b] = np.clip(flat, 0, k * bwd_window - 1)
+        vS[b] = validT[:, cols]
+    kw = {}
+    if nsrc > n:
+        not_tail = np.empty((nblk, k, block), bool)
+        tailT = np.empty((nblk, k, block), np.int32)
+        tail_idx = np.where(owned | ~validF, 0, adjT0 - n + 1)   # one-indexed
+        for b, st in enumerate(out_starts):
+            cols = slice(int(st), int(st) + block)
+            not_tail[b] = owned[:, cols] | ~validF[:, cols]
+            tailT[b] = tail_idx[:, cols]
+        kw = dict(
+            not_tail=not_tail, tailT=tailT,
+            tailS=np.ascontiguousarray(idxT[:, n:]),
+            tailV=np.ascontiguousarray(validT[:, n:]),
+        )
+    return WindowedLaneTables(
+        block=block, window=window, bwd_window=bwd_window,
+        out_starts=out_starts, win_starts=win_starts, relT=relT, validF=vF,
+        bwd_starts=bwd_starts, relS=relS, validS=vS,
+        num_sources=nsrc, num_out=n, **kw,
+    )
 
 
 def slot_major_tables(

@@ -24,7 +24,8 @@ from typing import Dict, Iterable, List
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 KERNELS = ("facet_conv_fwd", "facet_conv_bwd", "facet_conv_bwd_bf16", "tree_pool_iz",
-           "weighted_aggregate", "ms_solver_naive", "ms_solver_naive_bwd")
+           "weighted_aggregate", "ms_solver_naive", "ms_solver_naive_bwd", "windowed_conv_fwd",
+           "windowed_conv_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -7,7 +7,10 @@ vanish from sums and stay finite where features are normalized.
 - :func:`gather_slots`: slot-major, ``[N, C]`` over ``adj_sm`` [K', N]
   (the rotation-invariant conv's gather);
 - :func:`gather_neighbors_lane`: node-minor, ``[C, N]`` over ``adjT``
-  [K, N] (the vertex solvers').
+  [K, N] (the vertex solvers');
+- :func:`make_windowed_lane_gather`: slot-major ``[K, N, C]`` from ``[N_src,
+  C]`` over the per-slab window tables of an HBM-scale level (the sharded
+  conv's unfused windowed path).
 
 Given a transpose map, the last two are autograd Functions whose backward
 is the JAX package's scatter-free one (``_gather_lane_bwd``, :75-95): each
@@ -115,3 +118,71 @@ def gather_neighbors_lane(x_t: torch.Tensor, adjT: torch.Tensor,
     if adjT_t is not None:
         return _GatherLane.apply(x_t, adjT, adjT_t)
     return _take_lane(x_t, adjT)
+
+
+class _WindowedGather(torch.autograd.Function):
+    """JAX ``make_windowed_lane_gather``'s ``custom_vjp`` over the slabs of
+    :func:`..graph.convert.windowed_lane_tables`, row-major."""
+
+    @staticmethod
+    def forward(ctx, geometry, x, *tabs):
+        block, window, _, num_sources, num_out = geometry
+        out_starts, win_starts, relT = tabs[0], tabs[1], tabs[2]
+        k = relT.shape[1]
+        ctx.geometry, ctx.n_tabs = geometry, len(tabs)
+        ctx.save_for_backward(*tabs)
+        out = x.new_zeros((k, num_out, x.shape[1]))
+        if num_sources > num_out:
+            tail_pad = torch.cat([x.new_zeros(1, x.shape[1]), x[num_out:]], dim=0)
+        for b in range(out_starts.shape[0]):
+            os_, ws = int(out_starts[b]), int(win_starts[b])
+            g = x[ws:ws + window].index_select(0, relT[b].reshape(-1).long())
+            g = g.reshape(k, block, x.shape[1])
+            if num_sources > num_out:
+                not_tail, tailT = tabs[7], tabs[8]
+                g = g * not_tail[b].to(x.dtype)[..., None] + tail_pad.index_select(
+                    0, tailT[b].reshape(-1).long()).reshape(k, block, x.shape[1])
+            out[:, os_:os_ + block] = g
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        block, _, bwd_window, num_sources, num_out = ctx.geometry
+        tabs = ctx.saved_tensors
+        out_starts, bwd_starts, relS, validS = tabs[0], tabs[4], tabs[5], tabs[6]
+        k, _, c = g.shape
+        s = relS.shape[1]
+        dx = g.new_zeros((num_out, c))
+        for b in range(out_starts.shape[0]):
+            os_, bs = int(out_starts[b]), int(bwd_starts[b])
+            gwin = g[:, bs:bs + bwd_window].reshape(k * bwd_window, c)
+            d = gwin.index_select(0, relS[b].reshape(-1).long()).reshape(s, block, c)
+            dx[os_:os_ + block] = (d * validS[b].to(g.dtype)[..., None]).sum(dim=0)
+        if num_sources > num_out:
+            tailS, tailV = tabs[9], tabs[10]
+            d = g.reshape(k * num_out, c).index_select(0, tailS.reshape(-1).long())
+            d = d.reshape(*tailS.shape, c) * tailV.to(g.dtype)[..., None]
+            dx = torch.cat([dx, d.sum(dim=0)], dim=0)
+        return (None, dx) + (None,) * ctx.n_tabs
+
+
+def make_windowed_lane_gather(geometry):
+    """The windowed gather of one level's window ``geometry``
+    (``WindowedLaneTables.geometry``), JAX's ``make_windowed_lane_gather``
+    in the port's row-major layout: ``f(x [N_src, C], *win_arrays) -> [K,
+    N, C]``, ``out[k, n] = x[win_starts[b] + relT[b, k, n − out_starts[b]]]``
+    for the slab b of row n (JAX's is ``[C, N] → [C, K, N]``: the tests
+    transpose). Pad slots read a clamped row of the window (the consumer
+    zeroes them through ``mult_rows``); halo slots (N_src > N) read the halo
+    rows. The backward sums each source row's slots through ``relS`` /
+    ``validS`` and the halo rows' through ``tailS`` / ``tailV``, in x's
+    dtype, with no scatter: ``[N_src, C]``. The last slab overlaps its
+    predecessor and writes the same values on the overlap in both
+    directions. Plain PyTorch on every device: the default sharded conv
+    runs K5 (:mod:`.windowed_conv`) instead."""
+    geometry = tuple(int(v) for v in geometry)
+
+    def gather(x, *tabs):
+        return _WindowedGather.apply(geometry, x, *tabs)
+
+    return gather

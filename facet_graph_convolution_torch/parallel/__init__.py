@@ -9,7 +9,8 @@
   per-conv halo exchange, reproducing the single-device result exactly: the
   sharded train step, ``train_normals_sharded`` and, over several meshes,
   ``train_normals_sharded_multi``; at one rank it trains a million-face
-  mesh whole on one H100;
+  mesh whole on one H100, its two finest levels through K5, the windowed
+  fused conv;
 - :mod:`vertex_halo` — the vertex-partitioned solvers: the edge solver and
   the multi-scale solver (K4 pools every iteration on the card);
 - :mod:`vertex_train` — sharded end-to-end vertex training (chamfer through

@@ -22,6 +22,12 @@ once a conv, before K1 reads them:
   N_src ≥ N source rows, K2 gives ``dcat`` for all of them
   (``ops/facet_conv_kernel.py``); the rotation-invariant first conv
   exchanges the raw features and aggregates with K3;
+- on levels of at least :data:`WINDOWED_MIN_NODES` rows a shard ordered by
+  RCM (a million-face mesh's levels 0 and 1), :func:`build_level_windows`
+  cuts the rows into slabs and :func:`windowed_conv` runs K5
+  (``ops/windowed_conv.py``): the whole conv, its ``[M·C → out]`` product
+  included, in one pass a direction, so the aggregate z never reaches
+  device memory (JAX's default there too);
 - :func:`sharded_unet_forward_local` is :func:`..models.unet._network`
   over those convs, with tree pooling shard-local: partition boundaries are
   aligned to ``(2^steps)^(levels-1)``, so every coarsening level splits at
@@ -37,9 +43,10 @@ no collective is issued: the step is the flat step over the whole graph
 capturing it in a CUDA graph would need NCCL's graph-safe mode around the
 exchanges, which this module does not set up.
 
-Correctness contract (tests/test_torch_halo.py): at D = 1, 2 and 4 the
-sharded forward and train step equal the JAX package's sharded ones and the
-port's flat ``unet_apply`` to float tolerance.
+Correctness contract (tests/test_torch_halo.py,
+tests/test_torch_windowed_step.py): at D = 1, 2 and 4 the sharded forward
+and train step equal the JAX package's sharded ones and the port's flat
+``unet_apply`` to float tolerance, with and without windowed levels.
 """
 
 from __future__ import annotations
@@ -58,11 +65,13 @@ from torch.utils.checkpoint import checkpoint
 from facet_graph_convolution_torch.config import Config
 from facet_graph_convolution_torch.data.dataset import bucket_size, pad_patch_to
 from facet_graph_convolution_torch.graph.convert import (
+    WindowedLaneTables,
     dedupe_klist,
     fused_mult_rows,
     lane_tables,
     split_self_klist,
     transpose_adjacency,
+    windowed_lane_tables,
 )
 from facet_graph_convolution_torch.models.augment import (
     random_rotation,
@@ -71,13 +80,19 @@ from facet_graph_convolution_torch.models.augment import (
 )
 from facet_graph_convolution_torch.models.losses import _CLOSE_TO_ONE, _fake_node_mask
 from facet_graph_convolution_torch.models.unet import _network
+from facet_graph_convolution_torch.ops.aggregate import WeightedAggregate
 from facet_graph_convolution_torch.ops.conv import (
+    Bf16Matmul,
     FacetConvVariant,
     facet_conv,
     per_conv_variants,
 )
-from facet_graph_convolution_torch.ops.gather import _transpose_sum
+from facet_graph_convolution_torch.ops.gather import _transpose_sum, make_windowed_lane_gather
 from facet_graph_convolution_torch.ops.normalization import dot_last
+from facet_graph_convolution_torch.ops.windowed_conv import (
+    make_windowed_fused_conv,
+    window_tensors,
+)
 from facet_graph_convolution_torch.parallel.distributed import devices_per_host
 from facet_graph_convolution_torch.parallel.mesh import GraphGroup, make_mesh
 from facet_graph_convolution_torch.training.checkpoint import CheckpointManager
@@ -90,14 +105,17 @@ from facet_graph_convolution_torch.training.trainer import (
     create_train_state,
 )
 
-# JAX functions of this module without a counterpart, and why
-NO_COUNTERPART = {
-    "build_level_windows": "the windowed conv's tables (ops/windowed_conv.py): K1/K2 gather "
-                           "through their own tables on the card, and the windowed conv was "
-                           "measured not needed there",
-    "unify_level_windows": "the windowed conv's shared geometry across meshes; with no "
-                           "windowed conv there is nothing to unify",
-}
+# JAX functions of this module without a counterpart, and why: none
+NO_COUNTERPART: Dict[str, str] = {}
+
+# Levels whose shard has at least WINDOWED_MIN_NODES rows, ordered by RCM,
+# run the windowed conv over WINDOWED_BLOCK-row slabs: K5, the fused conv
+# (ops/windowed_conv.py), or with FGC_WINDOWED_FUSED=0 the unfused windowed
+# gather before the aggregation (JAX's A/B branch). The JAX package's
+# defaults and environment names; module-level so that tests can change them.
+_WINDOWED_FUSED = os.environ.get("FGC_WINDOWED_FUSED", "1") != "0"
+WINDOWED_MIN_NODES = int(os.environ.get("FGC_WINDOWED_MIN_NODES", 262144))
+WINDOWED_BLOCK = int(os.environ.get("FGC_WINDOWED_BLOCK", 32768))
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +169,9 @@ class LevelPartition:
 class GraphPartition:
     num_shards: int
     levels: List[LevelPartition]
+    # windowed_lane_tables of each (level, block), built once a partition
+    # (:func:`build_level_windows`, :func:`unify_level_windows`)
+    _window_cache: Dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def fine(self) -> LevelPartition:
@@ -438,6 +459,101 @@ def build_partition(
     return GraphPartition(num_shards=num_shards, levels=levels)
 
 
+def build_level_windows(
+    part: GraphPartition,
+    min_nodes: Optional[int] = None,
+    block: Optional[int] = None,
+    variant: FacetConvVariant = FacetConvVariant.DEFAULT,
+) -> List[Optional[WindowedLaneTables]]:
+    """Each level's :class:`..graph.convert.WindowedLaneTables`, or None
+    where the level stays on K1/K2 (JAX ``build_level_windows``, array for
+    array). A level windows when its shard has at least ``min_nodes`` rows
+    (default :data:`WINDOWED_MIN_NODES`) and the pyramid has locality
+    (``windowed_lane_tables`` gives None without RCM order). At D > 1 each
+    shard's owned rows form an RCM band and its halo rows ride the tables'
+    halo pack; the shards share one geometry (the widest windows), their
+    arrays stacked [D, ...], and if one shard lacks locality the level stays
+    flat on all. The rotation-invariant first conv stays flat (its
+    assignment is K3's), so level 0 does under that variant. Built once a
+    partition and ``block`` (default :data:`WINDOWED_BLOCK`)."""
+    if min_nodes is None:
+        min_nodes = WINDOWED_MIN_NODES
+    if block is None:
+        block = WINDOWED_BLOCK
+    out = []
+    for i, lvl in enumerate(part.levels):
+        if lvl.block < min_nodes or (
+                i == 0 and FacetConvVariant(variant) == FacetConvVariant.ROTATION_INVARIANT):
+            out.append(None)
+            continue
+        key = (i, block)
+        if key not in part._window_cache:
+            part._window_cache[key] = _build_shard_windows(lvl, block)
+        out.append(part._window_cache[key])
+    return out
+
+
+def _build_shard_windows(lvl: LevelPartition, block: int, force_window=None, force_bwd=None):
+    """Every shard's window tables of one level under one geometry, stacked
+    [D, ...] (unstacked at D = 1), or None when a shard lacks locality;
+    ``force_window`` / ``force_bwd`` pin wider windows (JAX
+    ``_build_shard_windows``)."""
+    d = lvl.local_adj.shape[0]
+    ext = lvl.lane_adj_t.shape[2]
+
+    def build(s, window=force_window, bwd_window=force_bwd):
+        return windowed_lane_tables(
+            lvl.local_adj[s], num_sources=ext, block=block, window=window,
+            bwd_window=bwd_window, tables=(lvl.lane_adj[s], lvl.lane_adj_t[s]))
+
+    if d == 1:
+        return build(0)
+    per = [build(s) for s in range(d)]
+    if any(wt is None for wt in per):
+        return None
+    wmax = max(wt.window for wt in per)
+    bmax = max(wt.bwd_window for wt in per)
+    per = [wt if (wt.window == wmax and wt.bwd_window == bmax)
+           else build(s, window=wmax, bwd_window=bmax) for s, wt in enumerate(per)]
+    ref = per[0]
+    stacked = [np.stack([wt.arrays[j] for wt in per]) for j in range(len(ref.arrays))]
+    names = ("out_starts", "win_starts", "relT", "validF", "bwd_starts", "relS", "validS",
+             "not_tail", "tailT", "tailS", "tailV")
+    return WindowedLaneTables(block=ref.block, window=wmax, bwd_window=bmax,
+                              num_sources=ref.num_sources, num_out=ref.num_out,
+                              **dict(zip(names, stacked)))
+
+
+def unify_level_windows(
+    parts: Sequence[GraphPartition],
+    variant: FacetConvVariant = FacetConvVariant.DEFAULT,
+    min_nodes: Optional[int] = None,
+    block: Optional[int] = None,
+) -> None:
+    """Give several partitions of one geometry the same window geometry
+    (JAX ``unify_level_windows``): a level's windows widen to the widest
+    of any mesh, and a level that windows in one mesh but not in another
+    stays flat in all, so that one step's table shapes serve every mesh.
+    The results land in each partition's window cache, where
+    :func:`build_level_windows` finds them."""
+    if block is None:
+        block = WINDOWED_BLOCK
+    per_part = [build_level_windows(p, min_nodes=min_nodes, block=block, variant=variant)
+                for p in parts]
+    for i in range(len(parts[0].levels)):
+        wts = [pp[i] for pp in per_part]
+        if any(wt is None for wt in wts):
+            for p in parts:
+                p._window_cache[(i, block)] = None
+            continue
+        wmax = max(wt.window for wt in wts)
+        bmax = max(wt.bwd_window for wt in wts)
+        for p, wt in zip(parts, wts):
+            if wt.window != wmax or wt.bwd_window != bmax:
+                p._window_cache[(i, block)] = _build_shard_windows(
+                    p.levels[i], block, force_window=wmax, force_bwd=bmax)
+
+
 def extended_rows(part: GraphPartition, level: int, shard: int) -> np.ndarray:
     """The global node of each row of shard ``shard``'s extended index space
     at ``level`` (its owned rows, then its halo slots), −1 where a slot is
@@ -490,17 +606,28 @@ class ExchangeTables(NamedTuple):
         return not self.offsets and self.cross_send is None
 
 
+class ShardWindows(NamedTuple):
+    """One rank's window tables of a windowed level: the static
+    ``geometry`` (block, window, bwd_window, num_sources, num_out) and the
+    ``WindowedLaneTables.arrays`` of its shard as tensors."""
+
+    geometry: Tuple[int, int, int, int, int]
+    arrays: Tuple[torch.Tensor, ...]
+
+
 class ShardTables(NamedTuple):
     """One rank's tensors of one level: the K1/K2 tables over the extended
     index space (``adj_sm`` [K', n] one-indexed into the n + halo source
-    rows, ``adj_t_sm`` [n + halo, K_t] over the flat slots k·n + i,
-    ``mult_rows`` [K'+1, n, 1], multiplicity × 1/degree with the self slot
-    first) and the level's :class:`ExchangeTables`."""
+    rows, ``adj_t_sm`` [n + halo, K_t] over the flat slots k·n + i; both
+    None on a windowed level), ``mult_rows`` [K'+1, n, 1], multiplicity ×
+    1/degree with the self slot first, the level's :class:`ExchangeTables`
+    and, on a windowed level, its :class:`ShardWindows` (K5's tables)."""
 
-    adj_sm: torch.Tensor
-    adj_t_sm: torch.Tensor
+    adj_sm: Optional[torch.Tensor]
+    adj_t_sm: Optional[torch.Tensor]
     mult_rows: torch.Tensor
     exchange: ExchangeTables
+    windows: Optional[ShardWindows] = None
 
 
 def exchange_tables(offsets, send_idx, recv_mask, cross_send, cross_mask, shard: int,
@@ -540,21 +667,37 @@ def exchange_tables(offsets, send_idx, recv_mask, cross_send, cross_mask, shard:
         tensor(send_t, torch.int32))
 
 
-def partition_operands(part: GraphPartition, rank: int, device="cuda") -> List[ShardTables]:
+def partition_operands(part: GraphPartition, rank: int, device="cuda",
+                       windows: Optional[Sequence[Optional[WindowedLaneTables]]] = None,
+                       ) -> List[ShardTables]:
     """Shard ``rank``'s :class:`ShardTables`, fine level first, on
     ``device`` (JAX ``partition_operands`` / ``partition_operands_nminor``
     for one shard, in the port's slot-major layout: ``adj_sm`` is the
     partition's ``lane_adj``, ``adj_t_sm`` its ``lane_adj_t`` transposed,
-    ``mult_rows`` ``fused_mult_rows`` of ``mult`` and ``self_mult``)."""
+    ``mult_rows`` ``fused_mult_rows`` of ``mult`` and ``self_mult``).
+
+    ``windows`` (:func:`build_level_windows`) puts a level on the windowed
+    conv: its shard's window tables come along, and the flat K1/K2 tables,
+    which that conv never reads, stay on the host (as JAX replaces them by
+    dummies: at a million rows they would hold hundreds of MB)."""
     out = []
-    for lvl in part.levels:
+    for i, lvl in enumerate(part.levels):
         rows = fused_mult_rows(lvl.mult[rank], lvl.self_mult[rank])[:, :, None]
+        ex = exchange_tables(lvl.offsets, lvl.send_idx, lvl.recv_mask, lvl.cross_send,
+                             lvl.cross_mask, rank, lvl.block, device)
+        rows = torch.as_tensor(np.ascontiguousarray(rows), device=device)
+        wt = windows[i] if windows is not None else None
+        if wt is not None:
+            assert wt.has_tail == (not ex.local), (
+                "windowed tables' halo pack must match the level's halo")
+            arrays = wt.arrays if part.num_shards == 1 else [a[rank] for a in wt.arrays]
+            out.append(ShardTables(None, None, rows, ex,
+                                   ShardWindows(wt.geometry, window_tensors(arrays, device))))
+            continue
         out.append(ShardTables(
             torch.as_tensor(np.ascontiguousarray(lvl.lane_adj[rank]), device=device),
             torch.as_tensor(np.ascontiguousarray(lvl.lane_adj_t[rank].T), device=device),
-            torch.as_tensor(np.ascontiguousarray(rows), device=device),
-            exchange_tables(lvl.offsets, lvl.send_idx, lvl.recv_mask, lvl.cross_send,
-                            lvl.cross_mask, rank, lvl.block, device)))
+            rows, ex))
     return out
 
 
@@ -652,11 +795,59 @@ def sharded_conv(params, x: torch.Tensor, tables: ShardTables, group: GraphGroup
     shard's tables, with ``cat = [x | x·projᵀ]`` (the raw ``x`` under the
     rotation-invariant variant) halo-extended before K1 (K3) gathers it.
     Degrees are the owned rows' full mult sums, so the bias gate deg > 0 and
-    the 1/degree are globally exact."""
+    the 1/degree are globally exact. A windowed level (``tables.windows``)
+    runs :func:`windowed_conv`."""
+    if tables.windows is not None:
+        return windowed_conv(params, x, tables, group, variant, compute_dtype)
     extend = None if tables.exchange.local else functools.partial(
         halo_extend, ex=tables.exchange, group=group)
     return facet_conv(params, x, tables.adj_sm, tables.mult_rows, variant=variant,
                       adj_t_sm=tables.adj_t_sm, compute_dtype=compute_dtype, extend=extend)
+
+
+def windowed_conv(params, x: torch.Tensor, tables: ShardTables, group: GraphGroup,
+                  variant: FacetConvVariant = FacetConvVariant.DEFAULT,
+                  compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The facet conv of a windowed level (the ``win`` branch of JAX
+    ``_sharded_conv_nminor``): ``cat = [x | x·projᵀ]`` in the compute dtype,
+    halo-extended first where the level has halo rows, then by default K5
+    (:func:`..ops.windowed_conv.make_windowed_fused_conv`: gather, softmax,
+    slot sums and the ``[M·C → out]`` product in one pass, ``ux`` in f32);
+    with ``_WINDOWED_FUSED`` off the unfused windowed gather
+    (:func:`..ops.gather.make_windowed_lane_gather`), the softmax, K3's slot
+    sums and the product. The degree-gated bias is added after either. The
+    rotation-invariant conv has no windowed form: :func:`build_level_windows`
+    keeps its level flat."""
+    if FacetConvVariant(variant) == FacetConvVariant.ROTATION_INVARIANT:
+        raise NotImplementedError(
+            "the windowed conv has no rotation-invariant form (build_level_windows keeps "
+            "level 0 flat for that variant)")
+    u, c, w, b = params["u"], params["c"], params["w"], params["b"]
+    n, in_ch = x.shape
+    m, out_ch, _ = w.shape
+    win = tables.windows
+    translation = FacetConvVariant(variant) == FacetConvVariant.TRANSLATION_INVARIANT
+    proj = -u if translation else params["v"]
+    cat, ux = torch.cat([x, x @ proj.T], dim=-1), x @ u.T
+    if compute_dtype is not None:
+        cat = cat.to(compute_dtype)
+    if not tables.exchange.local:
+        cat = halo_extend(cat, tables.exchange, group)
+    rows = tables.mult_rows[:, :, 0]
+    wf = w.permute(1, 0, 2).reshape(out_ch, m * in_ch)
+    if _WINDOWED_FUSED:
+        y = make_windowed_fused_conv(win.geometry)(cat.contiguous(), ux.contiguous(), wf, c,
+                                                   rows, *win.arrays)
+    else:
+        dtype = cat.dtype
+        slots = torch.cat([cat[None, :n], make_windowed_lane_gather(win.geometry)(
+            cat, *win.arrays)], dim=0)                                 # [K'+1, n, C+M]
+        logits = ux.to(dtype)[None] + slots[..., in_ch:] + c.to(dtype)
+        q = (torch.softmax(logits.float(), dim=-1) * rows[..., None]).to(dtype)
+        z = WeightedAggregate.apply(q.contiguous(), slots[..., :in_ch].contiguous())
+        y = Bf16Matmul.apply(z, wf.to(dtype)) if dtype == torch.bfloat16 else z @ wf.T
+    gate = (rows.sum(dim=0) > 0).to(y.dtype)
+    return y + b[None, :] * gate[:, None]
 
 
 def sharded_unet_forward_local(
@@ -670,7 +861,9 @@ def sharded_unet_forward_local(
     :func:`..models.unet._network` over :func:`sharded_conv`, pools and
     unpools shard-local. ``remat`` runs each conv and the fine fc head under
     ``torch.utils.checkpoint``: the backward recomputes each conv's halo
-    exchange, K1 and projections instead of keeping their activations."""
+    exchange, K1 and projections instead of keeping their activations. K5's
+    convs are not checkpointed (JAX's rule): K5 keeps only its inputs and
+    recomputes the rest in its backward already."""
     v_first, v_rest = per_conv_variants(variant)
 
     def conv(name, h, level):
@@ -678,7 +871,7 @@ def sharded_unet_forward_local(
             return sharded_conv(p, h, tables[level], group,
                                 v_first if name == "conv1" else v_rest, compute_dtype)
 
-        if remat:
+        if remat and not (tables[level].windows is not None and _WINDOWED_FUSED):
             return checkpoint(run, params[name], h, use_reentrant=False)
         return run(params[name], h)
 
@@ -764,9 +957,11 @@ def sharded_unet_apply(
     [N, C] is the whole graph (host order; each rank takes its block), and
     every rank gets the assembled [N, 3] output (a 3-tuple of per-level
     outputs with ``multi_scale``), equal to float tolerance to ``unet_apply``
-    + ``normalize_tensor`` on one device. No gradient is taken."""
+    + ``normalize_tensor`` on one device. No gradient is taken. Levels that
+    :func:`build_level_windows` picks run the windowed conv."""
     group = group or make_mesh()
-    tables = partition_operands(part, group.rank, group.device)
+    tables = partition_operands(part, group.rank, group.device,
+                                build_level_windows(part, variant=variant))
     with torch.no_grad():
         y = sharded_unet_forward_local(
             params, shard_rows(x, group, torch.float32), tables, group,
@@ -831,10 +1026,14 @@ def make_sharded_train_step(
     ``remat`` checkpoints each conv and the fc head. ``step.eval(params, x,
     gt, sample_mask)`` is the loss without rotation or gradient, in the
     same compute dtype (JAX's ``.eval``). Collectives are issued in the
-    same order on every rank; the step runs eagerly (no CUDA graph)."""
+    same order on every rank; the step runs eagerly (no CUDA graph). Levels
+    that :func:`build_level_windows` picks (by default those of at least
+    262,144 rows a shard, RCM-ordered) run the windowed conv, K5 by
+    default."""
     group = group or make_mesh()
-    tables = partition_operands(part, group.rank, group.device)
     variant, dtype = _config_variant(cfg), compute_dtype(cfg)
+    tables = partition_operands(part, group.rank, group.device,
+                                build_level_windows(part, variant=variant))
 
     def loss_share(params, x, gt, sample_mask, rot):
         if rot is not None:
@@ -1013,10 +1212,9 @@ def prepare_sharded_mesh_bank(cfg: Config, patches: Sequence, group: GraphGroup)
     mode (a level that batches its halo into the all-to-all in any mesh
     does so in all: :func:`merge_geometry` needs one mode), merge the
     levels' :class:`LevelGeometry` (offset union, widest tables) and
-    partition again only the meshes whose geometry differs from the merge.
-    JAX then unifies its windowed-gather geometry (``unify_level_windows``);
-    the port has no windowed conv (K1 gathers through its tables on the
-    card), so there is nothing to unify.
+    partition again only the meshes whose geometry differs from the merge,
+    then gives their windowed levels one window geometry
+    (:func:`unify_level_windows`).
 
     Returns ``(parts, xs, gts, num_nodes)``: each mesh's partition and this
     rank's blocks of its inputs and GT normals."""
@@ -1039,21 +1237,25 @@ def prepare_sharded_mesh_bank(cfg: Config, patches: Sequence, group: GraphGroup)
         if any(level_geometry(lvl) != g for lvl, g in zip(pt.levels, geoms)):
             parts[m] = build_partition(padded[m].adjs, n_dev, devices_per_host=dph,
                                        geometry=geoms)
+    unify_level_windows(parts, variant=_config_variant(cfg))
     xs = [shard_rows(pp.inputs, group, torch.float32) for pp in padded]
     gts = [shard_rows(pp.gt_normals, group, torch.float32) for pp in padded]
     return parts, xs, gts, target
 
 
 def table_shapes(tables: Sequence[ShardTables]) -> List[Tuple]:
-    """The shape and dtype of every tensor of a rank's tables, in order (the
-    port's form of JAX's operand-pytree signature)."""
+    """The shape and dtype of every tensor of a rank's tables, in order, and
+    each level's offsets and window geometry (the port's form of JAX's
+    operand-pytree signature)."""
     out = []
     for t in tables:
         ex = t.exchange
+        win = t.windows.arrays if t.windows is not None else ()
         for a in (t.adj_sm, t.adj_t_sm, t.mult_rows, ex.send_idx, ex.recv_mask, ex.cross_send,
-                  ex.cross_mask, ex.send_t):
+                  ex.cross_mask, ex.send_t, *win):
             out.append(None if a is None else (tuple(a.shape), a.dtype))
         out.append(ex.offsets)
+        out.append(None if t.windows is None else t.windows.geometry)
     return out
 
 

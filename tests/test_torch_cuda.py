@@ -1783,3 +1783,101 @@ def test_sharded_step_at_one_rank_equals_flat_step(cuda):
     for p, q in zip(_leaves(a.params), _leaves(b.params)):
         torch.testing.assert_close(p.grad, q.grad, atol=1e-5 * float(q.grad.abs().max()),
                                    rtol=0)
+
+
+def _banded_window_case(rng, n, halo, c_in, out, dtype, device, block=512, k=12, m=9):
+    """K5's arguments on a banded K-list (neighbours within ±96 rows, a fifth
+    of the slots pads; with ``halo``, a tenth of the live slots read one of
+    ``halo`` rows after the n): its windowed tables, random inputs and a
+    cotangent ``gy``."""
+    from facet_graph_convolution_torch.graph.convert import windowed_lane_tables
+    from facet_graph_convolution_torch.ops.windowed_conv import window_tensors
+
+    adj = np.clip(np.arange(n)[:, None] + rng.integers(-96, 97, size=(n, k)), 0, n - 1) + 1
+    adj[rng.random((n, k)) < 0.2] = 0
+    if halo:
+        to_tail = (rng.random(adj.shape) < 0.1) & (adj > 0)
+        adj = np.where(to_tail, rng.integers(n + 1, n + halo + 1, size=adj.shape), adj)
+    wt = windowed_lane_tables(adj.astype(np.int32), num_sources=n + halo, block=block, align=64)
+    mult = np.where(adj.T > 0, rng.uniform(0.5, 2.0, size=(k, n)), 0.0)
+    rows = np.concatenate([np.ones((1, n)), mult]) / (1.0 + mult.sum(0))
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    args = (wt.geometry, t(rng.normal(size=(n + halo, c_in + m))).to(dtype),
+            t(rng.normal(size=(n, m))), t(rng.normal(size=(out, m * c_in)) * 0.1),
+            t(rng.normal(size=(m,))), t(rows), window_tensors(wt.arrays, device))
+    return args, t(rng.normal(size=(n, out)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("halo", [0, 160])
+@pytest.mark.parametrize("c_in,out", [(6, 32), (64, 32), (128, 64)])
+def test_windowed_kernels_match_plain(cuda, rng, c_in, out, halo, dtype):
+    """K5 and its backward against their plain versions (f32 1e-5 × max|plain|,
+    bf16 2^-8 × max|plain|, per output) and bit for bit launch to launch, on
+    4,352 rows (the last slab overlapping its predecessor), with and without
+    halo rows."""
+    from facet_graph_convolution_torch.ops import windowed_conv as k5
+
+    args, gy = _banded_window_case(rng, 4352, halo, c_in, out, dtype, cuda)
+    y, grads = k5.windowed_conv_fwd(*args), k5.windowed_conv_bwd(*args, gy)
+    assert torch.equal(y, k5.windowed_conv_fwd(*args))
+    assert all(torch.equal(a, b) for a, b in zip(grads, k5.windowed_conv_bwd(*args, gy)))
+    assert grads[0].shape == (4352 + halo, c_in + 9) and grads[0].dtype == dtype
+    refs = (k5.windowed_fused_conv_fwd_plain(*args), *k5.windowed_fused_conv_bwd_plain(*args, gy))
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    for got, ref in zip((y, *grads), refs):
+        assert got.dtype == ref.dtype
+        assert float((got.float() - ref.float()).abs().max()) <= tol * float(
+            ref.float().abs().max())
+
+
+def test_windowed_kernels_refuse_wide_m(cuda, rng):
+    from facet_graph_convolution_torch.ops import windowed_conv as k5
+
+    args, _ = _banded_window_case(rng, 4096, 0, 6, 8, torch.float32, cuda, m=33)
+    with pytest.raises(ValueError, match="M <= 32"):
+        k5.windowed_conv_fwd(*args)
+
+
+def test_windowed_sharded_step_at_one_rank_equals_flat_step(cuda, monkeypatch):
+    """The one-rank sharded step with its two finest levels windowed (K5;
+    windows forced from 64 rows in slabs of 128) against the same step flat
+    (K1/K2) on the card: loss within 1e-5 relative, every gradient within
+    1e-4 of its largest magnitude (the same sums in another order)."""
+    from facet_graph_convolution_torch.data.dataset import TrainingSet, bucket_size, pad_patch_to
+    from facet_graph_convolution_torch.ops import windowed_conv as k5
+    from facet_graph_convolution_torch.parallel import halo
+    from facet_graph_convolution_torch.parallel.mesh import GraphGroup
+    from facet_graph_convolution_torch.training.trainer import _leaves, create_train_state
+
+    v, f = icosphere(3)
+    ds = TrainingSet(max_patch_size=10**9, coarsening_steps=2, coarsening_levels=3,
+                     k_faces=23, seed=0)
+    ds.add_mesh(add_vertex_noise(v, f, 0.1, np.random.default_rng(1)), f, gt_vertices=v)
+    patch = pad_patch_to(ds.patches[0], bucket_size(ds.patches[0].num_nodes, 1024))
+    cfg = default_config().replace(model={"channels": (8, 16, 32), "num_filters": 4,
+                                          "fc_channels": 32}, train={"loss_samples": 512})
+    group = GraphGroup(0, 1, cuda)
+    rng = np.random.default_rng(2)
+    mask = halo.sample_mask_from(np.unique(rng.integers(0, patch.num_nodes, 512)),
+                                 patch.num_nodes, group)
+    rot = torch.as_tensor(np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32))
+    x, gt = halo.shard_rows(patch.inputs, group), halo.shard_rows(patch.gt_normals, group)
+    out = []
+    for min_nodes in (64, 10**9):
+        monkeypatch.setattr(halo, "WINDOWED_MIN_NODES", min_nodes)
+        monkeypatch.setattr(halo, "WINDOWED_BLOCK", 128)
+        k5.windowed_conv_fwd.launches = 0
+        state = create_train_state(cfg, device="cuda")
+        step = halo.make_sharded_train_step(cfg, halo.build_partition(patch.adjs, 1), group)
+        state, loss = step(state, x, gt, mask, rot=rot)
+        out.append((float(loss), [p.grad for p in _leaves(state.params)],
+                    k5.windowed_conv_fwd.launches))
+    (loss, grads, launches), (ref, ref_grads, none) = out
+    assert launches >= 3 and none == 0
+    assert abs(loss - ref) <= 1e-5 * abs(ref)
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, atol=1e-4 * float(r.abs().max()), rtol=0)

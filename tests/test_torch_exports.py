@@ -9,8 +9,13 @@
   port's module of the same name, but those lists and the named ones
   without a counterpart: JAX's ``distributed`` helpers that
   ``torch.distributed`` has no use for
-  (``parallel.distributed.NO_COUNTERPART``) and the windowed conv's
-  geometry (``parallel.halo.NO_COUNTERPART``), each with a reason.
+  (``parallel.distributed.NO_COUNTERPART``), each with a reason;
+  ``parallel.halo.NO_COUNTERPART`` is empty (the windowed conv is ported).
+- Every public function and class of each JAX ``ops/``, ``graph/`` and
+  ``training/`` module resolves in the port's module of the same name (or,
+  for the Pallas modules, in the modules that hold their counterparts),
+  but the names of :data:`NO_PORT`, each with its reason, which exist in
+  JAX and nowhere in the port's modules.
 - The four host functions that the port lacked (``vertex_adjacency_klist``,
   ``permute_data``, ``klist_degrees``, ``klist_to_coo``) equal JAX's bit for
   bit on ``tests/test_graph.py``'s fixtures.
@@ -96,6 +101,8 @@ def test_nothing_of_parallel_or_inference_is_left_to_port():
     assert parallel.NOT_YET_PORTED == () and inference.NOT_YET_PORTED == ()
     from facet_graph_convolution_torch.parallel import distributed, halo
 
+    assert halo.NO_COUNTERPART == {}
+
     skip = set(parallel.JAX_ONLY) | set(distributed.NO_COUNTERPART) | set(halo.NO_COUNTERPART)
     for sub in ("parallel", "inference"):
         jax_pkg = importlib.import_module(f"facet_graph_convolution_tpu.{sub}")
@@ -113,6 +120,71 @@ def test_nothing_of_parallel_or_inference_is_left_to_port():
         from facet_graph_convolution_tpu.parallel import halo as jax_halo
 
         assert callable(getattr(jax_halo, name)) and reason and not hasattr(halo, name)
+
+
+# JAX modules whose counterparts the port keeps in modules of other names
+MOVED = {
+    ("ops", "pallas_conv.py"): ("ops.facet_conv_kernel", "ops.gather", "graph.convert"),
+    ("ops", "pallas_kernels.py"): ("ops.aggregate", "ops.tree_pool_kernel"),
+}
+# JAX names of ops/, graph/ and training/ that the port does not have, and why
+NO_PORT = {
+    "facet_conv_nminor": "the node-minor (TPU lane layout) conv; the port's convs are "
+                         "row-major over the slot-major tables of K1/K2 and K5",
+    "tree_pool_nminor": "the node-minor pool; the port pools row-major [N, C] signals",
+    "tree_unpool_nminor": "the node-minor unpool; the port unpools row-major [N, C] signals",
+    "gather_neighbors_lane_pre": "the lane gather over host-derived clamp and validity "
+                                 "tables (lane_tables_pre), which keep XLA from re-deriving "
+                                 "them each step of a scanned bank; the port's kernels read "
+                                 "their tables as they are",
+    "make_windowed_train_step": "a jitted scan over a window of prepared patches; the "
+                                "port's streaming trainer runs its windows through "
+                                "make_scanned_train_step (WindowBuffers)",
+    "facet_conv_pallas": "the Pallas conv's entry; the port's facet_conv runs K1/K2",
+    "conv_epilogue": "the Pallas epilogue pair; its counterpart is "
+                     "ops.facet_conv_kernel.facet_conv_epilogue (K1 and K2)",
+    "pick_tile": "the Pallas grid's tile size for the TPU's (8, 128) layout",
+}
+
+
+def _public_names(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    return {n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef)) and n.name[0] != "_"}
+
+
+def _port_modules(sub, fn):
+    names = MOVED.get((sub, fn), (f"{sub}.{fn[:-3]}",))
+    return [importlib.import_module(f"facet_graph_convolution_torch.{n}") for n in names]
+
+
+@pytest.mark.parametrize("sub", ["ops", "graph", "training"])
+def test_ops_graph_training_names_are_ported(sub):
+    folder = importlib.import_module(f"facet_graph_convolution_tpu.{sub}").__path__[0]
+    for fn in sorted(os.listdir(folder)):
+        if not fn.endswith(".py") or fn == "__init__.py":
+            continue
+        mods = _port_modules(sub, fn)
+        missing = [n for n in _public_names(os.path.join(folder, fn)) - set(NO_PORT)
+                   if not any(hasattr(m, n) for m in mods)]
+        assert not missing, (sub, fn, missing)
+
+
+def test_names_without_a_port_exist_only_in_jax():
+    """Each name of NO_PORT has a reason, exists in a JAX module and in no
+    port module that stands for it."""
+    found = set()
+    for sub in ("ops", "graph", "training"):
+        folder = importlib.import_module(f"facet_graph_convolution_tpu.{sub}").__path__[0]
+        for fn in sorted(os.listdir(folder)):
+            if not fn.endswith(".py") or fn == "__init__.py":
+                continue
+            names = _public_names(os.path.join(folder, fn)) & set(NO_PORT)
+            mods = _port_modules(sub, fn)
+            assert not [n for n in names if any(hasattr(m, n) for m in mods)], (sub, fn)
+            found |= names
+    assert found == set(NO_PORT) and all(NO_PORT.values())
 
 
 def test_parallel_names_without_a_counterpart_exist_in_jax():

@@ -8,7 +8,9 @@ tests/test_torch_multi_mesh.py). It imports no JAX: each rank is
 reading ``<workdir>/payload.pkl``, joining a gloo group through a file in
 ``<workdir>`` (no port, so parallel test workers never collide), running
 the job, and writing its result to ``<workdir>/out_<rank>.pt``. Every
-collective fails after :data:`TIMEOUT` instead of hanging.
+collective fails after :data:`TIMEOUT` instead of hanging. A payload's
+``halo_settings`` (e.g. ``{"WINDOWED_MIN_NODES": 64}``) are set on
+:mod:`..parallel.halo` before the job runs (tests/test_torch_windowed_step.py).
 """
 
 import copy
@@ -101,7 +103,8 @@ def _train(p, group, cfg, remat=False):
         grads.append({layer: {k: _numpy(t.grad) for k, t in leaves.items()}
                       for layer, leaves in state.params.items()})
     return {"losses": losses, "params": params_to_numpy(state.params), "grads": grads,
-            "eval": float(step.eval(state.params, x, gt, halo.shard_rows(p["masks"][0], group)))}
+            "eval": float(step.eval(state.params, x, gt, halo.shard_rows(p["masks"][0], group))),
+            "windows": [None if t.windows is None else t.windows.geometry for t in step.tables]}
 
 
 def job_train(p, group):
@@ -301,6 +304,8 @@ def main(job, rank, world, workdir):
     torch.set_num_threads(2)
     with open(os.path.join(workdir, "payload.pkl"), "rb") as fh:
         payload = pickle.load(fh)
+    for name, value in payload.get("halo_settings", {}).items():
+        setattr(halo, name, value)
     dist.init_process_group("gloo", init_method=f"file://{workdir}/pg", rank=rank,
                             world_size=world, timeout=TIMEOUT)
     try:
