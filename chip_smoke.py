@@ -197,7 +197,7 @@ Phases, each fatal on failure:
    at one rank against the flat ``make_normals_train_step`` from the same
    state and draws (loss and gradients within 1e-5 relative); the
    1,048,576-face torus (``torus(1024, 512)``, noise 0.2) as one
-   whole-mesh patch: ``train_normals_sharded`` 20 steps in f32 and 20 in
+   whole-mesh patch: ``train_normals_sharded`` 8 steps in f32 and 8 in
    bf16 (finite losses, the last below the first), its levels 0 and 1
    (1,273,920 and 318,480 rows) through K5, the windowed fused conv
    (``ops/windowed_conv.py``), by default: K1/K2 2 launches a step and K5
@@ -212,14 +212,21 @@ Phases, each fatal on failure:
    (1e-5 × max|plain|) and bf16 (2^-8 × max|plain|) against their plain
    versions, bitwise repeatable, ms a launch warm and cold L2, bound /
    ms, the plain versions' ms and the flat path's K1 + z GEMM (K2 + its
-   two GEMMs) at the same inputs, then on shard 0 of a 4-way partition
-   of the 25,600-node patch with forced windows (halo rows, N_src > N);
+   two GEMMs) at the same inputs, the bytes a launch moves to and from
+   device memory counted from the kernels' code under their plans, then
+   on shard 0 of a 4-way partition of the 25,600-node patch with forced
+   windows (halo rows, N_src > N) at upconv1, upconv2 and a conv past K5's
+   first limits (M = 33, C = 16, out = 256);
    ``infer_normals_sharded`` of the torus whole (random weights; finite,
    K1 2 and K5 6) and of the subdivision-5
    icosphere against ``infer_normals`` of the same one-patch mesh within
-   1e-4; then the launcher (``python -m
+   1e-4 (the torus's datasets, for training, serving, 19b and 19f, are
+   built in worker processes, one a dataset, beside the kernels' build,
+   and waited for before the first phase: their build seconds are taken
+   beside nvcc and each other, not alone); then
+   the launcher (``python -m
    facet_graph_convolution_torch.parallel.launch --num_processes 1 ...
-   train --iterations 40``) in a subprocess, which must exit 0.
+   train --iterations 10``) in a subprocess, which must exit 0.
    In the same one-rank group, before the launcher, the rest of the
    multi-GPU path:
 19b. sharded vertex serving: ``infer_with_vertices_sharded`` of the same
@@ -246,13 +253,13 @@ Phases, each fatal on failure:
 19e. data parallelism at one rank on the training phase's set, f32 and
    bf16: one ``make_dp_train_step`` step against the flat
    ``make_normals_train_step`` on the same patch and draws (loss 1e-5
-   relative, gradients 1e-4 scaled), then 20 ``train_normals_dp`` steps
+   relative, gradients 1e-4 scaled), then 10 ``train_normals_dp`` steps
    (finite losses, K1/K2 8 launches a step in the run's dtype); ms a step
    and conv-edges/s;
 19f. multi-mesh: ``train_normals_sharded_multi`` on three 262,144-face
    tori (two of one topology): every mesh's tables of one shape, each
    mesh's step on the bank's merged partition against the step on its own
-   partition (1e-5 relative), 9 steps with finite losses and K1/K2 at the
+   partition (1e-5 relative), 3 steps with finite losses and K1/K2 at the
    flat levels' convs, K5 at the windowed ones' (every mesh's windows of
    one geometry); ms a step a mesh;
 19g. the fc head tensor-parallel at one rank equal to the unsplit forward.
@@ -262,18 +269,22 @@ power limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
 non-zero, printing no result, without a CUDA device or outside the repo.
 """
 
+import contextlib
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12        # dense TF32 on the tensor cores
 KERNEL_ATOL = KERNEL_RTOL = 1e-5
 FORWARD_ATOL = 1e-4
 # the operator and naive solvers on the same patches, in the patches' frame
@@ -3270,15 +3281,84 @@ def wang_phase(dev, workdir):
 
 
 HALO_TORUS = (1024, 512)     # torus(nu, nv): 2·nu·nv = 1,048,576 faces
-HALO_STEPS = 20              # train_normals_sharded steps, f32 then bf16
-HALO_TIMED = 10              # timed steps of the sharded step after 3 of warm-up
+HALO_STEPS = 8               # train_normals_sharded steps, f32 then bf16
+HALO_TIMED = 5               # timed steps of the sharded step after 3 of warm-up
 HALO_SHARDS = 4              # the kernel check's partition of the subdivision-5 patch
+LAUNCH_STEPS = 10            # the launcher's train steps in its subprocess
 # the one-rank sharded step against the flat step on the same state and
 # draws: the same kernels on the same tables, the sums reassociated only in
 # the normalization's mean and the dense layers' products
 HALO_PARITY_RTOL = 1e-5
 HALO_SERVE_ATOL = 1e-4       # infer_normals_sharded against infer_normals (JAX's bar)
 LEVEL0_CONVS = (("conv1", 6), ("upconv1", 64), ("dconv1", 64))
+
+
+# the halo phase's host datasets of tori (the coarsening of a million faces
+# takes ~20 s each on the host), built in worker processes, one a dataset,
+# while nvcc builds the kernels, and waited for before the first phase, so
+# that no measured phase runs beside a build; a phase that finds none here
+# (tools/halo_phase_probe.py) builds its own
+_HOST_BUILDS = {}
+HOST_BUILD_KINDS = ("train", "serve", "vertex", "multi")
+
+
+def _torus_dataset(kind, torus_size=HALO_TORUS, multi_tori=None):
+    """One host dataset of the halo phase, with the seconds it took: the
+    noisy torus (HALO_TORUS: 1,048,576 faces) as a TrainingSet ("train",
+    with the mesh and its noisy vertices), an InferenceMesh ("serve"), an
+    InferenceMesh with vertices ("vertex", 19b), or the multi-mesh tori
+    ("multi", 19f: MULTI_TORI)."""
+    from facet_graph_convolution_torch.data.dataset import InferenceMesh, TrainingSet
+    from facet_graph_convolution_torch.data.synthetic import add_vertex_noise, torus
+
+    kw = dict(max_patch_size=10**9, coarsening_steps=2, coarsening_levels=3, k_faces=23, seed=0)
+    t0 = time.perf_counter()
+    if kind == "multi":
+        ds = TrainingSet(**kw)
+        rng = np.random.default_rng(12)
+        for nu, nv in multi_tori or MULTI_TORI:
+            v, f = torus(nu=nu, nv=nv)
+            ds.add_mesh(add_vertex_noise(v, f, 0.2, rng), f, gt_vertices=v)
+        return ds, time.perf_counter() - t0
+    v, f = torus(nu=torus_size[0], nv=torus_size[1])
+    noisy = add_vertex_noise(v, f, 0.2, np.random.default_rng(0))
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if kind == "train":
+        ds = TrainingSet(**kw)
+        ds.add_mesh(noisy, f, gt_vertices=v)
+        return (ds, v, f, noisy, mesh_s), time.perf_counter() - t0
+    ds = InferenceMesh(**kw)
+    (ds.add_mesh_with_vertices if kind == "vertex" else ds.add_mesh)(noisy, f)
+    return ds, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def host_datasets_built(start=True):
+    """The halo phase's host datasets (when ``start``: they need the C++ host
+    library), each built in a worker process of its own while the body runs
+    (the kernels' build); on leaving the body, waits for them and keeps
+    them for :func:`host_dataset`. The workers stop on leaving, also on an
+    error (a build not started is cancelled, one running is waited for)."""
+    if not start:
+        yield
+        return
+    pool = ProcessPoolExecutor(len(HOST_BUILD_KINDS),
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = {kind: pool.submit(_torus_dataset, kind, HALO_TORUS, MULTI_TORI)
+                   for kind in HOST_BUILD_KINDS}
+        yield
+        _HOST_BUILDS.update((kind, f.result()) for kind, f in futures.items())
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def host_dataset(kind):
+    """``_torus_dataset(kind)``, as the workers built it where main() started
+    them."""
+    built = _HOST_BUILDS.pop(kind, None)
+    return built if built is not None else _torus_dataset(kind, HALO_TORUS, MULTI_TORI)
 
 
 def _free_port() -> int:
@@ -3463,6 +3543,7 @@ def _halo_run(cfg, patch, group, prepared, label, bf16):
     from facet_graph_convolution_torch.models.augment import random_rotation
     from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.ops import windowed_conv as k5
+    from facet_graph_convolution_torch.parallel import halo
     from facet_graph_convolution_torch.parallel.halo import (
         make_sharded_train_step,
         sample_mask_from,
@@ -3488,15 +3569,21 @@ def _halo_run(cfg, patch, group, prepared, label, bf16):
     flat_n, win_n = conv_split(part)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the run takes the partition prepared once for the four runs (the same
+    # patch, the same padding and blocks: ~8 s of host work a run)
+    prepare = halo._prepare_sharded_mesh_arrays
     try:
         for (mod, name), fn in zip(plains, originals):
             setattr(mod, name, counted(fn))
+        halo._prepare_sharded_mesh_arrays = (
+            lambda c, p, g: prepared if p is patch else prepare(c, p, g))
         t0 = time.perf_counter()
         state, losses = train_normals_sharded(cfg, patch, HALO_STEPS, group=group, log_every=5,
                                               seed=0)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
     finally:
+        halo._prepare_sharded_mesh_arrays = prepare
         for (mod, name), fn in zip(plains, originals):
             setattr(mod, name, fn)
     counts = {k: (fn.launches, fn.launches_bf16) for k, fn in wrappers.items()}
@@ -3531,7 +3618,8 @@ def _halo_run(cfg, patch, group, prepared, label, bf16):
     wall_ms, busy_ms, _ = device_profile(lambda: float(step(state, x, gt, mask, rot=rot)[1]),
                                          f"one {label} sharded step, {n} nodes")
     median = times[len(times) // 2]
-    print(f"  {label}: {HALO_STEPS} steps of train_normals_sharded in {run_s:.2f} s, loss "
+    print(f"  {label}: {HALO_STEPS} steps of train_normals_sharded in {run_s:.2f} s (the "
+          f"partition prepared once), loss "
           f"{losses[0]:.4f} → {losses[-1]:.4f}; launches (all, bf16) {counts}, plain none; "
           f"profiled step: K1 {prof['K1']}, K2 {prof['K2']}, K5 {prof['K5']}, K5 backward "
           f"{prof['K5_bwd']} kernels; step median {1e3 * median:.3f} ms (min "
@@ -3550,6 +3638,7 @@ CONV_LEVELS = (0, 1, 2, 2, 1, 1, 0, 0)
 WINDOWED_CONVS = (("conv1", 0, 6, 32), ("upconv1", 0, 64, 32), ("dconv1", 0, 64, 32),
                   ("conv2", 1, 32, 64), ("upconv2", 1, 128, 64), ("dconv2", 1, 128, 64))
 K5_TOL = 1e-5                # K5 f32 against its plain version, × max|plain| per output
+K5_COLD_REPS = 5             # cold-L2 launches a K5 time is the median of (5-20 ms each)
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core rate, SXM data sheet
 # the shard check's forced windows on the 4-way partition of the kernel
 # phase's patch (6,400 rows a shard at level 0, 1,600 at level 1)
@@ -3610,18 +3699,22 @@ def event_ms(fn):
     return start.elapsed_time(end)
 
 
-def k5_inputs(tables, c_in, out, rng, dev, dtype):
+def k5_inputs(tables, c_in, out, rng, dev, dtype, m=9):
     """K5's arguments at one windowed level's shard tables: random ``cat``
-    [N_src, C+9] in ``dtype``, ``ux`` f32 (the path passes it so), ``wf``
-    [out, 9·C] scaled by 1/sqrt(9·C), ``c``, the level's ``mult_rows``;
-    and a cotangent ``gy`` [N, out]."""
+    [N_src, C+M] in ``dtype``, ``ux`` f32 (the path passes it so), ``wf``
+    [out, M·C] scaled by 1/sqrt(M·C), ``c``, the level's ``mult_rows``;
+    and a cotangent ``gy`` [N, out]. The model's M is 9. The normals are
+    drawn on the card from a generator seeded by ``rng`` (~10^8 of them at
+    level 0: seconds a conv on the host)."""
     import torch
 
     geometry = tables.windows.geometry
-    n_src, n, m = geometry[3], geometry[4], 9
+    n_src, n = geometry[3], geometry[4]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(2**62)))
 
     def r(*shape, scale=1.0):
-        return torch.as_tensor((rng.normal(size=shape) * scale).astype(np.float32), device=dev)
+        return torch.randn(shape, generator=gen, device=dev) * scale
 
     args = (geometry, r(n_src, c_in + m).to(dtype), r(n, m), r(out, m * c_in,
                                                               scale=(m * c_in) ** -0.5),
@@ -3668,14 +3761,18 @@ def k5_check(args, gy, label, bf16):
 
 
 def k5_bounds(args, gy, y, grads):
-    """Least times for K5's forward and backward on these inputs: each
-    input read once and each output written once at the HBM rate, against
-    the operations this data needs at the peak rate of the inputs' type
-    (f32 67 TFLOP/s, bf16 989): per live slot (mult > 0) M·(2C + 6) for the
-    slot sums and the softmax, per row 2·M·C·out for the transform; the
-    backward twice the transform (dz, dwf), the slot sums again, and per
-    live slot M·(4C + 8) for dq, dx and dlog. Returns ((fwd ms, by), (bwd
-    ms, by))."""
+    """Least times for K5's forward and backward on these inputs, for the
+    design of ``csrc/windowed_conv_{fwd,bwd}.cu``, each the largest of three
+    (the tensor cores and the CUDA cores run at once, so neither adds to
+    the other): the bytes, each input read once and each output written
+    once, at the HBM rate; the products on the tensor cores, 2·N·M·C·out a
+    transform, the forward's one, the backward's two (dz, dwf), in f32
+    three TF32 mma a product (495 / 3 TFLOP/s), in bf16 the forward's bf16
+    mma (989) and the backward's two (2xTF32, 495 / 2); and the slot work
+    on the CUDA cores (67 TFLOP/s), per live slot (mult > 0) M·(2C + 6) for
+    the slot sums and the softmax, and in the backward that again (pass W)
+    with M·(4C + 8) for dq, dx and dlog. Returns ((fwd ms, by, terms),
+    (bwd ms, by, terms)), terms {"bytes", "tensor", "cuda"} in ms."""
     import torch
 
     geometry, cat, ux, wf, c, rows, tabs = args
@@ -3685,6 +3782,7 @@ def k5_bounds(args, gy, y, grads):
     out = wf.shape[0]
     tail = n_src > n
     sz = cat.element_size()
+    bf16 = cat.dtype == torch.bfloat16
 
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -3695,14 +3793,17 @@ def k5_bounds(args, gy, y, grads):
     live = int(torch.count_nonzero(rows))
     transform = 2 * n * m * c_in * out
     slots = live * m * (2 * c_in + 6)
-    rate = H100_BF16_FLOPS if cat.dtype == torch.bfloat16 else H100_F32_FLOPS
+    fwd_rate = H100_BF16_FLOPS if bf16 else H100_TF32_FLOPS / 3
+    bwd_rate = H100_TF32_FLOPS / (2 if bf16 else 3)
     out_bounds = []
-    for nb, ops in ((inputs + nbytes((y,)), transform + slots),
-                    (inputs + nbytes(bwd_tabs) + nbytes((gy, *grads)),
-                     2 * transform + slots + live * m * (4 * c_in + 8))):
-        t_bytes, t_ops = nb / H100_BYTES_PER_S, ops / rate
-        out_bounds.append((1e3 * max(t_bytes, t_ops),
-                           "bytes" if t_bytes >= t_ops else "operations"))
+    for nb, t_tc, t_fma in (
+            (inputs + nbytes((y,)), transform / fwd_rate, slots / H100_F32_FLOPS),
+            (inputs + nbytes(bwd_tabs) + nbytes((gy, *grads)), 2 * transform / bwd_rate,
+             (slots + live * m * (4 * c_in + 8)) / H100_F32_FLOPS)):
+        terms = {"bytes": 1e3 * nb / H100_BYTES_PER_S, "tensor": 1e3 * t_tc,
+                 "cuda": 1e3 * t_fma}
+        bound = max(terms.values())
+        out_bounds.append((bound, "bytes" if terms["bytes"] >= bound else "operations", terms))
     return out_bounds
 
 
@@ -3767,32 +3868,37 @@ def windowed_phase(dev, part, bench_patch):
         "bwd_cold", "plain_f", "plain_b", "f_shr", "b_shr", "flat_fwd", "flat_bwd"))
     sums = {}
     for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        s = sums[label] = {"fwd": {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                                   "flat_ms": 0.0, "err": 0.0, "by": set()},
-                           "bwd": {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                                   "flat_ms": 0.0, "err": 0.0, "by": set()}}
+        s = sums[label] = {d: {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                               "flat_ms": 0.0, "dram_gb": 0.0, "err": 0.0, "by": set(),
+                               "terms": dict.fromkeys(("bytes", "tensor", "cuda"), 0.0)}
+                           for d in ("fwd", "bwd")}
         for name, level, c_in, out in WINDOWED_CONVS:
             if tables[level].windows is None:
                 raise AssertionError(f"the torus's level {level} is not windowed")
             args, gy = k5_inputs(tables[level], c_in, out, rng, dev, dtype)
             y, grads, e_f, e_b, (p_f, p_b) = k5_check(args, gy, f"{name} ({label})",
                                                        label == "bf16")
-            (b_f, by_f), (b_b, by_b) = k5_bounds(args, gy, y, grads)
+            (b_f, by_f, terms_f), (b_b, by_b, terms_b) = k5_bounds(args, gy, y, grads)
+            dram = k5.device_bytes(*args[:4], args[6])
             del y, grads
             row = {"fwd": {"err": e_f, "ms": graph_ms(lambda: k5.windowed_conv_fwd(*args), 3),
-                           "cold_ms": cold_ms(lambda: k5.windowed_conv_fwd(*args)),
+                           "cold_ms": cold_ms(lambda: k5.windowed_conv_fwd(*args), K5_COLD_REPS),
                            "plain_ms": p_f, "bound_ms": b_f, "by": by_f},
                    "bwd": {"err": e_b,
                            "ms": graph_ms(lambda: k5.windowed_conv_bwd(*args, gy), 3),
-                           "cold_ms": cold_ms(lambda: k5.windowed_conv_bwd(*args, gy)),
+                           "cold_ms": cold_ms(lambda: k5.windowed_conv_bwd(*args, gy),
+                                              K5_COLD_REPS),
                            "plain_ms": p_b, "bound_ms": b_b, "by": by_b}}
+            row["fwd"]["dram_gb"], row["bwd"]["dram_gb"] = dram["fwd"] / 1e9, dram["bwd"] / 1e9
             row["fwd"]["flat_ms"], row["bwd"]["flat_ms"] = flat_yardstick_ms(
                 args, gy, flat[level], dtype)
             for d in ("fwd", "bwd"):
-                for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "flat_ms"):
+                for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "flat_ms", "dram_gb"):
                     s[d][key] += row[d][key]
                 s[d]["err"] = max(s[d]["err"], row[d]["err"])
                 s[d]["by"].add(row[d]["by"])
+                for key, v in (terms_f if d == "fwd" else terms_b).items():
+                    s[d]["terms"][key] += v
             f, b = row["fwd"], row["bwd"]
             print("  %-8s %-4s %8d %4d %3d %9.2e %9.2e %9.5f %9.5f %9.5f %9.5f %9.4f %9.4f "
                   "%6.3f %6.3f %9.5f %9.5f" % (
@@ -3800,6 +3906,11 @@ def windowed_phase(dev, part, bench_patch):
                       f["cold_ms"], b["ms"], b["cold_ms"], f["plain_ms"], b["plain_ms"],
                       f["bound_ms"] / f["ms"], b["bound_ms"] / b["ms"], f["flat_ms"],
                       b["flat_ms"]))
+            print(f"    device-memory bytes a launch, counted from the kernels: fwd "
+                  f"{f['dram_gb']:.4f} GB, bwd {b['dram_gb']:.4f} GB; the bound's terms, ms "
+                  "(bytes, tensor cores, CUDA cores): fwd "
+                  + ", ".join(f"{v:.5f}" for v in terms_f.values()) + "; bwd "
+                  + ", ".join(f"{v:.5f}" for v in terms_b.values()))
             del args, gy
         for d in ("fwd", "bwd"):
             t = s[d]
@@ -3807,9 +3918,11 @@ def windowed_phase(dev, part, bench_patch):
             flat_name = "K1 + GEMM" if d == "fwd" else "K2 + 2 GEMMs"
             print(f"  K5 {d} {label}, the 6 convs a step: {t['ms']:.5f} ms warm, "
                   f"{t['cold_ms']:.5f} cold (plain {t['plain_ms']:.4f}, bound "
-                  f"{t['bound_ms']:.5f} {t['bound_by']}, bound / ms "
-                  f"{t['bound_ms'] / t['ms']:.3f}); the flat path's {flat_name} "
-                  f"{t['flat_ms']:.5f} ms")
+                  f"{t['bound_ms']:.5f} {t['bound_by']}, its terms' sums bytes "
+                  f"{t['terms']['bytes']:.5f}, tensor cores {t['terms']['tensor']:.5f}, CUDA "
+                  f"cores {t['terms']['cuda']:.5f}; bound / ms "
+                  f"{t['bound_ms'] / t['ms']:.3f}; {t['dram_gb']:.4f} GB of device memory "
+                  f"counted); the flat path's {flat_name} {t['flat_ms']:.5f} ms")
     del tables, flat
     torch.cuda.empty_cache()
 
@@ -3824,22 +3937,27 @@ def windowed_phase(dev, part, bench_patch):
         for k, v in saved.items():
             setattr(halo, k, v)
     worst = {}
-    checked = [(name, level, c_in, out) for name, level, c_in, out in (
-        ("upconv1", 0, 64, 32), ("upconv2", 1, 128, 64)) if shard[level].windows is not None]
-    if not checked:
-        raise AssertionError("no level of the 4-way partition's shard 0 windowed")
-    for name, level, c_in, out in checked:
+    # the model's upconv1 and upconv2, and a conv past K5's first limits
+    # (M <= 32, out <= 128): M = 33, C = 16, out = 256 (the any-M kernels,
+    # two out tiles in the forward, four in pass W)
+    checked = [(name, level, c_in, out, m) for name, level, c_in, out, m in (
+        ("upconv1", 0, 64, 32, 9), ("upconv2", 1, 128, 64, 9), ("M=33, out=256", 0, 16, 256, 33))
+        if shard[level].windows is not None]
+    if len(checked) < 3:
+        raise AssertionError("the 4-way partition's shard 0 has a level without windows")
+    for name, level, c_in, out, m in checked:
         g = shard[level].windows.geometry
         if g[3] <= g[4]:
             raise AssertionError(f"shard 0's level {level} has no halo rows: {g}")
         for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            args, gy = k5_inputs(shard[level], c_in, out, rng, dev, dtype)
+            args, gy = k5_inputs(shard[level], c_in, out, rng, dev, dtype, m=m)
             _, _, e_f, e_b, _ = k5_check(args, gy, f"{name}, 4-way shard 0 ({label})",
                                          label == "bf16")
             worst[label] = max(worst.get(label, 0.0), e_f, e_b)
         print(f"  K5 on shard 0 of a {HALO_SHARDS}-way partition of the {bench_patch.num_nodes}"
-              f"-node patch, {name} (N {g[4]}, N_src {g[3]}, block {g[0]}, window {g[1]}): "
-              "f32 and bf16 agree with the plain versions, bitwise repeatable")
+              f"-node patch, {name} (M {m}, C {c_in}, out {out}; N {g[4]}, N_src {g[3]}, block "
+              f"{g[0]}, window {g[1]}): f32 and bf16 agree with the plain versions, bitwise "
+              "repeatable")
     print(f"  windowed phase: {time.perf_counter() - t_phase:.1f} s")
     return sums
 
@@ -3859,8 +3977,8 @@ def halo_phase(dev, workdir, trained):
     import torch
 
     from facet_graph_convolution_torch.config import default_config
-    from facet_graph_convolution_torch.data.dataset import InferenceMesh, TrainingSet, pad_patch_to
-    from facet_graph_convolution_torch.data.synthetic import add_vertex_noise, icosphere, torus
+    from facet_graph_convolution_torch.data.dataset import InferenceMesh, pad_patch_to
+    from facet_graph_convolution_torch.data.synthetic import add_vertex_noise, icosphere
     from facet_graph_convolution_torch.inference.driver import infer_normals
     from facet_graph_convolution_torch.inference.sharded import infer_normals_sharded
     from facet_graph_convolution_torch.models.unet import init_unet, train_graph_tensors
@@ -3890,23 +4008,16 @@ def halo_phase(dev, workdir, trained):
 
         cfg = default_config()
         host = {}
-        t0 = time.perf_counter()
-        v, f = torus(nu=HALO_TORUS[0], nv=HALO_TORUS[1])
-        noisy = add_vertex_noise(v, f, 0.2, np.random.default_rng(0))
-        host["mesh"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ds = TrainingSet(max_patch_size=10**9, coarsening_steps=2, coarsening_levels=3,
-                         k_faces=23, seed=0)
-        ds.add_mesh(noisy, f, gt_vertices=v)
+        (ds, v, f, noisy, host["mesh"]), host["dataset_build"] = host_dataset("train")
         patch = ds.patches[0]
-        host["dataset_build"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         prepared = _prepare_sharded_mesh_arrays(cfg, patch, group)
         host["pad_partition_upload"] = time.perf_counter() - t0
         part = prepared[0]
         edges = count_edges(pad_patch_to(patch, part.fine.num_nodes))
         print(f"  torus {f.shape[0]} faces: padded nodes a level "
-              f"{[lvl.num_nodes for lvl in part.levels]}, conv-edges a step {edges}; host s "
+              f"{[lvl.num_nodes for lvl in part.levels]}, conv-edges a step {edges}; host s (mesh "
+              "and dataset built in a worker beside nvcc and the other datasets) "
               + ", ".join(f"{k} {s:.2f}" for k, s in host.items()))
         runs = {}
         for label, bf16 in (("f32", False), ("bf16", True)):
@@ -3955,11 +4066,7 @@ def halo_phase(dev, workdir, trained):
 
         # serving: the same torus whole, random full-width weights
         params = init_unet(seed=5, device=str(dev))
-        t0 = time.perf_counter()
-        mesh = InferenceMesh(max_patch_size=10**9, coarsening_steps=2, coarsening_levels=3,
-                             k_faces=23, seed=0)
-        mesh.add_mesh(noisy, f)
-        build_s = time.perf_counter() - t0
+        mesh, build_s = host_dataset("serve")
         k1.facet_conv_fwd.launches = k1.facet_conv_fwd.launches_bf16 = 0
         k5.windowed_conv_fwd.launches = 0
         stages = {}
@@ -3979,9 +4086,9 @@ def halo_phase(dev, workdir, trained):
                                  f"{pts.shape} {normals.shape}, finite {np.isfinite(pts).all()}")
         out["launches"]["fwd"] += served[0]
         out["launches"]["k5_fwd"] += served[1]
-        print(f"  served the torus whole: mesh build {build_s:.2f} s, infer_normals_sharded "
-              f"{serve_s:.2f} s ({cfg.eval.solver_iterations} solver iterations), K1 "
-              f"{served[0]}, K5 {served[1]}")
+        print(f"  served the torus whole: mesh build {build_s:.2f} s (beside nvcc), "
+              f"infer_normals_sharded {serve_s:.2f} s ({cfg.eval.solver_iterations} solver "
+              f"iterations), K1 {served[0]}, K5 {served[1]}")
         del stages
         del mesh, pts, normals
 
@@ -4011,11 +4118,13 @@ def halo_phase(dev, workdir, trained):
     proc = subprocess.run(
         [sys.executable, "-m", "facet_graph_convolution_torch.parallel.launch",
          "--num_processes", "1", "--process_id", "0", "--coordinator", f"127.0.0.1:{port}",
-         "train", "--iterations", "40"], capture_output=True, text=True, timeout=600)
+         "train", "--iterations", str(LAUNCH_STEPS)], capture_output=True, text=True,
+        timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"the launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
     line = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1]
-    print(f"  launcher, 1 process over NCCL, 40 steps in {time.perf_counter() - t0:.1f} s: "
+    print(f"  launcher, 1 process over NCCL, {LAUNCH_STEPS} steps in "
+          f"{time.perf_counter() - t0:.1f} s: "
           f"{line}")
     print(f"  halo phase: {time.perf_counter() - t_phase:.1f} s")
     return out
@@ -4025,8 +4134,8 @@ def halo_phase(dev, workdir, trained):
 MS_TRAIN_TORUS = (256, 200)  # torus(nu, nv): 102,400 faces, sharded vertex training
 MS_TRAIN_STEPS = 3           # driver steps a solver
 MULTI_TORI = ((512, 256), (512, 256), (1024, 128))   # 262,144 faces each; two of one topology
-MULTI_STEPS = 9              # train_normals_sharded_multi steps
-DP_STEPS = 20                # train_normals_dp steps a dtype
+MULTI_STEPS = 3              # train_normals_sharded_multi steps: one a mesh
+DP_STEPS = 10                # train_normals_dp steps a dtype
 POOL_BWD_ATOL = 1e-6         # K4's backward against the plain backward
 K4_SOLVE = (80, 20)          # K4 launches of a default solve: 80 at 4 rounds, 20 at 2
 # K4's team kernels (C = 3, a thread a group), the design before the lane
@@ -4074,7 +4183,6 @@ def sharded_vertex_serving(dev, group, torus_mesh):
     import torch
 
     from facet_graph_convolution_torch.config import default_config
-    from facet_graph_convolution_torch.data.dataset import InferenceMesh
     from facet_graph_convolution_torch.inference import sharded
     from facet_graph_convolution_torch.models.unet import init_unet
     from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
@@ -4084,12 +4192,8 @@ def sharded_vertex_serving(dev, group, torus_mesh):
     from facet_graph_convolution_torch.ops.vertex_update import update_positions_multiscale
 
     cfg = default_config()
-    noisy, f = torus_mesh
-    t0 = time.perf_counter()
-    vmesh = InferenceMesh(max_patch_size=10**9, coarsening_steps=2, coarsening_levels=3,
-                          k_faces=23, seed=0)
-    vmesh.add_mesh_with_vertices(noisy, f)
-    build_s = time.perf_counter() - t0
+    f = torus_mesh[1]
+    vmesh, build_s = host_dataset("vertex")
     patch = vmesh.patches[0]
     params = init_unet(seed=7, multi_scale=True, device=str(dev))
     seconds, results = {}, {}
@@ -4132,7 +4236,8 @@ def sharded_vertex_serving(dev, group, torus_mesh):
     busy_ms, activities = device_busy(
         lambda: sharded.infer_with_vertices_sharded(vmesh, cfg, params, group=group))
     print(f"  19b sharded vertex serving, torus {f.shape[0]} faces ({patch.num_nodes} nodes, "
-          f"{patch.vertices.shape[0]} vertices): vertex dataset build {build_s:.2f} s; "
+          f"{patch.vertices.shape[0]} vertices): vertex dataset build {build_s:.2f} s (beside "
+          "nvcc); "
           f"infer_with_vertices_sharded {wall:.2f} s (host tables "
           f"{seconds['_partitioned']:.2f}, forward {seconds['sharded_unet_apply']:.2f}, solve "
           f"{seconds['sharded_update_positions_multiscale']:.2f} s incl. its host tables); busy "
@@ -4528,8 +4633,7 @@ def multi_mesh_phase(dev, group, workdir):
     import torch
 
     from facet_graph_convolution_torch.config import default_config
-    from facet_graph_convolution_torch.data.dataset import TrainingSet, pad_patch_to
-    from facet_graph_convolution_torch.data.synthetic import add_vertex_noise, torus
+    from facet_graph_convolution_torch.data.dataset import pad_patch_to
     from facet_graph_convolution_torch.models.augment import random_rotation
     from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.ops import windowed_conv as k5
@@ -4537,14 +4641,7 @@ def multi_mesh_phase(dev, group, workdir):
     from facet_graph_convolution_torch.training.trainer import _leaves, create_train_state
 
     cfg = default_config().replace(train={"network_path": os.path.join(workdir, "multi_mesh")})
-    t0 = time.perf_counter()
-    ds = TrainingSet(max_patch_size=10**9, coarsening_steps=2, coarsening_levels=3, k_faces=23,
-                     seed=0)
-    rng = np.random.default_rng(12)
-    for nu, nv in MULTI_TORI:
-        v, f = torus(nu=nu, nv=nv)
-        ds.add_mesh(add_vertex_noise(v, f, 0.2, rng), f, gt_vertices=v)
-    build_s = time.perf_counter() - t0
+    ds, build_s = host_dataset("multi")
     t0 = time.perf_counter()
     parts, xs, gts, n = halo.prepare_sharded_mesh_bank(cfg, ds.patches, group)
     bank_s = time.perf_counter() - t0
@@ -4598,7 +4695,8 @@ def multi_mesh_phase(dev, group, workdir):
         raise AssertionError(f"train_normals_sharded_multi: losses {losses}, launches "
                              f"{launches}, want {want}")
     print(f"  19f multi-mesh: {len(ds.patches)} tori ({[p.num_nodes for p in ds.patches]} nodes, "
-          f"bank {n}; datasets {build_s:.2f} s, bank {bank_s:.2f} s), tables of one shape; "
+          f"bank {n}; datasets {build_s:.2f} s beside nvcc, bank {bank_s:.2f} s), tables of one "
+          "shape; "
           + "; ".join(rows) + f" (rtol {HALO_PARITY_RTOL:g}); train_normals_sharded_multi "
           f"{MULTI_STEPS} steps in {run_s:.2f} s, losses finite, launches {launches}")
     return launches
@@ -4669,26 +4767,42 @@ def main() -> int:
     from facet_graph_convolution_torch.graph import native
 
     t0 = time.perf_counter()
-    host_lib = []
+    host_lib, built, failures = [], [], []
     gxx = threading.Thread(target=lambda: host_lib.append(native.available()))
     gxx.start()
-    built = cuda_library.build()
+
+    def nvcc():
+        try:
+            built.extend(cuda_library.build())
+        except Exception as e:  # raised below, in the main thread
+            failures.append(e)
+
+    kernels = threading.Thread(target=nvcc)
+    kernels.start()
     gxx.join()
+    # the workers build the halo phase's tori while nvcc runs
+    t_data = time.perf_counter()
+    with host_datasets_built(host_lib == [True]):
+        kernels.join()
+        t_built = time.perf_counter()
+    if failures:
+        raise failures[0]
     if host_lib != [True]:
         raise AssertionError("the C++ host library csrc/graphlib.cpp did not build or load")
-    print(f"build: {built} and {os.path.basename(native.LIBRARY)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"build: {built} and {os.path.basename(native.LIBRARY)} in {t_built - t0:.1f} s; "
+          f"the torus datasets {time.perf_counter() - t_data:.1f} s from the workers' start "
+          f"(waited {time.perf_counter() - t_built:.1f} s after the build)")
     for name in built:
         with open(os.path.join(cuda_library.BUILD_DIR, name + ".log")) as fh:
             print(fh.read().strip())
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-
-    patch = phase_patch()
-    err, totals, bound_by = kernel_phase(dev, patch)
-    err2, totals2, bound_by2 = backward_kernel_phase(dev, patch)
     with tempfile.TemporaryDirectory() as workdir:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+
+        patch = phase_patch()
+        err, totals, bound_by = kernel_phase(dev, patch)
+        err2, totals2, bound_by2 = backward_kernel_phase(dev, patch)
         launches, _ = serving_phase(dev, workdir)
         batched_serving_phase(dev, workdir, totals["ms"], patch.num_nodes)
         train_launches, trained = training_phase(dev, workdir)

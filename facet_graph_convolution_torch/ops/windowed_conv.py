@@ -33,7 +33,11 @@ difference kept). ``ux`` and ``wf`` come in f32; their cotangents and
 ``dc`` are f32.
 
 :func:`windowed_conv_fwd` launches ``csrc/windowed_conv_fwd.cu`` and
-:func:`windowed_conv_bwd` ``csrc/windowed_conv_bwd.cu`` on CUDA tensors; on
+:func:`windowed_conv_bwd` ``csrc/windowed_conv_bwd.cu`` on CUDA tensors (the
+products ``z · wfᵀ``, ``gy · wf`` and ``gyᵀ · z`` on the tensor cores: 3xTF32
+in float32, bf16 ``mma`` forward and 2xTF32 backward in bfloat16; any M and
+any width, refused only where a block's shared memory cannot hold the
+smallest tile); on
 CPU tensors they run :func:`windowed_fused_conv_fwd_plain` and
 :func:`windowed_fused_conv_bwd_plain`, the JAX package's slab recursion in
 PyTorch ops with its cast points, which the tests and ``chip_smoke.py`` hold
@@ -53,11 +57,6 @@ import torch
 
 from facet_graph_convolution_torch.ops import cuda_library
 from facet_graph_convolution_torch.ops.facet_conv_kernel import ENTRY_SUFFIX
-
-# the most filters and outputs the kernels take
-MAX_M = 32
-MAX_OUT = 128
-
 
 def _geometry(geometry) -> Tuple[int, int, int, int, int]:
     block, window, bwd_window, num_sources, num_out = map(int, geometry)
@@ -211,7 +210,40 @@ def _library(name: str) -> ctypes.CDLL:
         if name == "windowed_conv_bwd":
             lib.windowed_conv_bwd_partials.argtypes = [i] * 5 + [p]
             lib.windowed_conv_bwd_partials.restype = None
+        nbytes = getattr(lib, name + "_bytes")
+        nbytes.argtypes = [i] * (9 if name == "windowed_conv_fwd" else 11)
+        nbytes.restype = ctypes.c_double
     return lib
+
+
+def _sizes(geometry, cat, ux, wf, tabs):
+    """The C entries' sizes after the pointers: N, N_src, C, M, out, K',
+    block, slabs."""
+    block, _, _, num_sources, num_out = geometry
+    m = ux.shape[1]
+    return (num_out, num_sources, cat.shape[1] - m, m, wf.shape[0], tabs[2].shape[1], block,
+            tabs[0].shape[0])
+
+
+def device_bytes(geometry, cat, ux, wf, tabs):
+    """The device-memory bytes of one launch of K5's forward and of its
+    backward on these inputs, as the C entries count them under the
+    kernels' plans (card only: builds the libraries): ``{"fwd": bytes,
+    "bwd": bytes}``."""
+    geometry = _geometry(geometry)
+    sizes = _sizes(geometry, cat, ux, wf, tabs)
+    bf16 = int(cat.dtype == torch.bfloat16)
+    s_tail = tabs[9].shape[0] if geometry[3] > geometry[4] else 0
+    return {"fwd": _library("windowed_conv_fwd").windowed_conv_fwd_bytes(*sizes, bf16),
+            "bwd": _library("windowed_conv_bwd").windowed_conv_bwd_bytes(
+                *sizes, tabs[5].shape[1], s_tail, bf16)}
+
+
+def _too_big(kernel, m, in_ch, out, k):
+    return ValueError(f"{kernel}: M={m}, C={in_ch}, out={out}, K'={k}: the smallest tile "
+                      "(16 rows: their softmax rows and, in the backward, dz's M·C and gy's "
+                      "out floats a row) needs more than the 227 KB of shared memory a block "
+                      "can use")
 
 
 def _check(kernel, geometry, cat, ux, wf, c, mult_rows, tabs, **extra):
@@ -264,9 +296,6 @@ def _check(kernel, geometry, cat, ux, wf, c, mult_rows, tabs, **extra):
     if in_ch < 1:
         raise ValueError(f"{kernel}: cat width {cat.shape[1]} leaves no channels for M={m}")
     if cat.device.type == "cuda":
-        if m > MAX_M or wf.shape[0] > MAX_OUT:
-            raise ValueError(f"{kernel}: M={m}, out={wf.shape[0]}; the kernel takes M <= "
-                             f"{MAX_M} and out <= {MAX_OUT}")
         if (k + 1) * num_out >= 2**31 or num_sources >= 2**31 // max(cat.shape[1], 1):
             raise ValueError(f"{kernel}: N={num_out}, K'={k} overflow the kernel's int32 rows")
 
@@ -291,19 +320,26 @@ def windowed_conv_fwd(geometry, cat, ux, wf, c, mult_rows, tabs) -> torch.Tensor
         return windowed_fused_conv_fwd_plain(geometry, cat, ux, wf, c, mult_rows, tabs)
     if cat.device.type != "cuda":
         raise ValueError(f"windowed_conv_fwd: no kernel for device {cat.device}")
-    block, _, _, num_sources, num_out = geometry
-    # the kernel reads wf transposed, [M·C, out]
-    ux, wft = ux.to(cat.dtype).contiguous(), wf.to(cat.dtype).t().contiguous()
+    num_sources, num_out = geometry[3:5]
+    # the kernel reads wf transposed, [M·C, out], its rows padded with zeros
+    # to 16 bytes (the 16-byte cp.async copies)
+    out = wf.shape[0]
+    wft = torch.zeros((wf.shape[1], out + -out % (16 // cat.element_size())),
+                      dtype=cat.dtype, device=cat.device)
+    wft[:, :out] = wf.t()
+    ux = ux.to(cat.dtype).contiguous()
     lib = _library("windowed_conv_fwd")
     fwd_tabs, _ = _tables_args(tabs, num_sources > num_out)
-    m = ux.shape[1]
-    y = torch.empty((num_out, wf.shape[0]), dtype=torch.float32, device=cat.device)
+    sizes = _sizes(geometry, cat, ux, wf, tabs)
+    in_ch, m, _, k = sizes[2:6]
+    if lib.windowed_conv_fwd_bytes(*sizes, int(cat.dtype == torch.bfloat16)) < 0:
+        raise _too_big("windowed_conv_fwd", m, in_ch, out, k)
+    y = torch.empty((num_out, out), dtype=torch.float32, device=cat.device)
     with torch.cuda.device(cat.device):
         stream = torch.cuda.current_stream(cat.device).cuda_stream
         err = getattr(lib, "windowed_conv_fwd" + ENTRY_SUFFIX[cat.dtype])(
             cat.data_ptr(), ux.data_ptr(), wft.data_ptr(), c.data_ptr(), mult_rows.data_ptr(),
-            *fwd_tabs, y.data_ptr(), num_out, num_sources, cat.shape[1] - m, m, wf.shape[0],
-            tabs[2].shape[1], block, tabs[0].shape[0], stream)
+            *fwd_tabs, y.data_ptr(), *sizes, stream)
     if err != 0:
         raise RuntimeError(f"windowed_conv_fwd: kernel launch failed (cudaError {err})")
     windowed_conv_fwd.launches += 1
@@ -340,6 +376,8 @@ def windowed_conv_bwd(geometry, cat, ux, wf, c, mult_rows, tabs, gy):
     dev = cat.device
     sizes = (ctypes.c_int * 2)()
     lib.windowed_conv_bwd_partials(num_out, cm - m, m, out, k, sizes)
+    if min(sizes) < 0:
+        raise _too_big("windowed_conv_bwd", m, cm - m, out, k)
     # the slots' cotangent rows (self rows first, slot k at rows k·N + i),
     # the per-block dc and dwf partials, then the outputs
     dG = torch.empty(((k + 1) * num_out, cm), dtype=cat.dtype, device=dev)

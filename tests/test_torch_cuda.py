@@ -1834,12 +1834,46 @@ def test_windowed_kernels_match_plain(cuda, rng, c_in, out, halo, dtype):
             ref.float().abs().max())
 
 
-def test_windowed_kernels_refuse_wide_m(cuda, rng):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c_in,out", [(33, 16, 256), (9, 64, 256), (4, 5, 6), (9, 32, 48),
+                                        (9, 32, 40)])
+def test_windowed_kernels_take_wide_convs(cuda, rng, m, c_in, out, dtype):
+    """K5 and its backward past their first limits (M <= 32, out <= 128):
+    M = 33 (the any-M path) and M = 9 at out = 256 (two out tiles in the
+    forward, four in pass W); M = 4, C = 5, out = 6, whose weight rows the
+    wrapper pads to 16 bytes for the forward's cp.async; and out = 48 and
+    40 at M·C = 288, which pass W takes in one 64-column out tile (a 48-
+    column tile would leave warps without an m16 tile and dW columns
+    unwritten), against the plain versions at the same bounds as the
+    model's convs, bit for bit launch to launch, with halo rows."""
     from facet_graph_convolution_torch.ops import windowed_conv as k5
 
-    args, _ = _banded_window_case(rng, 4096, 0, 6, 8, torch.float32, cuda, m=33)
-    with pytest.raises(ValueError, match="M <= 32"):
+    args, gy = _banded_window_case(rng, 4352, 160, c_in, out, dtype, cuda, m=m)
+    y, grads = k5.windowed_conv_fwd(*args), k5.windowed_conv_bwd(*args, gy)
+    assert torch.equal(y, k5.windowed_conv_fwd(*args))
+    assert all(torch.equal(a, b) for a, b in zip(grads, k5.windowed_conv_bwd(*args, gy)))
+    assert y.shape == (4352, out) and grads[2].shape == (out, m * c_in)
+    refs = (k5.windowed_fused_conv_fwd_plain(*args), *k5.windowed_fused_conv_bwd_plain(*args, gy))
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    for got, ref in zip((y, *grads), refs):
+        assert got.dtype == ref.dtype
+        assert float((got.float() - ref.float()).abs().max()) <= tol * float(
+            ref.float().abs().max())
+
+
+def test_windowed_kernels_refuse_what_does_not_fit(cuda, rng):
+    """An M whose 16-row softmax tile passes a block's 227 KB of shared
+    memory is refused with its cause, forward and backward, and launches
+    nothing."""
+    from facet_graph_convolution_torch.ops import windowed_conv as k5
+
+    args, gy = _banded_window_case(rng, 1024, 0, 2, 8, torch.float32, cuda, block=256, m=1200)
+    before = (k5.windowed_conv_fwd.launches, k5.windowed_conv_bwd.launches)
+    with pytest.raises(ValueError, match="shared memory"):
         k5.windowed_conv_fwd(*args)
+    with pytest.raises(ValueError, match="shared memory"):
+        k5.windowed_conv_bwd(*args, gy)
+    assert (k5.windowed_conv_fwd.launches, k5.windowed_conv_bwd.launches) == before
 
 
 def test_windowed_sharded_step_at_one_rank_equals_flat_step(cuda, monkeypatch):

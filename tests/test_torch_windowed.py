@@ -11,8 +11,8 @@ layout: JAX's [C, N] arrays are transposed to the port's [N, C].
   without the halo pack, with forced windows, and its None fallbacks;
 - the windowed gather: values exactly, gradients within 1e-6;
 - K5 through its plain version (the CPU path of ``make_windowed_fused_conv``)
-  against JAX's ``make_windowed_fused_conv``: y and the gradients in cat,
-  ux, wf and c, float32 within 1e-5 relative (× max|JAX| for the absolute
+  against JAX's ``make_windowed_fused_conv`` at M = 4 / out = 6 and at M =
+  33 / out = 256: y and the gradients in cat, ux, wf and c, float32 within 1e-5 relative (× max|JAX| for the absolute
   floor), bfloat16 within ``tests/test_torch_bf16.py``'s epilogue bound
   (1e-2 × max|JAX|; JAX's CPU compiler may keep some bfloat16 casts in
   f32); the plain backward against autograd through the plain forward in
@@ -178,11 +178,18 @@ def conv_inputs(n, tail, seed=5, in_ch=5, m=4, out=6):
     }
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("tail", [False, True])
-def test_fused_conv_equals_jax(dtype, tail):
+# (tail, dtype, M, out): the narrow conv, and M = 33 / out = 256, past the
+# limits that K5's first kernels had (M <= 32, out <= 128)
+FUSED_CASES = [pytest.param(tail, dtype, m, out,
+                            id=f"{tail}-{dtype}" + ("-wide" if m == 33 else ""))
+               for m, out in ((4, 6), (33, 256)) for tail in (False, True)
+               for dtype in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("tail,dtype,m,out", FUSED_CASES)
+def test_fused_conv_equals_jax(tail, dtype, m, out):
     """y and the gradients in cat, ux, wf and c of ``sum(y · gy)``."""
-    wt, a = conv_inputs(4352, tail)
+    wt, a = conv_inputs(4352, tail, m=m, out=out)
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
     fused = jax_make_fused(wt.geometry)
     jtabs = tuple(jnp.asarray(t) for t in wt.arrays)

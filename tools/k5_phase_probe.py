@@ -7,8 +7,9 @@ goes. Card only (~2 minutes with the torus's tables):
 Each variant is a copy of ``csrc/windowed_conv_{fwd,bwd}.cu`` (and the
 shared header) with one or more source lines replaced, built with the
 port's ``nvcc`` flags into a temporary directory and launched through the
-same C entry on the same inputs; its device ms (CUDA events over 5 calls,
-warm L2) is printed beside the full kernel's. The variants compute wrong
+same C entry on the same inputs (the variants built in parallel); its
+device ms (CUDA events over 5 calls, warm L2) is printed beside the full
+kernel's. The variants compute wrong
 results: they time, they do not check. The probe stops when a replaced line
 no longer matches the source.
 """
@@ -20,6 +21,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -28,28 +30,29 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # (file, variant, [(old, new), ...])
 VARIANTS = [
     ("windowed_conv_fwd", "full", []),
-    ("windowed_conv_fwd", "no transform", [("    if (tiled) {\n      const float* zt",
-                                            "    if (false) {\n      const float* zt")]),
+    ("windowed_conv_fwd", "no transform", [
+        ("      for (int k0 = 0; k0 < p.kp; k0 += KS) {", "      for (int k0 = 0; k0 < 0; k0 += KS) {")]),
     ("windowed_conv_fwd", "no slot sums", [
-        ("    slot_sums<T, MM>(cat, src, q, nb, k1, cm, m, c0, cw, in_ch, z, zrs);\n", "")]),
+        ("    slot_sums<T, MM>(cat, src, q, p.nb, k1, cm, m, ci * p.cw, p.cw, in_ch, z, p.zld);\n",
+         "")]),
     ("windowed_conv_fwd", "slot phase only", [
-        ("    slot_sums<T, MM>(cat, src, q, nb, k1, cm, m, c0, cw, in_ch, z, zrs);\n", ""),
-        ("    if (tiled) {\n      const float* zt", "    if (false) {\n      const float* zt")]),
+        ("    slot_sums<T, MM>(cat, src, q, p.nb, k1, cm, m, ci * p.cw, p.cw, in_ch, z, p.zld);\n",
+         ""),
+        ("      for (int k0 = 0; k0 < p.kp; k0 += KS) {", "      for (int k0 = 0; k0 < 0; k0 += KS) {")]),
     ("windowed_conv_bwd", "full", []),
     ("windowed_conv_bwd", "no slot teams", [
         ("  for (int p0 = warp_team0; p0 < nb * k1; p0 += teams) {",
          "  for (int p0 = warp_team0; p0 < 0; p0 += teams) {")]),
     ("windowed_conv_bwd", "no dz", [
-        ("  for (int zi = threadIdx.x; zi < mc; zi += blockDim.x) {\n    float a[kNbA];",
-         "  for (int zi = threadIdx.x; zi < 0; zi += blockDim.x) {\n    float a[kNbA];")]),
-    ("windowed_conv_bwd", "no dwf tile sums", [
-        ("    if (tiled) {\n#pragma unroll 4\n      for (int r = 0; r < nb; ++r) {",
-         "    if (false) {\n#pragma unroll 4\n      for (int r = 0; r < nb; ++r) {")]),
+        ("    const int items = warp < ntn ? (ntn - warp + 7) / 8 * nkc : 0;",
+         "    const int items = 0;")]),
+    ("windowed_conv_bwd", "no dwf products", [
+        ("    for (int k0 = 0; k0 < nbw; k0 += 8) {", "    for (int k0 = 0; k0 < 0; k0 += 8) {")]),
     ("windowed_conv_bwd", "no dcat pass", [
         ("  if (row >= n_src) return;  // a warp a row: uniform",
          "  if (row >= 0) return;")]),
     ("windowed_conv_bwd", "no dwf slot sums", [
-        ("    slot_sums<T, MM>(cat, src, q, nb, k1, cm, m, c0, cw, in_ch, z, zrs);\n", "")]),
+        ("    slot_sums<T, MM>(cat, src, q, nb, k1, cm, m, c0, pw.cw, in_ch, z, zld);\n", "")]),
 ]
 
 
@@ -108,8 +111,12 @@ def main() -> int:
     print(f"{name}: {fargs[0][4]} rows, C {c_in}, out {out}, {args.dtype}")
     originals = dict(k5.cuda_library._LIBS)
     with tempfile.TemporaryDirectory() as workdir:
-        for i, (kernel, label, edits) in enumerate(VARIANTS):
-            lib = ctypes.CDLL(build(kernel, edits, workdir, f"v{i}"))
+        # one nvcc a variant, all at once
+        with ThreadPoolExecutor(len(VARIANTS)) as pool:
+            libs = list(pool.map(lambda iv: build(iv[1][0], iv[1][2], workdir, f"v{iv[0]}"),
+                                 enumerate(VARIANTS)))
+        for (kernel, label, edits), path in zip(VARIANTS, libs):
+            lib = ctypes.CDLL(path)
             k5.cuda_library._LIBS[kernel] = lib
             fn = ((lambda: k5.windowed_conv_fwd(*fargs)) if kernel.endswith("fwd")
                   else (lambda: k5.windowed_conv_bwd(*fargs, gy)))

@@ -1,9 +1,11 @@
 """K5 (``csrc/windowed_conv_fwd.cu``, ``csrc/windowed_conv_bwd.cu``) on
-synthetic banded K-lists: builds both kernels, holds them against their
-plain versions (``ops/windowed_conv.py``) in float32 and bfloat16, with and
-without halo rows, checks that a second launch gives the same bits, and
-prints each case's device ms a launch (CUDA events, warm L2) beside the
-plain version's. Card only:
+synthetic banded K-lists: builds both kernels, prints each kernel's
+registers and spills (``-Xptxas -v``) and its tensor-core (HMMA) and
+cp.async (LDGSTS) instructions in the SASS (``cuobjdump -sass``), holds
+them against their plain versions (``ops/windowed_conv.py``) in float32
+and bfloat16, with and without halo rows, checks that a second launch
+gives the same bits, and prints each case's device ms a launch (CUDA
+events, warm L2) beside the plain version's. Card only:
 
     python3 tools/k5_probe.py [--n 4096] [--block 512] [--shapes 6:32,64:32,128:64]
     python3 tools/k5_probe.py --torus [--dtype bfloat16]
@@ -110,6 +112,27 @@ def case(args, c_in, out, halo, dtype):
     return row
 
 
+def sass_counts(lib):
+    """{kernel: (HMMA, LDGSTS)} instructions in a library's SASS, each kernel
+    by its demangled name and template arguments."""
+    from facet_graph_convolution_torch.ops import cuda_library
+
+    tool = os.path.join(os.path.dirname(cuda_library._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = subprocess.run(["c++filt", m.group(1)], capture_output=True,
+                                  text=True).stdout.strip() or m.group(1)
+            name = name.replace("(anonymous namespace)::", "").split("(")[0]
+            counts[name] = [0, 0]
+        elif name is not None:
+            counts[name][0] += "HMMA" in line
+            counts[name][1] += "LDGSTS" in line
+    return counts
+
+
 def kernel_name(name):
     """A profiled kernel's short name: the word that holds ``windowed``, or
     the name cut to 40 characters."""
@@ -180,7 +203,11 @@ def main() -> int:
     print(f"built in {time.perf_counter() - t0:.1f} s")
     for name in ("windowed_conv_fwd", "windowed_conv_bwd"):
         with open(os.path.join(cuda_library.BUILD_DIR, name + ".log")) as fh:
-            print("".join(ln for ln in fh if "registers" in ln or "spill" in ln), end="")
+            print("".join(ln for ln in fh if "registers" in ln or "spill" in ln
+                          or "Compiling entry" in ln), end="")
+        lib = os.path.join(cuda_library.BUILD_DIR, f"lib{name}.so")
+        for kernel, (hmma, ldgsts) in sass_counts(lib).items():
+            print(f"SASS {kernel}: HMMA {hmma}, LDGSTS {ldgsts}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print("card:", card.strip())
