@@ -814,8 +814,8 @@ def windowed_conv(params, x: torch.Tensor, tables: ShardTables, group: GraphGrou
     (:func:`..ops.windowed_conv.make_windowed_fused_conv`: gather, softmax,
     slot sums and the ``[M·C → out]`` product in one pass, ``ux`` in f32);
     with ``_WINDOWED_FUSED`` off the unfused windowed gather
-    (:func:`..ops.gather.make_windowed_lane_gather`), the softmax, K3's slot
-    sums and the product. The degree-gated bias is added after either. The
+    (:func:`..ops.gather.make_windowed_lane_gather`), K3 (the softmax·mult
+    and the slot sums) and the product. The degree-gated bias is added after either. The
     rotation-invariant conv has no windowed form: :func:`build_level_windows`
     keeps its level flat."""
     if FacetConvVariant(variant) == FacetConvVariant.ROTATION_INVARIANT:
@@ -843,8 +843,8 @@ def windowed_conv(params, x: torch.Tensor, tables: ShardTables, group: GraphGrou
         slots = torch.cat([cat[None, :n], make_windowed_lane_gather(win.geometry)(
             cat, *win.arrays)], dim=0)                                 # [K'+1, n, C+M]
         logits = ux.to(dtype)[None] + slots[..., in_ch:] + c.to(dtype)
-        q = (torch.softmax(logits.float(), dim=-1) * rows[..., None]).to(dtype)
-        z = WeightedAggregate.apply(q.contiguous(), slots[..., :in_ch].contiguous())
+        z = WeightedAggregate.apply(logits.float().contiguous(), rows.contiguous(),
+                                    slots[..., :in_ch].contiguous())
         y = Bf16Matmul.apply(z, wf.to(dtype)) if dtype == torch.bfloat16 else z @ wf.T
     gate = (rows.sum(dim=0) > 0).to(y.dtype)
     return y + b[None, :] * gate[:, None]

@@ -201,18 +201,23 @@ def test_plain_bf16_epilogue_matches_conv_epilogue(rng, n, k, c_in, m):
 
 @pytest.mark.parametrize("n,s,m,c,tile", [(256, 13, 9, 6, 128), (512, 23, 9, 64, 256)])
 def test_plain_bf16_aggregate_matches_pallas_interpret(rng, n, s, m, c, tile):
-    """The plain K3 on bfloat16 q and slots against the Pallas
-    ``weighted_aggregate(interpret=True)`` on the same bfloat16 inputs (which
-    sums in f32 and writes f32): z in bfloat16, within one rounding."""
-    q, x = _bf16(rng, n, s, m), _bf16(rng, n, s, c)
-    ref = np.asarray(pallas_aggregate(jnp.asarray(q, jnp.bfloat16), jnp.asarray(x, jnp.bfloat16),
+    """The plain K3 on f32 logits and rows and bfloat16 slots against the
+    Pallas ``weighted_aggregate(interpret=True)`` on JAX's bfloat16
+    ``softmax·rows`` and the same bfloat16 slots (which sums in f32 and
+    writes f32): z in bfloat16, within one rounding."""
+    logits = rng.normal(size=(s, n, m)).astype(np.float32)
+    rows = rng.uniform(0.0, 1.0, size=(s, n)).astype(np.float32)
+    x = _bf16(rng, n, s, c)
+    q = (jax.nn.softmax(jnp.asarray(logits), axis=-1) * jnp.asarray(rows)[..., None]).astype(
+        jnp.bfloat16)
+    ref = np.asarray(pallas_aggregate(jnp.transpose(q, (1, 0, 2)), jnp.asarray(x, jnp.bfloat16),
                                       tile=tile, interpret=True), np.float32)
-    q_sm = torch.tensor(q.transpose(1, 0, 2).copy()).to(BF16)
-    x_sm = torch.tensor(x.transpose(1, 0, 2).copy()).to(BF16)
-    z = k3.weighted_aggregate_plain(q_sm, x_sm)
+    args = (torch.tensor(logits), torch.tensor(rows),
+            torch.tensor(x.transpose(1, 0, 2).copy()).to(BF16))
+    z = k3.weighted_aggregate_plain(*args)
     assert z.dtype == BF16 and z.shape == (n, m * c)
     _close(z.float().numpy(), ref.reshape(n, m * c), AGGREGATE_TOL, "z")
-    assert torch.equal(k3.weighted_aggregate(q_sm, x_sm), z)
+    assert torch.equal(k3.weighted_aggregate(*args), z)
 
 
 def test_bf16_matmul_is_the_f32_product_of_bf16_operands(rng):
@@ -252,9 +257,9 @@ def test_the_kernel_operator_gives_z_in_cats_dtype(rng):
 
 
 def test_wrappers_refuse_mixed_dtypes():
-    """K1, K2 and K3 refuse cat/ux/dz (q/slots) of two dtypes on every
-    device, here the CPU; the conv refuses a compute dtype it has no kernel
-    for."""
+    """K1, K2 and K3 refuse cat/ux/dz (logits/slots, slots/dz) of dtypes
+    that do not go together on every device, here the CPU; the conv refuses
+    a compute dtype it has no kernel for."""
     n, m, c_in = 8, 4, 5
     cat = torch.zeros(n, c_in + m, dtype=BF16)
     ux = torch.zeros(n, m, dtype=BF16)
@@ -266,8 +271,12 @@ def test_wrappers_refuse_mixed_dtypes():
     with pytest.raises(TypeError, match="dz"):
         k1.facet_conv_bwd(cat, ux, adj, torch.zeros(n, 2, dtype=torch.int32), rows, c,
                           torch.zeros(n, m * c_in))
-    with pytest.raises(TypeError, match="x_slots"):
-        k3.weighted_aggregate(torch.zeros(3, n, m, dtype=BF16), torch.zeros(3, n, 6))
+    with pytest.raises(TypeError, match="logits must be torch.float32"):
+        k3.weighted_aggregate(torch.zeros(3, n, m, dtype=BF16), torch.ones(3, n),
+                              torch.zeros(3, n, 6, dtype=BF16))
+    with pytest.raises(TypeError, match="dz"):
+        k3.weighted_aggregate_bwd(torch.zeros(3, n, m), torch.ones(3, n),
+                                  torch.zeros(3, n, 6, dtype=BF16), torch.zeros(n, m * 6))
     params = {"u": torch.zeros(m, 6), "v": torch.zeros(m, 6), "c": torch.zeros(m),
               "w": torch.zeros(m, 8, 6), "b": torch.zeros(8)}
     with pytest.raises(ValueError, match="compute_dtype"):

@@ -430,11 +430,12 @@ def test_train_step_on_card_matches_cpu(cuda):
 
 
 def test_rotinv_train_step_on_card_matches_cpu(cuda):
-    """Under rotation invariance: conv1 through K3 once a step, the other 7
-    convs through K1 and K2."""
+    """Under rotation invariance: conv1 through K3 and K3's backward once
+    each a step, the other 7 convs through K1 and K2."""
     _train_step_on_card_matches_cpu(
         cuda, {"rotation_invariance": True},
-        {k1.facet_conv_fwd: 7, k1.facet_conv_bwd: 7, k3.weighted_aggregate: 1})
+        {k1.facet_conv_fwd: 7, k1.facet_conv_bwd: 7, k3.weighted_aggregate: 1,
+         k3.weighted_aggregate_bwd: 1})
 
 
 @pytest.mark.parametrize("rotation_invariance", [False, True])
@@ -443,53 +444,110 @@ def test_bf16_train_step_on_card_matches_cpu(cuda, rotation_invariance):
     their bfloat16 forms, counted by their bfloat16 counters) against the
     same bfloat16 step on the CPU (the plain versions), at the bfloat16
     bounds."""
-    launches = ({k1.facet_conv_fwd: 7, k1.facet_conv_bwd: 7, k3.weighted_aggregate: 1}
+    launches = ({k1.facet_conv_fwd: 7, k1.facet_conv_bwd: 7, k3.weighted_aggregate: 1,
+                 k3.weighted_aggregate_bwd: 1}
                 if rotation_invariance else {k1.facet_conv_fwd: 8, k1.facet_conv_bwd: 8})
     _train_step_on_card_matches_cpu(
         cuda, {"compute_dtype": "bfloat16", "rotation_invariance": rotation_invariance},
         launches, loss_rtol=2e-2, grad_atol=0.05, counter="launches_bf16")
 
 
-# the train step's conv1 (a subdivision-5 icosphere bucketed to 25,600 nodes),
-# the JAX kernel test's shape (tests/test_pallas.py), and whole and partial
-# chunks of the kernel's 8 channels a thread
-@pytest.mark.parametrize("s,n,m,c", [
-    (13, 25600, 9, 6), (23, 512, 9, 64), (13, 700, 16, 37), (5, 300, 4, 130),
-    (1, 77, 1, 1), (9, 1000, 9, 16), (2, 333, 3, 33)])
+# the train step's conv1 (a subdivision-5 icosphere bucketed to 25,600 nodes)
+# and conv1 at the other input widths the rotation-invariant conv takes (the
+# kernels' M = 9 forms at C = 3, 4, 6), the JAX kernel test's shape
+# (tests/test_pallas.py), whole and partial chunks of the kernels' 8 channels
+# a thread, tiles shrunk for wide rows, and M past 32
+K3_SHAPES = [(13, 25600, 9, 6), (13, 700, 9, 3), (13, 600, 9, 4), (23, 512, 9, 64),
+             (13, 700, 16, 37), (5, 300, 4, 130), (1, 77, 1, 1), (9, 1000, 9, 16),
+             (2, 333, 3, 33), (13, 500, 33, 6)]
+
+
+def _k3_inputs(cuda, rng, s, n, m, c, dtype=torch.float32):
+    """Logits, multipliers (zeros where the tables pad), slots and dz."""
+    rows = rng.uniform(0.0, 1.0, size=(s, n)).astype(np.float32)
+    rows[rng.uniform(size=(s, n)) < 0.2] = 0.0
+    logits, rows = (torch.as_tensor(a, device=cuda) for a in (
+        (2.0 * rng.normal(size=(s, n, m))).astype(np.float32), rows))
+    x, dz = (torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=cuda).to(dtype)
+             for shape in ((s, n, c), (n, m * c)))
+    return logits, rows, x, dz
+
+
+def _k3_check(cuda, rng, shape, dtype, close):
+    """K3 and its backward (with and without dx) against their plain
+    versions, each counted once a launch, the same bits launch to launch."""
+    logits, rows, x, dz = _k3_inputs(cuda, rng, *shape, dtype)
+    counter = "launches" if dtype == torch.float32 else "launches_bf16"
+    before = getattr(k3.weighted_aggregate, counter)
+    z = k3.weighted_aggregate(logits, rows, x)
+    assert getattr(k3.weighted_aggregate, counter) == before + 1 and z.dtype == dtype
+    close(z, k3.weighted_aggregate_plain(logits, rows, x), "z")
+    assert torch.equal(z, k3.weighted_aggregate(logits, rows, x))        # no atomics
+    for need_dx in (False, True):
+        before = getattr(k3.weighted_aggregate_bwd, counter)
+        dlogits, dx = k3.weighted_aggregate_bwd(logits, rows, x, dz, need_dx)
+        assert getattr(k3.weighted_aggregate_bwd, counter) == before + 1
+        ref_l, ref_x = k3.weighted_aggregate_bwd_plain(logits, rows, x, dz, need_dx)
+        assert dlogits.dtype == torch.float32
+        _f32_close(dlogits, ref_l, "dlogits")
+        again = k3.weighted_aggregate_bwd(logits, rows, x, dz, need_dx)
+        assert torch.equal(dlogits, again[0])
+        if need_dx:
+            assert dx.dtype == dtype
+            close(dx, ref_x, "dx")
+            assert torch.equal(dx, again[1])
+        else:
+            assert dx is None and again[1] is None
+
+
+def _f32_close(got, want, what):
+    """Within 1e-5 × max|plain| (the same f32 sums in another order)."""
+    assert got.dtype == want.dtype, what
+    scale = float(want.abs().max()) or 1.0
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * scale, f"{what}: {err} > 1e-5 × {scale}"
+
+
+@pytest.mark.parametrize("s,n,m,c", K3_SHAPES)
 def test_aggregate_kernel_matches_plain(cuda, rng, s, n, m, c):
-    q = torch.as_tensor(rng.normal(size=(s, n, m)).astype(np.float32), device=cuda)
-    x = torch.as_tensor(rng.normal(size=(s, n, c)).astype(np.float32), device=cuda)
-    before = k3.weighted_aggregate.launches
-    z = k3.weighted_aggregate(q, x)
-    assert k3.weighted_aggregate.launches == before + 1
-    torch.testing.assert_close(z, k3.weighted_aggregate_plain(q, x), atol=1e-5, rtol=1e-5)
-    assert torch.equal(z, k3.weighted_aggregate(q, x))          # no atomics
+    _k3_check(cuda, rng, (s, n, m, c), torch.float32, _f32_close)
 
 
-def test_aggregate_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.randn(3, 16, 4, device=cuda)
-    x = torch.randn(3, 16, 6, device=cuda)
-    with pytest.raises(TypeError):
-        k3.weighted_aggregate(q.double(), x)
-    with pytest.raises(ValueError, match="contiguous"):
-        k3.weighted_aggregate(q, torch.randn(6, 16, 3, device=cuda).permute(2, 1, 0))
-    with pytest.raises(ValueError, match="differ"):
-        k3.weighted_aggregate(q, x[:, :15])
-    with pytest.raises(ValueError, match="device|on"):
-        k3.weighted_aggregate(q, x.cpu())
-    with pytest.raises(ValueError, match="exceed"):
-        k3.weighted_aggregate(torch.randn(3, 16, 5000, device=cuda), x)
-    with pytest.raises(ValueError, match="exceed"):
-        k3.weighted_aggregate(q, torch.randn(3, 16, 5000, device=cuda))
-    before = k3.weighted_aggregate.launches
-    empty = k3.weighted_aggregate(q[:, :0].contiguous(), x[:, :0].contiguous())
-    assert empty.shape == (0, 24) and k3.weighted_aggregate.launches == before
+def test_aggregate_kernel_refuses_what_it_does_not_take(cuda, rng):
+    logits, rows, x, dz = _k3_inputs(cuda, rng, 3, 16, 4, 6)
+    for fn, extra in ((k3.weighted_aggregate, ()), (k3.weighted_aggregate_bwd, (dz,))):
+        with pytest.raises(TypeError):
+            fn(logits.double(), rows, x.double(), *[t.double() for t in extra])
+        with pytest.raises(TypeError):
+            fn(logits, rows.double(), x, *extra)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(logits, rows, torch.randn(6, 16, 3, device=cuda).permute(2, 1, 0), *extra)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(logits.transpose(0, 1).contiguous().transpose(0, 1), rows, x, *extra)
+        with pytest.raises(ValueError, match="differ"):
+            fn(logits, rows, x[:, :15], *extra)
+        with pytest.raises(ValueError, match="device|on"):
+            fn(logits, rows, x.cpu(), *extra)
+        with pytest.raises(ValueError, match="device|on"):
+            fn(logits, rows.cpu(), x, *extra)
+        # a one-node tile past the 227 KB of shared memory a block can use
+        wide = torch.zeros(3, 16, 20000, device=cuda)
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(logits, rows, wide, *[torch.zeros(16, 4 * 20000, device=cuda) for _ in extra])
+    with pytest.raises(ValueError, match="dz"):
+        k3.weighted_aggregate_bwd(logits, rows, x, dz[:, :20].contiguous())
+    before = (k3.weighted_aggregate.launches, k3.weighted_aggregate_bwd.launches)
+    empty = [t[:, :0].contiguous() for t in (logits, rows, x)]
+    assert k3.weighted_aggregate(*empty).shape == (0, 24)
+    dlogits, dx = k3.weighted_aggregate_bwd(*empty, dz[:0].contiguous())
+    assert dlogits.shape == (3, 0, 4) and dx.shape == (3, 0, 6)
+    assert (k3.weighted_aggregate.launches, k3.weighted_aggregate_bwd.launches) == before
 
 
 def test_rotinv_conv_on_card_keeps_its_gradient(cuda, rng):
-    """The rotation-invariant conv on the card launches K3 once through
-    ``WeightedAggregate``; its gradients reach u and c (and w, b, x) and
-    match the CPU's."""
+    """The rotation-invariant conv on the card launches K3 and its backward
+    once each through ``WeightedAggregate``; its gradients reach u and c
+    (and w, b, x: the backward's dx) and match the CPU's."""
     from facet_graph_convolution_torch.ops.conv import FacetConvVariant, facet_conv
 
     adj_sm, adj_t_sm, rows = _all_tables(rng, 500, 12)
@@ -502,15 +560,16 @@ def test_rotinv_conv_on_card_keeps_its_gradient(cuda, rng):
     for dev in ("cpu", cuda):
         p = {k: t.to(dev).requires_grad_() for k, t in layer.items()}
         xt = torch.as_tensor(x, device=dev).requires_grad_()
-        before = k3.weighted_aggregate.launches
+        before = (k3.weighted_aggregate.launches, k3.weighted_aggregate_bwd.launches)
         y = facet_conv(p, xt, torch.as_tensor(adj_sm, device=dev),
                        torch.as_tensor(rows[:, :, None], device=dev),
                        variant=FacetConvVariant.ROTATION_INVARIANT,
                        adj_t_sm=torch.as_tensor(adj_t_sm, device=dev))
         assert y.grad_fn is not None
-        assert k3.weighted_aggregate.launches == before + (dev != "cpu")
+        assert k3.weighted_aggregate.launches == before[0] + (dev != "cpu")
         names = sorted(p)
         g = torch.autograd.grad((y * y).sum(), [p[k] for k in names] + [xt])
+        assert k3.weighted_aggregate_bwd.launches == before[1] + (dev != "cpu")
         assert all(float(g[names.index(k)].abs().max()) > 0 for k in ("u", "c"))
         grads.append([t.cpu() for t in g])
     for g_cpu, g_card in zip(*grads):
@@ -1146,8 +1205,8 @@ def test_graph_call_equals_eager_steps(cuda, kind):
         def eager(state, d, j):
             return normals_step(state, *tensors, rot=d["rot"][j], sample_idx=d["sample_idx"][j])
 
-    counters = [k1.facet_conv_fwd, k1.facet_conv_bwd, k3.weighted_aggregate, ms.naive_scale,
-                ms.naive_scale_backward]
+    counters = [k1.facet_conv_fwd, k1.facet_conv_bwd, k3.weighted_aggregate,
+                k3.weighted_aggregate_bwd, ms.naive_scale, ms.naive_scale_backward]
     before = [fn.launches for fn in counters]
     before_bf16 = [getattr(fn, "launches_bf16", 0) for fn in counters]
     _, first = scanned(graph_state, calls[0])
@@ -1159,8 +1218,8 @@ def test_graph_call_equals_eager_steps(cuda, kind):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert [fn.launches for fn in counters] == after_capture     # replays count nothing
-    per_step = {"default": [8, 8, 0, 0, 0], "rotation_invariant": [7, 7, 1, 0, 0],
-                "vertex": [8, 8, 0, 0, 0], "vertex_naive": [8, 8, 0, 3, 3]}
+    per_step = {"default": [8, 8, 0, 0, 0, 0], "rotation_invariant": [7, 7, 1, 1, 0, 0],
+                "vertex": [8, 8, 0, 0, 0, 0], "vertex_naive": [8, 8, 0, 0, 3, 3]}
     launched = [a - b for a, b in zip(after_capture, before)]
     assert launched == [2 * n for n in per_step[kind.replace("_bf16", "")]]
     # every launch of a bfloat16 step is a bfloat16 one, and none of a float32 step
@@ -1628,19 +1687,12 @@ def test_bf16_forward_runs_channel_chunks(cuda, rng):
     _bf16_close(z, k1.facet_conv_fwd_plain(cat, ux, adj, rows, c), "z")
 
 
-@pytest.mark.parametrize("s,n,m,c", [
-    (13, 25600, 9, 6), (23, 512, 9, 64), (13, 700, 16, 37), (2, 333, 3, 33), (40, 300, 9, 6)])
+@pytest.mark.parametrize("s,n,m,c", K3_SHAPES + [(40, 300, 9, 6)])
 def test_bf16_aggregate_kernel_matches_plain(cuda, rng, s, n, m, c):
-    """K3 in bfloat16 (z rounded once), against its plain version and
+    """K3 and its backward on bfloat16 slots and dz (q rounded to bfloat16,
+    z and dx rounded once, dlogits f32), against their plain versions and
     bitwise repeatable; 40 slots walks past 32."""
-    q = torch.as_tensor(rng.normal(size=(s, n, m)).astype(np.float32), device=cuda)
-    x = torch.as_tensor(rng.normal(size=(s, n, c)).astype(np.float32), device=cuda)
-    q, x = q.to(torch.bfloat16), x.to(torch.bfloat16)
-    before = k3.weighted_aggregate.launches_bf16
-    z = k3.weighted_aggregate(q, x)
-    assert k3.weighted_aggregate.launches_bf16 == before + 1 and z.dtype == torch.bfloat16
-    _bf16_close(z, k3.weighted_aggregate_plain(q, x), "z")
-    assert torch.equal(z, k3.weighted_aggregate(q, x))
+    _k3_check(cuda, rng, (s, n, m, c), torch.bfloat16, _bf16_close)
 
 
 def test_bf16_kernels_refuse_mixed_dtypes(cuda, rng):
@@ -1653,7 +1705,12 @@ def test_bf16_kernels_refuse_mixed_dtypes(cuda, rng):
         k1.facet_conv_fwd(cat.half(), ux.half(), adj, rows, c)
     with pytest.raises(TypeError):
         k3.weighted_aggregate(torch.zeros(3, 8, 4, device=cuda, dtype=torch.bfloat16),
-                              torch.zeros(3, 8, 6, device=cuda))
+                              torch.ones(3, 8, device=cuda),
+                              torch.zeros(3, 8, 6, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        k3.weighted_aggregate_bwd(torch.zeros(3, 8, 4, device=cuda), torch.ones(3, 8, device=cuda),
+                                  torch.zeros(3, 8, 6, device=cuda, dtype=torch.bfloat16),
+                                  torch.zeros(8, 24, device=cuda))
 
 
 # ---------------------------------------------------------------------------

@@ -7,12 +7,13 @@ do), so these tests hold that version, the autograd Function over it, the
 scatter-free gathers, the rotation-invariant conv, the U-Net with conv1
 rotation-invariant, three train steps and the training loop against the JAX
 package. The JAX side runs its lane path (``unet_apply_nminor(lane=True)``,
-no Pallas kernel on it) and, for K3 itself, the Pallas ``weighted_aggregate``
-in interpret mode. Small widths (channels 8/16/32, M = 4, fc 32-64), float32.
+no Pallas kernel on it) and, for K3 itself (the softmax·mult and the slot
+sums), the Pallas ``weighted_aggregate`` in interpret mode on JAX's
+``softmax·rows``. Small widths (channels 8/16/32, M = 4, fc 32-64), float32.
 
 Tolerances: K3 against the Pallas kernel atol 1e-4 (``tests/test_pallas.py``),
-against ``_aggregate_nminor`` and its VJP atol 1e-5 (float32 sums in another
-order); gathers exact in value, their gradients atol 1e-6; the conv's values
+against ``softmax·rows`` then ``_aggregate_nminor`` and its VJP atol 1e-5
+(float32 sums in another order); gathers exact in value, their gradients atol 1e-6; the conv's values
 atol 2e-5 and gradients atol = rtol = 5e-4, the U-Net atol 3e-5 (the bounds
 of ``tests/test_variant_matrix.py``); a train step's loss atol 1e-4 degrees,
 its gradients atol 1e-4 on each gradient scaled to max 1, the parameters
@@ -147,75 +148,105 @@ def _flat(tree):
 # K3: the plain version, the wrapper and the autograd Function
 # ---------------------------------------------------------------------------
 
+def _assignment_inputs(rng, s, n, m):
+    """Logits [S, N, M] and slot multipliers [S, N] (zeros in some pad
+    slots, as the tables have them)."""
+    logits = rng.normal(size=(s, n, m)).astype(np.float32)
+    rows = rng.uniform(0.0, 1.0, size=(s, n)).astype(np.float32)
+    rows[rng.uniform(size=(s, n)) < 0.2] = 0.0
+    return logits, rows
+
+
+def _jax_assigned(logits, rows):
+    """JAX's q = softmax_M(logits)·rows of ``_facet_conv_nminor_rotinv``,
+    node-minor [M, S, N]."""
+    return jnp.transpose(jax.nn.softmax(logits, axis=-1), (2, 0, 1)) * rows[None]
+
+
 def test_plain_aggregate_matches_pallas_interpret(rng):
     """At the JAX kernel test's shape (N = 512, K = 23, M = 9, C = 64):
-    the plain K3 against ``weighted_aggregate(tile=256, interpret=True)``;
-    the CPU wrapper takes the plain path and counts no launch."""
+    the plain K3 against ``weighted_aggregate(tile=256, interpret=True)``
+    on JAX's ``softmax·rows``; the CPU wrapper takes the plain path and
+    counts no launch."""
     n, k, m, c = 512, 23, 9, 64
-    q = rng.normal(size=(n, k, m)).astype(np.float32)
-    x = rng.normal(size=(n, k, c)).astype(np.float32)
-    ref = np.asarray(pallas_aggregate(jnp.asarray(q), jnp.asarray(x), tile=256, interpret=True))
-    q_sm = torch.as_tensor(q.transpose(1, 0, 2).copy())
-    x_sm = torch.as_tensor(x.transpose(1, 0, 2).copy())
-    z = k3.weighted_aggregate_plain(q_sm, x_sm)
+    logits, rows = _assignment_inputs(rng, k, n, m)
+    x = rng.normal(size=(k, n, c)).astype(np.float32)
+    q = jnp.transpose(_jax_assigned(jnp.asarray(logits), jnp.asarray(rows)), (2, 1, 0))
+    ref = np.asarray(pallas_aggregate(q, jnp.asarray(x.transpose(1, 0, 2)), tile=256,
+                                      interpret=True))
+    args = [torch.as_tensor(a) for a in (logits, rows, x)]
+    z = k3.weighted_aggregate_plain(*args)
     assert z.shape == (n, m * c)
     np.testing.assert_allclose(z.numpy(), ref.reshape(n, m * c), atol=1e-4)
     before = k3.weighted_aggregate.launches
-    assert torch.equal(k3.weighted_aggregate(q_sm, x_sm), z)
+    assert torch.equal(k3.weighted_aggregate(*args), z)
     assert k3.weighted_aggregate.launches == before
 
 
 @pytest.mark.parametrize("m", [4, 9])
 def test_aggregate_and_its_function_match_aggregate_nminor(rng, m):
-    """At a conv1 shape (S = 13 slots, C = 6): the plain K3 against JAX
-    ``_aggregate_nminor``, and ``WeightedAggregate``'s dq and dx against
-    ``jax.vjp`` of it; dx is computed only when asked for."""
+    """At a conv1 shape (S = 13 slots, C = 6): the plain K3 against JAX's
+    ``softmax·rows`` then ``_aggregate_nminor``, and ``WeightedAggregate``'s
+    dlogits and dx against ``jax.vjp`` of that composition; dx is computed
+    only when asked for, and rows get no gradient."""
     s, n, c = 13, 300, 6
-    q = rng.normal(size=(s, n, m)).astype(np.float32)
+    logits, rows = _assignment_inputs(rng, s, n, m)
     x = rng.normal(size=(s, n, c)).astype(np.float32)
     dz = rng.normal(size=(n, m * c)).astype(np.float32)
-    z_j, vjp = jax.vjp(jconv._aggregate_nminor, jnp.asarray(q.transpose(2, 0, 1)),
-                       jnp.asarray(x.transpose(2, 0, 1)))             # [M, C, N]
-    dq_j, dx_j = vjp(jnp.asarray(dz.reshape(n, m, c).transpose(1, 2, 0)))
 
-    qt, xt = torch.as_tensor(q).requires_grad_(), torch.as_tensor(x).requires_grad_()
-    z = k3.WeightedAggregate.apply(qt, xt)
+    def composed(lg, xs):
+        return jconv._aggregate_nminor(_jax_assigned(lg, jnp.asarray(rows)),
+                                       jnp.transpose(xs, (2, 0, 1)))      # [M, C, N]
+
+    z_j, vjp = jax.vjp(composed, jnp.asarray(logits), jnp.asarray(x))
+    dlogits_j, dx_j = vjp(jnp.asarray(dz.reshape(n, m, c).transpose(1, 2, 0)))
+
+    lt, xt = torch.as_tensor(logits).requires_grad_(), torch.as_tensor(x).requires_grad_()
+    rt = torch.as_tensor(rows)
+    z = k3.WeightedAggregate.apply(lt, rt, xt)
     np.testing.assert_allclose(z.detach().numpy(),
                                np.asarray(z_j).transpose(2, 0, 1).reshape(n, m * c), atol=1e-5)
-    dq, dx = torch.autograd.grad(z, [qt, xt], torch.as_tensor(dz))
-    np.testing.assert_allclose(dq.numpy(), np.asarray(dq_j).transpose(1, 2, 0), atol=1e-5)
-    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_j).transpose(1, 2, 0), atol=1e-5)
+    dlogits, dx = torch.autograd.grad(z, [lt, xt], torch.as_tensor(dz))
+    np.testing.assert_allclose(dlogits.numpy(), np.asarray(dlogits_j), atol=1e-5)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_j), atol=1e-5)
 
-    q_only = torch.as_tensor(q).requires_grad_()
-    x_const = torch.as_tensor(x)
-    z_q = k3.WeightedAggregate.apply(q_only, x_const)
+    l_only = torch.as_tensor(logits).requires_grad_()
+    z_l = k3.WeightedAggregate.apply(l_only, rt, torch.as_tensor(x))
     calls = []
     einsum = torch.einsum
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch, "einsum", lambda eq, *ops: calls.append(eq) or einsum(eq, *ops))
-        z_q.backward(torch.as_tensor(dz))
+        z_l.backward(torch.as_tensor(dz))
     assert calls == ["nmc,snc->snm"]                          # dq only, no dx
-    np.testing.assert_allclose(q_only.grad.numpy(), dq.numpy(), atol=1e-6)
+    np.testing.assert_allclose(l_only.grad.numpy(), dlogits.numpy(), atol=1e-6)
 
 
 def test_aggregate_wrapper_refuses_what_it_does_not_take():
     """Mismatched shapes on any device; on a device that is neither the CPU
-    nor CUDA, no kernel and no quiet fallback."""
+    nor CUDA, no kernel and no quiet fallback, forward and backward."""
     with pytest.raises(ValueError, match="differ"):
-        k3.weighted_aggregate(torch.zeros(3, 8, 4), torch.zeros(3, 9, 6))
+        k3.weighted_aggregate(torch.zeros(3, 8, 4), torch.ones(3, 8), torch.zeros(3, 9, 6))
+    with pytest.raises(ValueError, match="differ"):
+        k3.weighted_aggregate(torch.zeros(3, 8, 4), torch.ones(3, 9), torch.zeros(3, 8, 6))
     with pytest.raises(ValueError, match="need"):
-        k3.weighted_aggregate(torch.zeros(3, 8, 4), torch.zeros(24, 6))
+        k3.weighted_aggregate(torch.zeros(3, 8, 4), torch.ones(3, 8), torch.zeros(24, 6))
     meta = torch.zeros((3, 8, 4), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        k3.weighted_aggregate(meta, torch.zeros((3, 8, 6), device="meta"))
+        k3.weighted_aggregate(meta, torch.ones((3, 8), device="meta"),
+                              torch.zeros((3, 8, 6), device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        k3.weighted_aggregate_bwd(meta, torch.ones((3, 8), device="meta"),
+                                  torch.zeros((3, 8, 6), device="meta"),
+                                  torch.zeros((8, 24), device="meta"))
 
 
 def test_conv_reaches_k3_only_through_its_function(rng, monkeypatch):
     """The fault the K1 conv once had must not come back: a ctypes launch
-    fills a fresh tensor without a grad_fn. Emulated with a stand-in for the launch that returns
-    such a tensor (and counts its calls): the rotation-invariant conv still
-    has a gradient, equal to the unpatched one, because it calls K3 only
-    through ``WeightedAggregate``, once a forward."""
+    fills a fresh tensor without a grad_fn. Emulated with stand-ins for the
+    launches that return such tensors (and count their calls): the
+    rotation-invariant conv still has a gradient, equal to the unpatched
+    one, because it calls K3 and its backward only through
+    ``WeightedAggregate``, once each a forward and a backward."""
     (adj_sm, adj_t_sm, rows), _ = _both_tables(_random_graph(rng, 80, 7))
     x = torch.as_tensor(_inputs(rng, 80, 6))
     layer = _layer(jconv.init_facet_conv(jax.random.PRNGKey(2), 6, 8, 4, variant=JRI))
@@ -228,10 +259,12 @@ def test_conv_reaches_k3_only_through_its_function(rng, monkeypatch):
 
     _, want = grads()
     calls = []
-    monkeypatch.setattr(k3, "weighted_aggregate", lambda q, xs: calls.append(1) or
-                        k3.weighted_aggregate_plain(q, xs).detach())
+    monkeypatch.setattr(k3, "weighted_aggregate", lambda lg, r, xs: calls.append("fwd") or
+                        k3.weighted_aggregate_plain(lg, r, xs).detach())
+    monkeypatch.setattr(k3, "weighted_aggregate_bwd",
+                        lambda *a: calls.append("bwd") or k3.weighted_aggregate_bwd_plain(*a))
     y, got = grads()
-    assert y.grad_fn is not None and len(calls) == 1
+    assert y.grad_fn is not None and calls == ["fwd", "bwd"]
     for g, ref in zip(got, want):
         np.testing.assert_allclose(g.numpy(), ref.numpy(), atol=1e-6)
 
