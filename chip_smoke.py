@@ -2997,8 +2997,9 @@ def budget_phase(dev, vertex_trained, naive_cfg, graph_bytes):
     """``train_with_vertices`` under the naive solver through the graph on
     the vertex training set with a cache budget of 1.5 graphs of the
     largest patch (``graph_bytes``, the graph training phase's), so that a
-    new patch's graph evicts the one before: the captures and evictions,
-    what the cache held at most, and the card's peak allocated and reserved
+    new patch's graph evicts the one before: the captures, evictions and
+    switches (each capture after the first follows one), what the cache
+    held at most, and the card's peak allocated and reserved
     memory against the eager run's on the same set plus the budget."""
     import torch
 
@@ -3031,18 +3032,22 @@ def budget_phase(dev, vertex_trained, naive_cfg, graph_bytes):
     print(f"budget phase: {steps} naive vertex steps at {per_call} a call over "
           f"{len(train_set.patches)} patches ({visited} visited), cache budget "
           f"{cache.budget_bytes / 2**20:.1f} MiB (1.5 graphs of the largest patch): "
-          f"{cache.captures} captures, {cache.evictions} evictions, at most "
-          f"{cache.peak_held / 2**20:.1f} MiB held, {run_s:.2f} s")
+          f"{cache.captures} captures, {cache.evictions} evictions, {cache.switches} "
+          f"switches, at most {cache.peak_held / 2**20:.1f} MiB held, {run_s:.2f} s")
     print(f"  peak memory growth, allocated / reserved: through the graphs "
           f"{graphs[0] / 2**20:.1f} / {graphs[1] / 2**20:.1f} MiB, eager {eager[0] / 2**20:.1f} / "
           f"{eager[1] / 2**20:.1f} MiB; limit eager + {limit / 2**20:.1f} MiB")
     if cache.evictions < 1 or cache.captures <= visited:
         raise AssertionError(f"budget phase: {cache.captures} captures and {cache.evictions} "
                              f"evictions for {visited} patches: the budget forced none")
+    if cache.switches < cache.captures - 1:
+        raise AssertionError(f"budget phase: {cache.switches} switches for {cache.captures} "
+                             "captures: every capture after the first follows a switch")
     if graphs[0] > eager[0] + limit or graphs[1] > eager[1] + limit:
         raise AssertionError(f"budget phase: peak memory growth {graphs} past the eager run's "
                              f"{eager} plus {limit}")
-    return {"captures": cache.captures, "evictions": cache.evictions}
+    return {"captures": cache.captures, "evictions": cache.evictions,
+            "switches": cache.switches}
 
 
 def pool_bound_ms(x, out, steps):

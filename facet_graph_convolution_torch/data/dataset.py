@@ -10,6 +10,12 @@ patches with their own vertices, tree-ordered faces and per-vertex face
 lists; the ``.npz`` serialization of normals sets in the JAX package's
 layout, so that one preprocessed set serves both packages; and the bucket
 padding of the training loop.
+
+Each added mesh is the tracer's span ``fgc.prep.dataset``, with the spans
+``fgc.prep.mesh_tables`` (edge map, normals, K-adjacency, barycentres),
+``fgc.prep.patching`` (the patch growers), ``fgc.prep.coarsen``
+(:func:`_coarsen_with_retry`) and ``fgc.prep.vertex_tables`` (a vertex
+patch's tables) inside it.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from facet_graph_convolution_torch.graph.patching import (
     grow_graph_patch_masked,
     grow_mesh_patch,
 )
+from facet_graph_convolution_torch.utils.profiling import span
 
 
 @dataclass
@@ -81,20 +88,21 @@ def _coarsen_with_retry(
     """Coarsen and convert back to K-lists, retrying the whole randomized
     coarsening whenever a level saturates K (reference
     dataClasses.py:114-131)."""
-    coo = klist_to_coo_normal_weighted(adj, positions, normals)
-    for _ in range(max_retries):
-        sparse_adjs, new_to_old = coarsen_graph(
-            coo, (levels - 1) * steps, rng=rng, reorder=reorder
-        )
-        klists = []
-        saturated = False
-        for lvl in range(levels):
-            klist, sat = coo_to_klist(sparse_adjs[steps * lvl], k)
-            klists.append(klist)
-            saturated = saturated or sat
-        if not saturated:
-            return klists, np.asarray(new_to_old)
-    raise RuntimeError("coarsening kept saturating K; increase k_faces")
+    with span("fgc.prep.coarsen"):
+        coo = klist_to_coo_normal_weighted(adj, positions, normals)
+        for _ in range(max_retries):
+            sparse_adjs, new_to_old = coarsen_graph(
+                coo, (levels - 1) * steps, rng=rng, reorder=reorder
+            )
+            klists = []
+            saturated = False
+            for lvl in range(levels):
+                klist, sat = coo_to_klist(sparse_adjs[steps * lvl], k)
+                klists.append(klist)
+                saturated = saturated or sat
+            if not saturated:
+                return klists, np.asarray(new_to_old)
+        raise RuntimeError("coarsening kept saturating K; increase k_faces")
 
 
 def build_patch(
@@ -197,49 +205,52 @@ class MeshDataset:
     ) -> None:
         """Add one mesh, split into masked BFS patches when it has more than
         ``max_patch_size`` faces (reference dataClasses.py:34-234)."""
-        self.edge_map, self.v_e_map = edge_map(faces, max_edges=self.max_edges)
-        f_normals = compute_face_normals(vertices, faces)
-        adj = face_adjacency_klist(faces, self.k_faces)
-        f_pos = triangle_barycenters(vertices, faces)
-        features = np.concatenate([f_normals, f_pos], axis=1)
-        gt_normals = (
-            compute_face_normals(gt_vertices, faces) if gt_vertices is not None else None
-        )
-
-        fnum = faces.shape[0]
-        if fnum <= self.max_patch_size:
-            self.patches.append(
-                build_patch(
-                    features, adj, gt_normals,
-                    self.coarsening_levels, self.coarsening_steps, self.rng,
-                    reorder=self.reorder,
-                    patch_indices=np.arange(fnum),
+        with span("fgc.prep.dataset"):
+            with span("fgc.prep.mesh_tables"):
+                self.edge_map, self.v_e_map = edge_map(faces, max_edges=self.max_edges)
+                f_normals = compute_face_normals(vertices, faces)
+                adj = face_adjacency_klist(faces, self.k_faces)
+                f_pos = triangle_barycenters(vertices, faces)
+                features = np.concatenate([f_normals, f_pos], axis=1)
+                gt_normals = (
+                    compute_face_normals(gt_vertices, faces) if gt_vertices is not None else None
                 )
-            )
-            return
 
-        covered = np.zeros(fnum, dtype=np.int8)
-        next_seed = -1
-        while np.any(covered == 0):
-            to_process = np.flatnonzero(covered == 0)
-            if next_seed == -1 or covered[next_seed] == 1:
-                seed = int(self.rng.choice(to_process))
-            else:
-                seed = next_seed
-            patch_adj, old_idx, next_seed = grow_graph_patch_masked(
-                adj, self.max_patch_size, seed, covered, self.min_patch_size
-            )
-            covered[old_idx] = 1
-            if old_idx.shape[0] < 100:      # skip tiny disjoint components
-                continue
-            self.patches.append(
-                build_patch(
-                    features[old_idx], patch_adj,
-                    None if gt_normals is None else gt_normals[old_idx],
-                    self.coarsening_levels, self.coarsening_steps, self.rng,
-                    patch_indices=old_idx, reorder=self.reorder,
+            fnum = faces.shape[0]
+            if fnum <= self.max_patch_size:
+                self.patches.append(
+                    build_patch(
+                        features, adj, gt_normals,
+                        self.coarsening_levels, self.coarsening_steps, self.rng,
+                        reorder=self.reorder,
+                        patch_indices=np.arange(fnum),
+                    )
                 )
-            )
+                return
+
+            covered = np.zeros(fnum, dtype=np.int8)
+            next_seed = -1
+            while np.any(covered == 0):
+                to_process = np.flatnonzero(covered == 0)
+                if next_seed == -1 or covered[next_seed] == 1:
+                    seed = int(self.rng.choice(to_process))
+                else:
+                    seed = next_seed
+                with span("fgc.prep.patching"):
+                    patch_adj, old_idx, next_seed = grow_graph_patch_masked(
+                        adj, self.max_patch_size, seed, covered, self.min_patch_size
+                    )
+                covered[old_idx] = 1
+                if old_idx.shape[0] < 100:      # skip tiny disjoint components
+                    continue
+                self.patches.append(
+                    build_patch(
+                        features[old_idx], patch_adj,
+                        None if gt_normals is None else gt_normals[old_idx],
+                        self.coarsening_levels, self.coarsening_steps, self.rng,
+                        patch_indices=old_idx, reorder=self.reorder,
+                    )
+                )
 
     def add_mesh_with_vertices(
         self,
@@ -253,56 +264,61 @@ class MeshDataset:
         patch's bounding box, faces co-permuted into tree order with −1
         fakes, and per-vertex incident face lists. The patches' vertices stay
         in that scaled frame, so the points served from them do too."""
-        self.num_vertices = vertices.shape[0]
-        self.num_faces = faces.shape[0]
-        f_normals = compute_face_normals(vertices, faces)
-        adj = face_adjacency_klist(faces, self.k_faces)
-        f_pos = triangle_barycenters(vertices, faces, normalize=True)
-        features = np.concatenate([f_normals, f_pos], axis=1)
-        gt_normals = (
-            compute_face_normals(gt_vertices, faces) if gt_vertices is not None else None
-        )
-        vertices, gt_vertices = normalize_point_sets(
-            vertices, vertices if gt_vertices is None else gt_vertices)
-        if gt_normals is None:
-            gt_vertices = None
+        with span("fgc.prep.dataset"):
+            self.num_vertices = vertices.shape[0]
+            self.num_faces = faces.shape[0]
+            with span("fgc.prep.mesh_tables"):
+                f_normals = compute_face_normals(vertices, faces)
+                adj = face_adjacency_klist(faces, self.k_faces)
+                f_pos = triangle_barycenters(vertices, faces, normalize=True)
+                features = np.concatenate([f_normals, f_pos], axis=1)
+                gt_normals = (
+                    compute_face_normals(gt_vertices, faces) if gt_vertices is not None else None
+                )
+            vertices, gt_vertices = normalize_point_sets(
+                vertices, vertices if gt_vertices is None else gt_vertices)
+            if gt_normals is None:
+                gt_vertices = None
 
-        fnum = faces.shape[0]
-        if fnum <= self.max_patch_size:
-            patch = build_patch(
-                features, adj, gt_normals,
-                self.coarsening_levels, self.coarsening_steps, self.rng,
-                patch_indices=np.arange(fnum), faces=faces, reorder=self.reorder,
-            )
-            self._add_vertex_patch(patch, vertices, gt_vertices,
-                                   np.arange(vertices.shape[0]), np.arange(fnum))
-            return
+            fnum = faces.shape[0]
+            if fnum <= self.max_patch_size:
+                patch = build_patch(
+                    features, adj, gt_normals,
+                    self.coarsening_levels, self.coarsening_steps, self.rng,
+                    patch_indices=np.arange(fnum), faces=faces, reorder=self.reorder,
+                )
+                self._add_vertex_patch(patch, vertices, gt_vertices,
+                                       np.arange(vertices.shape[0]), np.arange(fnum))
+                return
 
-        covered = np.zeros(fnum, dtype=np.int8)
-        while np.any(covered == 0):
-            seed = int(self.rng.choice(np.flatnonzero(covered == 0)))
-            pv, pf, padj, v_old, f_old = grow_mesh_patch(
-                vertices, faces, adj, self.max_patch_size, seed)
-            covered[f_old] += 1
-            if f_old.shape[0] < 100:
-                continue
-            patch_gt = None
-            if gt_vertices is not None:
-                patch_gt = point_set_slice(gt_vertices, bounding_box(pv))
-                if patch_gt.shape[0] < pv.shape[0]:
-                    continue    # no GT support in this window (dataClasses.py:302-304)
-            patch = build_patch(
-                features[f_old], padj,
-                None if gt_normals is None else gt_normals[f_old],
-                self.coarsening_levels, self.coarsening_steps, self.rng,
-                patch_indices=f_old, faces=pf, reorder=self.reorder,
-            )
-            self._add_vertex_patch(patch, pv, patch_gt, v_old, f_old)
+            covered = np.zeros(fnum, dtype=np.int8)
+            while np.any(covered == 0):
+                seed = int(self.rng.choice(np.flatnonzero(covered == 0)))
+                with span("fgc.prep.patching"):
+                    pv, pf, padj, v_old, f_old = grow_mesh_patch(
+                        vertices, faces, adj, self.max_patch_size, seed)
+                covered[f_old] += 1
+                if f_old.shape[0] < 100:
+                    continue
+                patch_gt = None
+                if gt_vertices is not None:
+                    patch_gt = point_set_slice(gt_vertices, bounding_box(pv))
+                    if patch_gt.shape[0] < pv.shape[0]:
+                        continue    # no GT support in this window (dataClasses.py:302-304)
+                patch = build_patch(
+                    features[f_old], padj,
+                    None if gt_normals is None else gt_normals[f_old],
+                    self.coarsening_levels, self.coarsening_steps, self.rng,
+                    patch_indices=f_old, faces=pf, reorder=self.reorder,
+                )
+                self._add_vertex_patch(patch, pv, patch_gt, v_old, f_old)
 
     def _add_vertex_patch(self, patch, vertices, gt_vertices, v_old, f_old):
-        patch.vertices = np.asarray(vertices, np.float32)
-        patch.gt_vertices = None if gt_vertices is None else np.asarray(gt_vertices, np.float32)
-        patch.v_faces = vertex_faces(patch.faces, self.k_vertices, vertices.shape[0])
+        with span("fgc.prep.vertex_tables"):
+            patch.vertices = np.asarray(vertices, np.float32)
+            patch.gt_vertices = (None if gt_vertices is None
+                                 else np.asarray(gt_vertices, np.float32))
+            patch.v_faces = vertex_faces(patch.faces, self.k_vertices, vertices.shape[0])
         patch.v_old_idx = v_old
         patch.f_old_idx = f_old
         self.patches.append(patch)

@@ -104,6 +104,7 @@ from facet_graph_convolution_torch.training.trainer import (
     compute_dtype,
     create_train_state,
 )
+from facet_graph_convolution_torch.utils.profiling import marked_step, span
 
 # JAX functions of this module without a counterpart, and why: none
 NO_COUNTERPART: Dict[str, str] = {}
@@ -434,29 +435,30 @@ def build_partition(
     uses the a2a form when the ring offsets span at least half the shards —
     the Graclus tree ordering often spreads neighbours across every shard,
     where nearly all pairs would exchange one ring each. The tables are the
-    JAX package's, array for array."""
-    levels = []
-    for i, a in enumerate(adjs):
-        a = np.asarray(a)
-        if geometry is not None and geometry[i] is not None:
-            # forced geometry pins the per-level shapes AND the exchange
-            # mode (use_cross ⇒ batched a2a tables), overriding ``exchange``
-            geo = geometry[i]
-            dph = devices_per_host if devices_per_host is not None else (
-                1 if geo.use_cross else None
-            )
-            lvl = _partition_level(a, num_shards, dph, geometry=geo)
-        elif devices_per_host is not None:
-            lvl = _partition_level(a, num_shards, devices_per_host)
-        elif exchange == "a2a":
-            lvl = _partition_level(a, num_shards, 1)
-        else:
-            lvl = _partition_level(a, num_shards, None)
-            if (exchange == "auto" and num_shards > 2
-                    and len(lvl.offsets) >= max(2, num_shards // 2)):
+    JAX package's, array for array. The span ``fgc.prep.partition``."""
+    with span("fgc.prep.partition"):
+        levels = []
+        for i, a in enumerate(adjs):
+            a = np.asarray(a)
+            if geometry is not None and geometry[i] is not None:
+                # forced geometry pins the per-level shapes AND the exchange
+                # mode (use_cross ⇒ batched a2a tables), overriding ``exchange``
+                geo = geometry[i]
+                dph = devices_per_host if devices_per_host is not None else (
+                    1 if geo.use_cross else None
+                )
+                lvl = _partition_level(a, num_shards, dph, geometry=geo)
+            elif devices_per_host is not None:
+                lvl = _partition_level(a, num_shards, devices_per_host)
+            elif exchange == "a2a":
                 lvl = _partition_level(a, num_shards, 1)
-        levels.append(lvl)
-    return GraphPartition(num_shards=num_shards, levels=levels)
+            else:
+                lvl = _partition_level(a, num_shards, None)
+                if (exchange == "auto" and num_shards > 2
+                        and len(lvl.offsets) >= max(2, num_shards // 2)):
+                    lvl = _partition_level(a, num_shards, 1)
+            levels.append(lvl)
+        return GraphPartition(num_shards=num_shards, levels=levels)
 
 
 def build_level_windows(
@@ -995,10 +997,12 @@ def _all_reduce_grads(params, group: GraphGroup) -> None:
 
 def sample_mask_from(indices, num_nodes: int, group: GraphGroup) -> torch.Tensor:
     """This rank's block of the [num_nodes] loss mask that is 1 at
-    ``indices`` (the JAX driver's ``mask[rng.integers(...)] = 1``)."""
-    mask = np.zeros(num_nodes, np.float32)
-    mask[np.asarray(indices)] = 1.0
-    return shard_rows(mask, group)
+    ``indices`` (the JAX driver's ``mask[rng.integers(...)] = 1``): the
+    span ``fgc.sharded.sample_mask``."""
+    with span("fgc.sharded.sample_mask"):
+        mask = np.zeros(num_nodes, np.float32)
+        mask[np.asarray(indices)] = 1.0
+        return shard_rows(mask, group)
 
 
 def make_sharded_train_step(
@@ -1029,11 +1033,15 @@ def make_sharded_train_step(
     same order on every rank; the step runs eagerly (no CUDA graph). Levels
     that :func:`build_level_windows` picks (by default those of at least
     262,144 rows a shard, RCM-ordered) run the windowed conv, K5 by
-    default."""
+    default. The step's phases are the device marks of
+    ``utils/profiling.py::marked_step`` and the host spans
+    ``fgc.sharded.forward``, ``.backward`` (with ``.grad_all_reduce``
+    inside), ``.adam`` and ``.global_loss``."""
     group = group or make_mesh()
     variant, dtype = _config_variant(cfg), compute_dtype(cfg)
-    tables = partition_operands(part, group.rank, group.device,
-                                build_level_windows(part, variant=variant))
+    with span("fgc.prep.windows"):
+        tables = partition_operands(part, group.rank, group.device,
+                                    build_level_windows(part, variant=variant))
 
     def loss_share(params, x, gt, sample_mask, rot):
         if rot is not None:
@@ -1052,11 +1060,17 @@ def make_sharded_train_step(
         return loss
 
     def step(state: TrainState, x, gt, sample_mask, rot=None):
-        share = loss_share(state.params, x, gt, sample_mask, rot)
-        state.optimizer.zero_grad(set_to_none=True)
-        share.backward()
-        _all_reduce_grads(state.params, group)
-        return adam_update(state), global_loss(share)
+        def backward(share):
+            state.optimizer.zero_grad(set_to_none=True)
+            share.backward()
+            with span("fgc.sharded.grad_all_reduce"):
+                _all_reduce_grads(state.params, group)
+
+        share = marked_step(group.device,
+                            lambda: loss_share(state.params, x, gt, sample_mask, rot),
+                            backward, lambda: adam_update(state), spans="fgc.sharded")
+        with span("fgc.sharded.global_loss"):
+            return state, global_loss(share)
 
     def eval_loss(params, x, gt, sample_mask):
         with torch.no_grad():
@@ -1077,8 +1091,10 @@ def _prepare_sharded_mesh_arrays(cfg: Config, patch, group: GraphGroup):
     padded = pad_patch_to(patch, bucket_size(patch.num_nodes, align))
     dph = devices_per_host() if group.size > 1 else None
     part = build_partition(padded.adjs, group.size, devices_per_host=dph)
-    return (part, shard_rows(padded.inputs, group, torch.float32),
-            shard_rows(padded.gt_normals, group, torch.float32), padded.num_nodes)
+    with span("fgc.prep.upload"):
+        x = shard_rows(padded.inputs, group, torch.float32)
+        gt = shard_rows(padded.gt_normals, group, torch.float32)
+    return part, x, gt, padded.num_nodes
 
 
 def sharded_driver_loop(cfg: Config, group: GraphGroup, state: TrainState, num_iterations: int,
@@ -1238,8 +1254,9 @@ def prepare_sharded_mesh_bank(cfg: Config, patches: Sequence, group: GraphGroup)
             parts[m] = build_partition(padded[m].adjs, n_dev, devices_per_host=dph,
                                        geometry=geoms)
     unify_level_windows(parts, variant=_config_variant(cfg))
-    xs = [shard_rows(pp.inputs, group, torch.float32) for pp in padded]
-    gts = [shard_rows(pp.gt_normals, group, torch.float32) for pp in padded]
+    with span("fgc.prep.upload"):
+        xs = [shard_rows(pp.inputs, group, torch.float32) for pp in padded]
+        gts = [shard_rows(pp.gt_normals, group, torch.float32) for pp in padded]
     return parts, xs, gts, target
 
 

@@ -66,6 +66,7 @@ from facet_graph_convolution_torch.training.trainer import (
     adam_update,
     create_train_state,
 )
+from facet_graph_convolution_torch.utils.profiling import span
 
 ACCURACY_THRESHOLD = 5000.0          # the chamfer's thresholds (JAX's acc_thresh)
 GT_SENTINEL = 1e9                    # padded GT rows: far away, never a minimum
@@ -131,13 +132,15 @@ class VertexShard(NamedTuple):
 
 
 def vertex_shard(arrays: Dict, group: GraphGroup) -> VertexShard:
-    """This rank's :class:`VertexShard` of ``arrays``, on its device."""
-    return VertexShard(
-        shard_rows(arrays["x"], group, torch.float32),
-        shard_rows(arrays["vertices"], group), shard_rows(arrays["v_mask"], group),
-        shard_rows(arrays["gt"], group), shard_rows(arrays["gt_mask"], group),
-        torch.as_tensor(arrays["gt"][:arrays["num_gt"]], device=group.device),
-        int(arrays["num_vertices"]), int(arrays["num_gt"]))
+    """This rank's :class:`VertexShard` of ``arrays``, on its device: an
+    upload of set-up, the span ``fgc.prep.upload``."""
+    with span("fgc.prep.upload"):
+        return VertexShard(
+            shard_rows(arrays["x"], group, torch.float32),
+            shard_rows(arrays["vertices"], group), shard_rows(arrays["v_mask"], group),
+            shard_rows(arrays["gt"], group), shard_rows(arrays["gt_mask"], group),
+            torch.as_tensor(arrays["gt"][:arrays["num_gt"]], device=group.device),
+            int(arrays["num_vertices"]), int(arrays["num_gt"]))
 
 
 class _AllGatherRows(torch.autograd.Function):
@@ -202,7 +205,8 @@ def make_sharded_vertex_train_step(
     on every rank; the step runs eagerly."""
     group = group or make_mesh()
     dev = group.device
-    tables = partition_operands(conv_part, group.rank, dev)
+    with span("fgc.prep.windows"):
+        tables = partition_operands(conv_part, group.rank, dev)
     sop = solver_ops.rank_operands(group.rank, dev)
     solver = (multiscale_solver_local_operator
               if isinstance(solver_ops, OperatorSolverOperands) else multiscale_solver_local)

@@ -32,6 +32,14 @@ into f32) allocated in the graph's pool like any activation; the draws, the
 parameters, their gradients, Adam's state, the learning rate and the loss
 stay float32, and :meth:`GraphStep._step` refuses a loss of another dtype.
 
+The host stages are the tracer's spans (``utils/profiling.py``):
+``fgc.loop.stage_draws`` (1), ``fgc.loop.replay`` (2 and 3),
+``fgc.loop.read_losses`` (the wait), ``fgc.graph.capture`` and
+``fgc.graphs.get`` (with ``fgc.graphs.switch`` inside where the key
+changed). The captured step holds no span: it launches the device marks of
+``marked_step`` (``step_begin``, ``fwd_end``, ``bwd_end``, ``opt_end``),
+which every replay launches again.
+
 Each graph keeps its step's activations in a memory pool of its own, ~1 GiB
 for a full-width vertex step. :class:`GraphCache` holds a trainer's graphs
 (one a vertex patch) least recently used first, within a byte budget: it
@@ -41,12 +49,14 @@ patch is captured again at its next use.
 
 from __future__ import annotations
 
-import time
+import contextlib
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable, Optional
 
 import numpy as np
 import torch
+
+from facet_graph_convolution_torch.utils.profiling import marked_step, span
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr) -> None:
@@ -71,10 +81,11 @@ class CallLosses:
 
     def numpy(self) -> np.ndarray:
         """The losses [N]; on the card this waits for the call's event (its
-        one host synchronisation)."""
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
+        one host synchronisation; the span ``fgc.loop.read_losses``)."""
+        with span("fgc.loop.read_losses"):
+            if self._event is not None:
+                self._event.synchronize()
+            return self._host.numpy()
 
 
 class CapturedGraph:
@@ -119,25 +130,26 @@ class CapturedGraph:
         a capture needs: lazy state, cuBLAS workspaces; ``warm_up=False``
         where the caller has run the same code eagerly before), then
         ``before_capture`` and the capture of ``body``, which only replays
-        execute."""
-        if warm_up:
-            side = _side_stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
+        execute. ``capture_s`` is the host seconds of it all, warm-up
+        included: the span ``fgc.graph.capture``."""
+        with span("fgc.graph.capture") as timed:
+            if warm_up:
+                side = _side_stream(self.device)
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side):
+                    body()
+                torch.cuda.current_stream(self.device).wait_stream(side)
+            torch.cuda.synchronize(self.device)
+            before = torch.cuda.memory_allocated(self.device)
+            reserved = torch.cuda.memory_reserved(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            if before_capture is not None:
+                before_capture()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
                 body()
-            torch.cuda.current_stream(self.device).wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        before = torch.cuda.memory_allocated(self.device)
-        reserved = torch.cuda.memory_reserved(self.device)
-        torch.cuda.reset_peak_memory_stats(self.device)
-        if before_capture is not None:
-            before_capture()
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            body()
-        torch.cuda.synchronize(self.device)
-        self.capture_s = time.perf_counter() - t0
+            torch.cuda.synchronize(self.device)
+        self.capture_s = timed.seconds
         self.graph_bytes = torch.cuda.max_memory_allocated(self.device) - before
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph = graph
@@ -153,9 +165,10 @@ class GraphStep(CapturedGraph):
     advanced by N.
 
     After the first call on the card: ``capture_s`` (the capture's host
-    seconds), ``graph_bytes`` (the device memory the capture allocated,
-    ``torch.cuda.max_memory_allocated`` around it) and ``pool_bytes`` (what
-    its pool reserved, ``torch.cuda.memory_reserved`` around it)."""
+    seconds, its warm-up step included), ``graph_bytes`` (the device memory
+    the capture allocated, ``torch.cuda.max_memory_allocated`` around it)
+    and ``pool_bytes`` (what its pool reserved, ``torch.cuda.memory_reserved``
+    around it)."""
 
     def __init__(self, state, loss_fn: Callable[..., torch.Tensor], steps_per_call: int):
         if steps_per_call < 1:
@@ -170,20 +183,31 @@ class GraphStep(CapturedGraph):
         self._state = state
 
     def _step(self) -> None:
-        """One train step on the draws at the counter; it advances the
-        counter and waits for nothing, so it can be captured."""
-        draw = {name: buf.index_select(0, self.counter)[0]
-                for name, buf in self.buffers.items()}
-        lr = draw.pop("lr")
+        """One train step on the draws at the counter, between the marks of
+        ``marked_step``; it advances the counter and waits for nothing, so
+        it can be captured."""
         optimizer = self._state.optimizer
-        loss = self.loss_fn(self._state.params, **draw)
-        if loss.dtype != self.losses.dtype:
-            raise TypeError(f"GraphStep: the loss is {loss.dtype}, the loss buffer "
-                            f"{self.losses.dtype}")
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        set_learning_rate(optimizer, lr)
-        optimizer.step()
+        lr = []
+
+        def forward():
+            draw = {name: buf.index_select(0, self.counter)[0]
+                    for name, buf in self.buffers.items()}
+            lr.append(draw.pop("lr"))
+            loss = self.loss_fn(self._state.params, **draw)
+            if loss.dtype != self.losses.dtype:
+                raise TypeError(f"GraphStep: the loss is {loss.dtype}, the loss buffer "
+                                f"{self.losses.dtype}")
+            return loss
+
+        def backward(loss):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+
+        def update():
+            set_learning_rate(optimizer, lr[0])
+            optimizer.step()
+
+        loss = marked_step(self.device, forward, backward, update)
         self.losses.index_copy_(0, self.counter, loss.detach().reshape(1))
         self.counter.add_(1)
 
@@ -200,19 +224,21 @@ class GraphStep(CapturedGraph):
         if not 0 < chunk <= self.steps_per_call:
             raise ValueError(f"GraphStep: {chunk} steps in a call of at most "
                              f"{self.steps_per_call}")
-        draws = {**draws, "lr": torch.tensor(
-            [state.schedule(state.step + j) for j in range(chunk)], dtype=torch.float64)}
-        if self.buffers is None:
-            self.buffers = {name: torch.zeros((self.steps_per_call, *d.shape[1:]), dtype=d.dtype,
-                                              device=self.device) for name, d in draws.items()}
-        if set(draws) != set(self.buffers):
-            raise ValueError(f"GraphStep: draws {sorted(draws)}, want {sorted(self.buffers)}")
-        self.counter.zero_()
-        for name, d in draws.items():
-            if len(d) != chunk:
-                raise ValueError(f"GraphStep: {len(d)} rows of {name!r}, want {chunk}")
-            self.buffers[name][:chunk].copy_(d.pin_memory() if self.on_card else d,
-                                             non_blocking=self.on_card)
+        with span("fgc.loop.stage_draws"):
+            draws = {**draws, "lr": torch.tensor(
+                [state.schedule(state.step + j) for j in range(chunk)], dtype=torch.float64)}
+            if self.buffers is None:
+                self.buffers = {name: torch.zeros((self.steps_per_call, *d.shape[1:]),
+                                                  dtype=d.dtype, device=self.device)
+                                for name, d in draws.items()}
+            if set(draws) != set(self.buffers):
+                raise ValueError(f"GraphStep: draws {sorted(draws)}, want {sorted(self.buffers)}")
+            self.counter.zero_()
+            for name, d in draws.items():
+                if len(d) != chunk:
+                    raise ValueError(f"GraphStep: {len(d)} rows of {name!r}, want {chunk}")
+                self.buffers[name][:chunk].copy_(d.pin_memory() if self.on_card else d,
+                                                 non_blocking=self.on_card)
         state.step += chunk
         if not self.on_card:
             for _ in range(chunk):
@@ -222,16 +248,18 @@ class GraphStep(CapturedGraph):
         if self.graph is None:
             self._capture()
             done = 1
-        for _ in range(chunk - done):
-            self.graph.replay()
-        host = torch.empty(chunk, pin_memory=True)
-        host.copy_(self.losses[:chunk], non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
+        with span("fgc.loop.replay"):
+            for _ in range(chunk - done):
+                self.graph.replay()
+            host = torch.empty(chunk, pin_memory=True)
+            host.copy_(self.losses[:chunk], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
         return state, CallLosses(host, event)
 
 
 _SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+_NO_KEY = object()
 
 
 def _side_stream(device: torch.device) -> "torch.cuda.Stream":
@@ -256,7 +284,10 @@ class GraphCache:
     before any capture). A released key is made, and on the card captured,
     again at its next use.
     ``captures`` counts the entries made (on the card, each captures its
-    graph at its first call) and ``evictions`` the entries released;
+    graph at its first call), ``evictions`` the entries released and
+    ``switches`` the gets whose key differs from the previous get's (the
+    first get has none before it); each get is the span
+    ``fgc.graphs.get``, with ``fgc.graphs.switch`` inside it on a switch;
     ``peak_held`` is the most its entries held at once (past the budget
     only where a new graph outgrew every one before it)."""
 
@@ -266,6 +297,8 @@ class GraphCache:
         self.entries: "OrderedDict[Hashable, CapturedGraph]" = OrderedDict()
         self.captures = 0
         self.evictions = 0
+        self.switches = 0
+        self._last_key = _NO_KEY
         self.largest = 0
         self.peak_held = 0
 
@@ -287,6 +320,14 @@ class GraphCache:
                 and self.held_bytes() + self.largest > self.budget_bytes)
 
     def get(self, key: Hashable, make: Callable[[], CapturedGraph]) -> CapturedGraph:
+        with span("fgc.graphs.get"):
+            switch = self._last_key is not _NO_KEY and key != self._last_key
+            self._last_key = key
+            self.switches += switch
+            with span("fgc.graphs.switch") if switch else contextlib.nullcontext():
+                return self._get(key, make)
+
+    def _get(self, key: Hashable, make: Callable[[], CapturedGraph]) -> CapturedGraph:
         self.observe()
         entry = self.entries.pop(key, None)
         if entry is None:

@@ -93,6 +93,7 @@ from facet_graph_convolution_torch.training.graph_step import (
     default_graph_budget,
     set_learning_rate,
 )
+from facet_graph_convolution_torch.utils.profiling import mark_grad, span
 
 ADAM_BETAS = (0.9, 0.999)   # optax.adam defaults
 ADAM_EPS = 1e-8             # added outside the square root, as optax does
@@ -360,14 +361,15 @@ def stack_patch_tensors(patches: Sequence[FacetPatch], device: str) -> PatchStac
     if len(counts) != 1:
         raise ValueError(f"stack_patch_tensors: the patches have node counts {counts}; pad "
                          "them to one (pad_patch_to) first")
-    per = [patch_tensors(p, device) for p in patches]
-    levels = range(len(per[0][1]))
-    return PatchStack(
-        torch.stack([t[0] for t in per]),
-        [_stack_padded([t[1][lvl] for t in per]) for lvl in levels],
-        [_stack_padded([t[2][lvl] for t in per]) for lvl in levels],
-        [_stack_padded([t[3][lvl] for t in per]) for lvl in levels],
-        torch.stack([t[4] for t in per]))
+    with span("fgc.prep.upload"):
+        per = [patch_tensors(p, device) for p in patches]
+        levels = range(len(per[0][1]))
+        return PatchStack(
+            torch.stack([t[0] for t in per]),
+            [_stack_padded([t[1][lvl] for t in per]) for lvl in levels],
+            [_stack_padded([t[2][lvl] for t in per]) for lvl in levels],
+            [_stack_padded([t[3][lvl] for t in per]) for lvl in levels],
+            torch.stack([t[4] for t in per]))
 
 
 def normals_draws(cfg: Config, generator: torch.Generator, idxs: Sequence[int],
@@ -1005,19 +1007,20 @@ def vertex_patch_tensors(cfg: Config, patch: FacetPatch, device: str) -> VertexT
     if cfg.eval.vertex_solver not in ("operator", "naive"):
         raise ValueError(f"unknown vertex_solver {cfg.eval.vertex_solver!r} "
                          "(use 'operator' or 'naive')")
-    adjs, adj_ts, rows = train_graph_tensors(patch.adjs, device)
 
     def tensor(a):
         return None if a is None else torch.as_tensor(a, device=device)
 
-    return VertexTensors(
-        tensor(patch.inputs), adjs, adj_ts, rows, tensor(patch.vertices),
-        tensor(patch.gt_vertices), tensor(patch.faces), tensor(patch.v_faces),
-        tensor(patch.gt_normals),
-        solver_tables(cfg, patch, device) if cfg.eval.vertex_solver == "operator" else None,
-        build_naive_maps(patch.faces, patch.v_faces, cfg.model.coarsening_levels,
-                         cfg.model.coarsening_steps, device)
-        if cfg.eval.vertex_solver == "naive" else None)
+    with span("fgc.prep.upload"):
+        adjs, adj_ts, rows = train_graph_tensors(patch.adjs, device)
+        return VertexTensors(
+            tensor(patch.inputs), adjs, adj_ts, rows, tensor(patch.vertices),
+            tensor(patch.gt_vertices), tensor(patch.faces), tensor(patch.v_faces),
+            tensor(patch.gt_normals),
+            solver_tables(cfg, patch, device) if cfg.eval.vertex_solver == "operator" else None,
+            build_naive_maps(patch.faces, patch.v_faces, cfg.model.coarsening_levels,
+                             cfg.model.coarsening_steps, device)
+            if cfg.eval.vertex_solver == "naive" else None)
 
 
 def vertex_loss(params, cfg: Config, t: VertexTensors, rot: torch.Tensor,
@@ -1029,7 +1032,10 @@ def vertex_loss(params, cfg: Config, t: VertexTensors, rot: torch.Tensor,
     vertices (the operator form when ``t.tables`` is given, else the naive
     form); ``full_chamfer_loss`` of the solved points at ``idx0`` against
     the GT points at ``idx1``; plus ``normals_weight`` × the angular loss of
-    the fine head against the rotated GT normals, when both are there."""
+    the fine head against the rotated GT normals, when both are there. The
+    solver sits between the device marks ``solver_begin`` / ``solver_end``
+    and, in the backward, ``solver_bwd_begin`` / ``solver_bwd_end``
+    (``utils/profiling.py::mark_grad``)."""
     kw = dict(coarsening_steps=cfg.model.coarsening_steps,
               iter_nums=cfg.eval.ms_solver_iterations, checkpoint=cfg.eval.solver_remat)
     heads = unet_apply(params, rotate_inputs(rot, t.x), t.adjs, t.rows,
@@ -1037,12 +1043,14 @@ def vertex_loss(params, cfg: Config, t: VertexTensors, rot: torch.Tensor,
                        variant=_config_variant(cfg), adj_ts=t.adj_ts, multi_scale=True)
     normals = [normalize_tensor(h) for h in heads]
     vertices = rotate_vec3(rot, t.vertices)
+    solver_normals = list(mark_grad(normals, "solver_begin", "solver_bwd_end"))
     if t.tables is not None:
         refined, _ = update_positions_multiscale_operator(
-            vertices, normals, t.faces, t.v_faces, t.tables, **kw)
+            vertices, solver_normals, t.faces, t.v_faces, t.tables, **kw)
     else:
-        refined, _ = update_positions_multiscale(vertices, normals, t.faces, t.v_faces,
+        refined, _ = update_positions_multiscale(vertices, solver_normals, t.faces, t.v_faces,
                                                  maps=t.naive_maps, **kw)
+    (refined,) = mark_grad([refined], "solver_end", "solver_bwd_begin")
     loss = full_chamfer_loss(refined, rotate_vec3(rot, t.gt_vertices), idx0, idx1)
     if normals_weight > 0 and t.gt_normals is not None:
         loss = loss + normals_weight * face_normals_loss(normals[0],
@@ -1209,7 +1217,8 @@ def train_with_vertices(
         if graph_cache.budget_bytes is not None:
             graph_cache.observe()
             print(f"step graphs: {graph_cache.captures} captures, {graph_cache.evictions} "
-                  f"evictions, at most {graph_cache.peak_held / 2**20:.1f} MiB held of a "
+                  f"evictions, {graph_cache.switches} switches, at most "
+                  f"{graph_cache.peak_held / 2**20:.1f} MiB held of a "
                   f"{graph_cache.budget_bytes / 2**20:.1f} MiB budget")
     else:
         for it in range(iters):

@@ -1,0 +1,12 @@
+"""``step_opt_ms``: the device time of a train step in Adam, from the mark
+``bwd_end`` to ``opt_end`` (layer: train step): the union of the device
+activities between the two marks of the program's step (the marks left
+out), in ms, the mean over the steps of the traced stretch. A graph step
+captures the marks, so every replay shows them. A program without marks
+reads nothing."""
+
+from fgc_bench.core import program_trace
+
+
+def read(ctx):
+    return program_trace.phase_ms(ctx.stretch, "bwd_end", "opt_end")

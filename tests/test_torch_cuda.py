@@ -1236,6 +1236,53 @@ def test_graph_call_equals_eager_steps(cuda, kind):
     assert scanned.capture_s > 0 and scanned.graph_bytes > 0
 
 
+@pytest.mark.parametrize("kind", ["default", "vertex"])
+def test_profiled_replays_show_the_step_marks_in_order(cuda, kind):
+    """A call of 4 steps replayed from the captured graph, under
+    torch.profiler: the device marks of every step, in order, once a step
+    (a vertex step's solver marks inside its forward and its backward); the
+    host spans of the call's stages around them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from facet_graph_convolution_torch.training.trainer import (
+        create_train_state,
+        make_scanned_train_step,
+        make_vertex_train_step,
+        normals_draws,
+        stack_patch_tensors,
+        vertex_patch_tensors,
+    )
+
+    if kind == "vertex":
+        ds, cfg = _vertex_training_case()
+        tensors = vertex_patch_tensors(cfg, ds.patches[0], str(cuda))
+        step = make_vertex_train_step(cfg, generator=torch.Generator().manual_seed(7))
+        state = create_train_state(cfg, device=str(cuda), multi_scale=True)
+        scanned = step.scanned(state, tensors, 4)
+        calls = [step.draw(tensors, 4) for _ in range(2)]
+        marks = ["step_begin", "solver_begin", "solver_end", "fwd_end", "solver_bwd_begin",
+                 "solver_bwd_end", "bwd_end", "opt_end"]
+    else:
+        ds, cfg = _graph_case()
+        patch = ds.patches[0]
+        state = create_train_state(cfg, device=str(cuda))
+        scanned = make_scanned_train_step(state, cfg, stack_patch_tensors([patch], str(cuda)), 4)
+        gen = torch.Generator().manual_seed(7)
+        calls = [normals_draws(cfg, gen, [0] * 4, patch.num_nodes) for _ in range(2)]
+        marks = ["step_begin", "fwd_end", "bwd_end", "opt_end"]
+    scanned(state, calls[0])[1].numpy()             # the warm-up step and the capture
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        scanned(state, calls[1])[1].numpy()
+        torch.cuda.synchronize()
+    events = sorted(prof.events(), key=lambda e: e.time_range.start)
+    seen = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name.startswith("fgc_mark_")]
+    assert seen == ["fgc_mark_" + m for m in marks] * 4
+    host = [e.name for e in events if e.device_type != torch.autograd.DeviceType.CUDA
+            and e.name.startswith("fgc.")]
+    assert host == ["fgc.loop.stage_draws", "fgc.loop.replay", "fgc.loop.read_losses"]
+
+
 def _stream_case(tmp_path, seeds, max_patch_size=100):
     """Noisy subdivision-2 icospheres (one a seed) cut into patches of at
     most ``max_patch_size`` faces, in streaming shards of 3, and the small

@@ -1,5 +1,5 @@
 """The port's evaluation (``evaluation/metrics.py``, ``evaluation/driver.py``,
-``cli/metrics.py``), its NaN guards and profiling helpers (``utils/``) and
+``cli/metrics.py``), its NaN guards (``utils/guards.py``) and
 two device helpers (``ops/vertex_update.py::update_positions_depth``,
 ``ops/normalization.py::face_normals_device``) against the JAX package's.
 
@@ -42,13 +42,7 @@ from facet_graph_convolution_torch.geometry.mesh_math import compute_face_normal
 from facet_graph_convolution_torch.geometry.obj_io import write_obj
 from facet_graph_convolution_torch.ops.normalization import face_normals_device
 from facet_graph_convolution_torch.ops.vertex_update import update_positions_depth
-from facet_graph_convolution_torch.utils import (
-    StepTimer,
-    assert_finite_tree,
-    edges_per_second,
-    has_nonfinite,
-    trace_context,
-)
+from facet_graph_convolution_torch.utils import assert_finite_tree, has_nonfinite
 
 
 @pytest.fixture(scope="module")
@@ -184,18 +178,3 @@ def test_guards_match_jax(bad):
         with pytest.raises(FloatingPointError, match="params"):
             assert_finite_tree(ours, "params")
     assert not bool(has_nonfinite({"ints": torch.arange(3)}))
-
-
-def test_profiling_helpers(tmp_path):
-    timer = StepTimer(warmup=1, device="cpu")
-    for _ in range(3):
-        with timer:
-            torch.ones(8).sum()
-    assert len(timer.times) == 2 and 0 <= timer.best <= timer.mean
-    assert np.isnan(StepTimer().best)
-    with trace_context(None) as prof:
-        assert prof is None
-    with trace_context(str(tmp_path / "trace")) as prof:
-        torch.ones(64).cumsum(0)
-    assert prof is not None and (tmp_path / "trace" / "trace.json").stat().st_size > 0
-    assert edges_per_second(100, 0.5) == 200.0 and edges_per_second(1, 0.0) == float("inf")

@@ -3,7 +3,9 @@
 - Each subpackage's ``__init__`` re-exports the names that its JAX
   namesake's does, and no others, except the named lists: JAX-only entry
   points (``ops.JAX_ONLY``, and ``parallel.JAX_ONLY``: the node-minor forms
-  of names the port has in its one layout). ``parallel.NOT_YET_PORTED`` and
+  of names the port has in its one layout; ``utils.JAX_ONLY``: JAX's
+  profiling helpers, which the port's tracer replaces).
+  ``parallel.NOT_YET_PORTED`` and
   ``inference.NOT_YET_PORTED`` are empty. Every public function and class
   of each JAX ``parallel/`` and ``inference/`` module resolves in the
   port's module of the same name, but those lists and the named ones
@@ -53,7 +55,7 @@ from facet_graph_convolution_tpu.ops import init_facet_conv as jax_init_facet_co
 from facet_graph_convolution_tpu.ops import init_linear as jax_init_linear
 from facet_graph_convolution_tpu.ops.conv import FacetConvVariant as JaxVariant
 import facet_graph_convolution_torch
-from facet_graph_convolution_torch import graph, inference, ops, parallel
+from facet_graph_convolution_torch import graph, inference, ops, parallel, utils
 from facet_graph_convolution_torch.graph.convert import transpose_adjacency
 from facet_graph_convolution_torch.models.unet import init_unet
 from facet_graph_convolution_torch.ops.conv import FacetConvVariant, per_conv_variants
@@ -65,7 +67,8 @@ JAX_COUNTS = {"": 2, "data": 11, "evaluation": 12, "geometry": 34, "graph": 18,
               "inference": 8, "models": 10, "ops": 29, "parallel": 20, "training": 7,
               "utils": 5}
 LEFT_OUT = {"ops": set(ops.JAX_ONLY), "inference": set(inference.NOT_YET_PORTED),
-            "parallel": set(parallel.JAX_ONLY) | set(parallel.NOT_YET_PORTED)}
+            "parallel": set(parallel.JAX_ONLY) | set(parallel.NOT_YET_PORTED),
+            "utils": set(utils.JAX_ONLY)}
 
 
 def _module(package, sub):
