@@ -7,6 +7,16 @@ Phases, each fatal on failure:
 1. build: compile every CUDA kernel of the port from ``csrc/`` (one ``nvcc``
    per source, in parallel) and, beside them, the C++ host library
    ``csrc/graphlib.cpp`` (``g++``; the phase fails if it does not load);
+1b. bias + lrelu: the kernels of ``csrc/bias_lrelu.cu`` against autograd
+   through the chain ``lrelu(y + b)`` (``ops/normalization.py``) on the
+   card, h, dz and db bit for bit (inputs with ±0, z = ±0, ±inf and NaN),
+   two launches giving the same bits, at the U-Net's 7 lrelu shapes on the
+   largest patch of a noisy subdivision-5 icosphere (conv1 ... dconv1,
+   fc1 1024 wide with its bias) and at fc1 of the torus's level 0
+   (1,273,920 rows); each kernel's device ms beside the chain's and the
+   bound (9 B an element each way at the HBM rate). Its launch counters
+   are zeroed after it: the kernels' JSON entries count the launches of
+   the phases below, the main path's own;
 2. kernel: the facet-conv forward kernel (K1) against its plain PyTorch
    version on the card, at the 8 conv shapes of the largest patch of a
    noisy subdivision-5 icosphere (20,480 faces, two patches), on the real
@@ -1052,6 +1062,8 @@ def training_phase(dev, workdir):
     )
     from facet_graph_convolution_torch.geometry.obj_io import write_obj
     from facet_graph_convolution_torch.inference.driver import infer_normals
+    from facet_graph_convolution_torch.models import unet
+    from facet_graph_convolution_torch.ops import bias_lrelu_kernel as bl
     from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.training.trainer import patch_tensors, train_normals
 
@@ -1107,7 +1119,8 @@ def training_phase(dev, workdir):
         str(dev))
     gradient_check(state, cfg, first_patch, dev,
                    [(k1, "facet_conv_fwd", k1.facet_conv_fwd_plain),
-                    (k1, "facet_conv_bwd", k1.facet_conv_bwd_plain)], "K1/K2")
+                    (k1, "facet_conv_bwd", k1.facet_conv_bwd_plain),
+                    (unet, "bias_lrelu", bl.bias_lrelu_plain)], "K1/K2 and bias + lrelu")
 
     # the written params.pt serves a request
     v, f = shapes["chamfered_box"]
@@ -1797,14 +1810,16 @@ def vertex_gradient_check(state, cfg, tensors, rot, idx0, idx1):
     import torch
 
     from facet_graph_convolution_torch.models import losses, unet
+    from facet_graph_convolution_torch.ops import bias_lrelu_kernel as bl
     from facet_graph_convolution_torch.ops import facet_conv_kernel as k1
     from facet_graph_convolution_torch.ops import ms_solver_kernel as ms
     from facet_graph_convolution_torch.ops import tree_pool_kernel as k4
     from facet_graph_convolution_torch.training import trainer
 
     names = [(layer, k) for layer in sorted(state.params) for k in sorted(state.params[layer])]
-    originals = (unet.lrelu, unet.tree_pool, trainer.full_chamfer_loss)
-    lrelu, tree_pool, chamfer = originals
+    originals = (unet.bias_lrelu, unet.tree_pool, trainer.full_chamfer_loss)
+    _, tree_pool, chamfer = originals
+    act = [bl.bias_lrelu]             # the kernels, or the plain chain
     records = []                      # per step: its kinks, in call order
 
     def recorded(kind, value):
@@ -1814,11 +1829,12 @@ def vertex_gradient_check(state, cfg, tensors, rot, idx0, idx1):
         seen.append(value)
         return value
 
-    def check_lrelu(x, alpha=0.1):
-        # the derivative autograd takes of relu(x) - alpha * relu(-x)
+    def check_lrelu(y, b, alpha=0.1):
+        # the derivative autograd takes of relu(x) - alpha * relu(-x), x = y + b
+        x = y if b is None else y + b
         d = recorded("lrelu", torch.where(x > 0, 1.0, torch.where(x < 0, alpha, 0.0)).float())
-        y = lrelu(x, alpha)
-        return y if len(records) <= 3 else y.detach() + (x - x.detach()) * d.to(x.dtype)
+        h = act[0](y, b, alpha)
+        return h if len(records) <= 3 else h.detach() + (x - x.detach()) * d.to(x.dtype)
 
     def check_pool(x, steps=1, mode="max"):
         groups = x.reshape(-1, 2 ** steps, x.shape[1])
@@ -1849,20 +1865,23 @@ def vertex_gradient_check(state, cfg, tensors, rot, idx0, idx1):
     t64 = tensors._replace(**{f: getattr(tensors, f).double() for f in (
         "x", "vertices", "gt_vertices", "gt_normals")})
     runs = {}
-    # the plain step: the plain conv, the solver as in the step; the float64
-    # step: the plain conv and, under the naive solver, the plain loop under
-    # autograd with the plain K4 (the scale kernel and its adjoint take
-    # float32 only)
-    kernels = (k1.facet_conv_fwd, k1.facet_conv_bwd, ms.naive_scale, k4.tree_pool_ignore_zeros)
-    plain_conv = (k1.facet_conv_fwd_plain, k1.facet_conv_bwd_plain) + kernels[2:]
-    plains = plain_conv[:2] + (plain_scale, k4.tree_pool_ignore_zeros_plain)
+    # the plain step: the plain conv and lrelu chain, the solver as in the
+    # step; the float64 step: those and, under the naive solver, the plain
+    # loop under autograd with the plain K4 (the scale kernel and its
+    # adjoint, and the bias + lrelu kernels, take float32 only)
+    kernels = (k1.facet_conv_fwd, k1.facet_conv_bwd, ms.naive_scale, k4.tree_pool_ignore_zeros,
+               bl.bias_lrelu)
+    plain_conv = (k1.facet_conv_fwd_plain, k1.facet_conv_bwd_plain) + kernels[2:4] + (
+        bl.bias_lrelu_plain,)
+    plains = plain_conv[:2] + (plain_scale, k4.tree_pool_ignore_zeros_plain, bl.bias_lrelu_plain)
 
     def use(fns):
-        k1.facet_conv_fwd, k1.facet_conv_bwd, ms.naive_scale, k4.tree_pool_ignore_zeros = fns
+        k1.facet_conv_fwd, k1.facet_conv_bwd, ms.naive_scale, k4.tree_pool_ignore_zeros = fns[:4]
+        act[0] = fns[4]
 
     try:
-        unet.lrelu, unet.tree_pool, trainer.full_chamfer_loss = (check_lrelu, check_pool,
-                                                                  check_chamfer)
+        unet.bias_lrelu, unet.tree_pool, trainer.full_chamfer_loss = (check_lrelu, check_pool,
+                                                                       check_chamfer)
         for mode in ("as they are", "pinned to float64's"):
             use(kernels)
             kernel = grads(state.params, tensors, (rot, idx0, idx1))
@@ -1872,7 +1891,7 @@ def vertex_gradient_check(state, cfg, tensors, rot, idx0, idx1):
             runs[mode] = (kernel, plain, grads(p64, t64, (rot.double(), idx0, idx1)))
     finally:
         use(kernels)
-        unet.lrelu, unet.tree_pool, trainer.full_chamfer_loss = originals
+        unet.bias_lrelu, unet.tree_pool, trainer.full_chamfer_loss = originals
 
     def worst(a, b):
         errs = [(float((x - y).abs().max()) / (float(y.abs().max()) or 1.0), f"{n[0]}.{n[1]}")
@@ -4480,9 +4499,9 @@ def sharded_vertex_grad_check(dev, cfg, patch, group, state, draws):
     from facet_graph_convolution_torch.training import trainer
 
     rot, idx0, idx1 = draws
-    originals = (unet.lrelu, unet.tree_pool, trainer.full_chamfer_loss,
+    originals = (unet.bias_lrelu, unet.tree_pool, trainer.full_chamfer_loss,
                  vertex_train.sharded_chamfer_loss)
-    lrelu, tree_pool, chamfer, sharded_chamfer = originals
+    bias_lrelu, tree_pool, chamfer, sharded_chamfer = originals
     records, pin = [], {}
 
     def recorded(kind, value):
@@ -4492,10 +4511,11 @@ def sharded_vertex_grad_check(dev, cfg, patch, group, state, draws):
         seen.append(value)
         return value
 
-    def pinned_lrelu(x, alpha=0.1):
+    def pinned_lrelu(y, b, alpha=0.1):
+        x = y if b is None else y + b
         d = recorded("lrelu", torch.where(x > 0, 1.0, torch.where(x < 0, alpha, 0.0)).float())
-        y = lrelu(x, alpha)
-        return y.detach() + (x - x.detach()) * d if pin.get("on") else y
+        h = bias_lrelu(y, b, alpha)
+        return h.detach() + (x - x.detach()) * d if pin.get("on") else h
 
     def pinned_pool(x, steps=1, mode="max"):
         groups = x.reshape(-1, 2 ** steps, x.shape[1])
@@ -4529,8 +4549,8 @@ def sharded_vertex_grad_check(dev, cfg, patch, group, state, draws):
     shard = vertex_train.vertex_shard(arrays, group)
     tensors = trainer.vertex_patch_tensors(cfg, patch, str(dev))
     try:
-        unet.lrelu, unet.tree_pool, trainer.full_chamfer_loss = (pinned_lrelu, pinned_pool,
-                                                                  flat_chamfer)
+        unet.bias_lrelu, unet.tree_pool, trainer.full_chamfer_loss = (pinned_lrelu, pinned_pool,
+                                                                       flat_chamfer)
         vertex_train.sharded_chamfer_loss = pinned_sharded_chamfer
         records.append({})
         flat_loss = trainer.vertex_loss(state.params, cfg, tensors, rot, idx0, idx1)
@@ -4543,7 +4563,7 @@ def sharded_vertex_grad_check(dev, cfg, patch, group, state, draws):
             runs[mode] = (float(loss.detach()), _grads_of(loss, state.params))
     finally:
         pin["on"] = False
-        unet.lrelu, unet.tree_pool, trainer.full_chamfer_loss = originals[:3]
+        unet.bias_lrelu, unet.tree_pool, trainer.full_chamfer_loss = originals[:3]
         vertex_train.sharded_chamfer_loss = originals[3]
 
     def worst(got):
@@ -4860,6 +4880,141 @@ def multi_gpu_phases(dev, group, workdir, torus_mesh, trained):
             "fwd_bf16": dp["fwd_bf16"], "bwd_bf16": dp["bwd_bf16"], "pools": pools}
 
 
+BIAS_LRELU_TORUS_ROWS = 1_273_920   # level-0 rows of the halo phase's torus(1024, 512)
+BIAS_LRELU_CHUNK = 131_072          # rows a chunk of the chain at the torus's fc1
+
+
+def bias_lrelu_shapes(patch):
+    """The U-Net's 7 lrelus on ``patch`` as the train step runs them: (name,
+    rows, channels, bias) of conv1, conv2, conv3, dconv3, dconv2, dconv1
+    (their outputs, no bias) and fc1 (its product, its bias)."""
+    from facet_graph_convolution_torch.config import default_config
+
+    model = default_config().model
+    c1, c2, c3 = model.channels
+    rows = [a.shape[0] for a in patch.adjs]
+    return [("conv1", rows[0], c1, False), ("conv2", rows[1], c2, False),
+            ("conv3", rows[2], c3, False), ("dconv3", rows[2], c3, False),
+            ("dconv2", rows[1], c2, False), ("dconv1", rows[0], c1, False),
+            ("fc1", rows[0], model.fc_channels, True)]
+
+
+def bias_lrelu_inputs(rows, c, bias, gen, dev):
+    """y [rows, c] with exact zeros of both signs and, with a bias, entries
+    that cancel it (z = ±0), ±inf and NaN; b [c] or None; a cotangent dh."""
+    import torch
+
+    y = torch.randn(rows, c, generator=gen, device=dev) * 3.0
+    b = torch.randn(c, generator=gen, device=dev) * 0.5 if bias else None
+    y[0::97] = 0.0
+    y[1::97] = -0.0
+    if b is not None:
+        y[2::89] = -b
+    flat = y.view(-1)
+    flat[3::1009] = float("inf")
+    flat[4::1013] = -float("inf")
+    flat[5::1019] = float("nan")
+    return y, b, torch.randn(rows, c, generator=gen, device=dev)
+
+
+def bias_lrelu_chain(y, b, dh):
+    """h, dz and db by autograd through the chain the kernels replace."""
+    import torch
+
+    from facet_graph_convolution_torch.ops.normalization import lrelu
+
+    yg = y.detach().requires_grad_()
+    bg = None if b is None else b.detach().requires_grad_()
+    h = lrelu(yg if bg is None else yg + bg, 0.1)
+    grads = torch.autograd.grad(h, [yg] + ([] if bg is None else [bg]), dh)
+    return h.detach(), grads[0], (grads[1] if bg is not None else None)
+
+
+def same_bits(a, b, what):
+    import torch
+
+    if a.shape != b.shape or not torch.equal(a.contiguous().view(torch.int32),
+                                             b.contiguous().view(torch.int32)):
+        raise AssertionError(f"{what} differs from the chain's bits")
+
+
+def bias_lrelu_phase(dev, patch):
+    """The bias + lrelu kernels against autograd through ``lrelu(y + b)``
+    (``ops/normalization.py``) on the card: h, dz and db bit for bit (±0,
+    ±inf and NaN in the inputs), and two launches giving the same bits, at
+    the U-Net's 7 lrelu shapes on the largest subdivision-5 patch and at
+    fc1 of the torus's level 0 [1,273,920 × 1024] (the chain there in
+    chunks of rows); device ms of each kernel, the chain's forward and its
+    backward (dz, with no bias gradient), and the bound at the HBM rate
+    (9 B an element each way: f32 in and out, a 1-byte code). Returns
+    {"fwd" / "bwd": per train step of the patch, the sums over its 7
+    lrelus of ms, plain_ms and bound_ms}, and the torus's fc1 ms."""
+    import torch
+
+    from facet_graph_convolution_torch.ops import bias_lrelu_kernel as bl
+    from facet_graph_convolution_torch.ops.normalization import lrelu
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    sums = {d: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0} for d in ("fwd", "bwd")}
+    print("bias + lrelu phase: the kernels against autograd through lrelu(y + b), bit for bit "
+          "(h, dz, db), bitwise repeatable; device ms: 20 calls replayed from one CUDA graph; "
+          "plain bwd: the chain's forward and dz less its forward")
+    print("  %-8s %8s %5s %4s %9s %9s %9s %9s %9s" % (
+        "lrelu", "rows", "C", "b", "fwd_ms", "bwd_ms", "plain_fwd", "plain_bwd", "bound_ms"))
+
+    def check(y, b, dh, chunk):
+        h, code = bl.bias_lrelu_fwd(y, b, 0.1, need_code=True)
+        dz = bl.bias_lrelu_bwd(dh, code, 0.1)
+        h2, code2 = bl.bias_lrelu_fwd(y, b, 0.1, need_code=True)
+        same_bits(h2, h, "a second launch's h")
+        if not torch.equal(code2, code):
+            raise AssertionError("a second launch's codes differ")
+        same_bits(bl.bias_lrelu_bwd(dh, code2, 0.1), dz, "a second launch's dz")
+        del h2, code2
+        for r0 in range(0, y.shape[0], chunk):
+            part = slice(r0, r0 + chunk)
+            h_ref, dz_ref, _ = bias_lrelu_chain(y[part], b, dh[part])
+            same_bits(h[part], h_ref, f"h, rows {r0}+")
+            same_bits(dz[part], dz_ref, f"dz, rows {r0}+")
+        if b is not None and chunk >= y.shape[0]:
+            same_bits(dz.sum(0), bias_lrelu_chain(y, b, dh)[2], "db")
+        return code
+
+    for name, rows, c, bias in bias_lrelu_shapes(patch):
+        y, b, dh = bias_lrelu_inputs(rows, c, bias, gen, dev)
+        code = check(y, b, dh, rows)
+        yg = y.detach().requires_grad_()
+        fwd = graph_ms(lambda: bl.bias_lrelu_fwd(y, b, 0.1, need_code=True), 20)
+        bwd = graph_ms(lambda: bl.bias_lrelu_bwd(dh, code, 0.1), 20)
+        chain = graph_ms(lambda: lrelu(y if b is None else y + b, 0.1), 20)
+        chain_dz = graph_ms(lambda: torch.autograd.grad(
+            lrelu(yg if b is None else yg + b, 0.1), [yg], dh), 20)
+        bound = 1e3 * 9 * y.numel() / H100_BYTES_PER_S
+        for d, ms, plain in (("fwd", fwd, chain), ("bwd", bwd, chain_dz - chain)):
+            sums[d]["ms"] += ms
+            sums[d]["plain_ms"] += plain
+            sums[d]["bound_ms"] += bound
+        print("  %-8s %8d %5d %4s %9.5f %9.5f %9.5f %9.5f %9.5f" % (
+            name, rows, c, "yes" if bias else "no", fwd, bwd, chain, chain_dz - chain, bound))
+        del y, b, dh, code, yg
+    print("  %-8s %19s %9.5f %9.5f %9.5f %9.5f %9.5f" % (
+        "step", "", sums["fwd"]["ms"], sums["bwd"]["ms"], sums["fwd"]["plain_ms"],
+        sums["bwd"]["plain_ms"], sums["fwd"]["bound_ms"]))
+
+    y, b, dh = bias_lrelu_inputs(BIAS_LRELU_TORUS_ROWS, 1024, True, gen, dev)
+    code = check(y, b, dh, BIAS_LRELU_CHUNK)
+    torus = {"fwd": event_ms(lambda: bl.bias_lrelu_fwd(y, b, 0.1, need_code=True)),
+             "bwd": event_ms(lambda: bl.bias_lrelu_bwd(dh, code, 0.1))}
+    bound = 1e3 * 9 * y.numel() / H100_BYTES_PER_S
+    print(f"  torus fc1 [{BIAS_LRELU_TORUS_ROWS} x 1024]: bit for bit in chunks of "
+          f"{BIAS_LRELU_CHUNK} rows; fwd {torus['fwd']:.4f} ms, bwd {torus['bwd']:.4f} ms, "
+          f"bound {bound:.4f} each (bound / ms {bound / torus['fwd']:.3f}, "
+          f"{bound / torus['bwd']:.3f})")
+    del y, b, dh, code
+    torch.cuda.empty_cache()
+    return sums, torus
+
+
 def main() -> int:
     import torch
 
@@ -4868,6 +5023,7 @@ def main() -> int:
         return 2
     # fails outside the repo, before anything is printed
     from facet_graph_convolution_torch.config import default_config
+    from facet_graph_convolution_torch.ops import bias_lrelu_kernel as bl
     from facet_graph_convolution_torch.ops import cuda_library
 
     t_start = time.perf_counter()
@@ -4911,6 +5067,8 @@ def main() -> int:
         dev = torch.device("cuda", 0)
 
         patch = phase_patch()
+        bl_sums, bl_torus = bias_lrelu_phase(dev, patch)
+        bl.bias_lrelu_fwd.launches = bl.bias_lrelu_bwd.launches = 0
         err, totals, bound_by = kernel_phase(dev, patch)
         err2, totals2, bound_by2 = backward_kernel_phase(dev, patch)
         launches, _ = serving_phase(dev, workdir)
@@ -4934,6 +5092,11 @@ def main() -> int:
         parity_launches = parity_phase(dev, workdir)
         wang_launches = wang_phase(dev, workdir)
         halo = halo_phase(dev, workdir, trained)
+    bl_launches = {"fwd": bl.bias_lrelu_fwd.launches, "bwd": bl.bias_lrelu_bwd.launches}
+    if not bl_launches["fwd"] or not bl_launches["bwd"]:
+        raise AssertionError(f"the main path launched no bias + lrelu kernel: {bl_launches}")
+    print(f"bias + lrelu launches over the phases after its own: forward {bl_launches['fwd']}, "
+          f"backward {bl_launches['bwd']}")
     print("bf16 vs f32 graph step, whole subdivision-5 icosphere (ms a step; device busy share; "
           "activities a step; capture s; graph MiB):")
     for label, r in bf16["graphs"].items():
@@ -5113,7 +5276,28 @@ def main() -> int:
         "bound_by": halo["windowed"][dtype][d]["bound_by"],
         # no single PyTorch call computes the fused conv
         "library_ms": None,
-    } for dtype in ("f32", "bf16") for d in ("fwd", "bwd")]}))
+    } for dtype in ("f32", "bf16") for d in ("fwd", "bwd")] + [{
+        "name": f"bias_lrelu_{d}",
+        "route": "cuda",
+        "source": "facet_graph_convolution_torch/csrc/bias_lrelu.cu",
+        # no Pallas kernel: XLA fuses the JAX package's lrelu (and the fc
+        # layers' bias add before it), forward and VJP
+        "replaces": "facet_graph_convolution_tpu/ops/normalization.py:36",
+        # every phase after the bias + lrelu phase: training, graphs,
+        # streaming, serving, the halo phase's sharded and multi-mesh runs
+        "launches": bl_launches[d],
+        # bit for bit against the chain, or the phase fails
+        "max_abs_err": 0.0,
+        # per train step of the largest subdivision-5 patch: its 7 lrelus
+        "ms": bl_sums[d]["ms"],
+        "plain_ms": bl_sums[d]["plain_ms"],
+        "bound_ms": bl_sums[d]["bound_ms"],
+        "bound_by": "bytes",
+        # at fc1 of the torus's level 0 [1,273,920 x 1024], one launch
+        "torus_fc1_ms": bl_torus[d],
+        # no single PyTorch call: F.leaky_relu takes gradient alpha at 0
+        "library_ms": None,
+    } for d in ("fwd", "bwd")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,12 +13,13 @@ of B patches padded to one bucket, builds the block-diagonal tables of
 :func:`..graph.convert.batched_level_tables` with the widths the program was
 exported for, and runs the program.
 
-A loading process imports this module, which imports the port's ops module
-:mod:`..ops.facet_conv_kernel` (importing it registers K1 as the operator
-``torch.ops.facet_graph_convolution.facet_conv_fwd``, which the program
-calls), the NumPy table builder :mod:`..graph.convert` and :mod:`..config`,
-and nothing of the model code (``models/``). On CUDA inputs the program
-launches K1; on CPU inputs, its plain version.
+A loading process imports this module, which imports the port's ops modules
+:mod:`..ops.facet_conv_kernel` and :mod:`..ops.bias_lrelu_kernel` (importing
+them registers K1 and the bias + lrelu kernel as the operators
+``torch.ops.facet_graph_convolution.facet_conv_fwd`` and ``.bias_lrelu``,
+which the program calls), the NumPy table builder :mod:`..graph.convert` and
+:mod:`..config`, and nothing of the model code (``models/``). On CUDA inputs
+the program launches the kernels; on CPU inputs, their plain versions.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 
 from facet_graph_convolution_torch.config import resolve_device
 from facet_graph_convolution_torch.graph.convert import batched_level_tables
+from facet_graph_convolution_torch.ops import bias_lrelu_kernel  # noqa: F401  (registers it)
 from facet_graph_convolution_torch.ops import facet_conv_kernel  # noqa: F401  (registers K1)
 
 META_FILE = "facet_graph_convolution_forward.json"

@@ -381,7 +381,8 @@ def export_forward(
     The program takes the kernel's tables, built beside it by the loader
     with ``adj_widths[l] − 1`` neighbour slots a level (the most a K-list of
     that width can need), so one program serves every request of its
-    shapes; K1 is the opaque operator of :mod:`..ops.facet_conv_kernel` in it.
+    shapes; K1 and the bias + lrelu kernel are opaque operators in it
+    (:mod:`..ops.facet_conv_kernel`, :mod:`..ops.bias_lrelu_kernel`).
     By default the parameters are an argument (a dict with ``params``'s
     structure), so a new checkpoint swaps in without exporting again;
     ``bake_params=True`` stores them in the program instead.

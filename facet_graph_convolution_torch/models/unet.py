@@ -17,6 +17,9 @@ rotation-invariant one: conv1 rotation-invariant (through K3), the other 7
 convs default (through K1 and K2), per :func:`..ops.conv.per_conv_variants`.
 :func:`unet_apply_rowmajor` is the JAX package's row-major ``unet_apply``
 over raw one-indexed K-lists, in plain PyTorch: the port's own oracle.
+Each lrelu, with an fc layer's bias add before it, is
+:func:`..ops.bias_lrelu_kernel.bias_lrelu`: on the card one hand-written
+kernel each way in place of the elementwise chain, with the chain's bits.
 Parameters are a plain dict of tensors with the JAX package's keys and
 layouts (:mod:`..params`).
 """
@@ -45,7 +48,7 @@ from facet_graph_convolution_torch.ops.conv import (
     linear,
     per_conv_variants,
 )
-from facet_graph_convolution_torch.ops.normalization import lrelu
+from facet_graph_convolution_torch.ops.bias_lrelu_kernel import bias_lrelu
 from facet_graph_convolution_torch.ops.pooling import tree_pool, tree_unpool
 
 Output = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -115,8 +118,13 @@ def _out(params: Dict[str, torch.Tensor], h: torch.Tensor,
     return head_reduce(h @ params["w"]) + params["b"]
 
 
+def _fc_lrelu(params: Dict[str, torch.Tensor], x: torch.Tensor, alpha: float) -> torch.Tensor:
+    """``lrelu(linear(params, x))``, the bias added in the activation's pass."""
+    return bias_lrelu(x @ params["w"], params["b"], alpha)
+
+
 def _fine_head(fc1, out0, d1, alpha, head_reduce=None):
-    return _out(out0, lrelu(linear(fc1, d1), alpha), head_reduce)
+    return _out(out0, _fc_lrelu(fc1, d1, alpha), head_reduce)
 
 
 def _network(params: Dict, x: torch.Tensor, conv: Callable, levels: int,
@@ -135,43 +143,43 @@ def _network(params: Dict, x: torch.Tensor, conv: Callable, levels: int,
     if levels == 1 and multi_scale:
         raise ValueError("multi_scale heads need the 3-level pyramid; got a single "
                          "adjacency level (the reference hard-codes 3 levels, settings.py:32)")
-    h1 = lrelu(conv("conv1", x, 0), alpha)
+    h1 = bias_lrelu(conv("conv1", x, 0), None, alpha)
     record("conv1_act", h1)
     if levels == 1:
-        h = lrelu(linear(params["fc1"], h1), alpha)
+        h = _fc_lrelu(params["fc1"], h1, alpha)
         return _out(params["out0"], h, head_reduce)
 
     p1 = tree_pool(h1, steps=coarsening_steps)
     record("pool1", p1)
-    h2 = lrelu(conv("conv2", p1, 1), alpha)
+    h2 = bias_lrelu(conv("conv2", p1, 1), None, alpha)
     p2 = tree_pool(h2, steps=coarsening_steps)
     record("pool2", p2)
-    h3 = lrelu(conv("conv3", p2, 2), alpha)
-    d3 = lrelu(conv("dconv3", h3, 2), alpha)
+    h3 = bias_lrelu(conv("conv3", p2, 2), None, alpha)
+    d3 = bias_lrelu(conv("dconv3", h3, 2), None, alpha)
 
     u2 = tree_unpool(d3, steps=coarsening_steps)
     record("upsamp2", u2)
     u2 = conv("upconv2", u2, 1)
-    d2 = lrelu(conv("dconv2", torch.cat([u2, h2], dim=-1), 1), alpha)
+    d2 = bias_lrelu(conv("dconv2", torch.cat([u2, h2], dim=-1), 1), None, alpha)
 
     u1 = tree_unpool(d2, steps=coarsening_steps)
     record("upsamp1", u1)
     u1 = conv("upconv1", u1, 0)
-    d1 = lrelu(conv("dconv1", torch.cat([u1, h1], dim=-1), 0), alpha)
+    d1 = bias_lrelu(conv("dconv1", torch.cat([u1, h1], dim=-1), 0), None, alpha)
 
     if remat_head:
         y_fine = torch.utils.checkpoint.checkpoint(
             _fine_head, params["fc1"], params["out0"], d1, alpha, head_reduce,
             use_reentrant=False)
     else:
-        h = lrelu(linear(params["fc1"], d1), alpha)
+        h = _fc_lrelu(params["fc1"], d1, alpha)
         record("fc1", h)
         y_fine = _out(params["out0"], h, head_reduce)
     record("out0", y_fine)
     if not multi_scale:
         return y_fine
-    y_mid = _out(params["out1"], lrelu(linear(params["fc_mid"], d2), alpha), head_reduce)
-    y_coarse = _out(params["out2"], lrelu(linear(params["fc_coarse"], d3), alpha), head_reduce)
+    y_mid = _out(params["out1"], _fc_lrelu(params["fc_mid"], d2, alpha), head_reduce)
+    y_coarse = _out(params["out2"], _fc_lrelu(params["fc_coarse"], d3, alpha), head_reduce)
     return y_fine, y_mid, y_coarse
 
 
@@ -234,7 +242,9 @@ def unet_apply_rowmajor(
     """The same network over raw one-indexed K-lists ``adjs`` [N, K] per
     level (slot 0 = self, 0 = pad; 1 or 3 levels), every conv the plain
     :func:`..ops.conv.facet_conv_rowmajor` (the JAX package's row-major
-    ``unet_apply``, ``models/unet.py:91-179``). No kernel runs."""
+    ``unet_apply``, ``models/unet.py:91-179``). Each lrelu is
+    :func:`..ops.bias_lrelu_kernel.bias_lrelu`, as in :func:`unet_apply`:
+    the chain on CPU tensors, the bias + lrelu kernels on CUDA ones."""
     v_first, v_rest = per_conv_variants(variant)
 
     def conv(name, h, level):

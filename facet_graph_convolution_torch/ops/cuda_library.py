@@ -25,7 +25,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(CSRC, "build")
 KERNELS = ("facet_conv_fwd", "facet_conv_bwd", "facet_conv_bwd_bf16", "tree_pool_iz",
            "weighted_aggregate", "ms_solver_naive", "ms_solver_naive_bwd", "windowed_conv_fwd",
-           "windowed_conv_bwd", "trace_mark")
+           "windowed_conv_bwd", "trace_mark", "bias_lrelu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -27,10 +27,15 @@
   ``ops/conv.py``.
 - ``ops.gather_slot_major`` (the port's ``gather_slots``) gives JAX's
   values exactly and its gradients within float32 reordering.
+- The exported forward holds the bias + lrelu kernel as an opaque
+  operator, once a conv that takes lrelu and once for ``fc1``, and runs
+  the chain on the CPU: the eager forward's bits, no launch (its card
+  counterpart is in ``tests/test_torch_bias_lrelu.py``).
 """
 
 import ast
 import importlib
+import io
 import os
 
 import jax
@@ -337,3 +342,39 @@ def test_gather_slot_major_equals_jax():
     got.backward(torch.as_tensor(g))
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), rtol=1e-6,
                                atol=1e-6)
+
+
+def test_exported_forward_holds_the_bias_lrelu_operator():
+    from facet_graph_convolution_torch.config import default_config
+    from facet_graph_convolution_torch.graph.convert import batched_level_tables
+    from facet_graph_convolution_torch.inference.exported import load_forward
+    from facet_graph_convolution_torch.inference.serving import batched_forward, export_forward
+    from facet_graph_convolution_torch.ops import bias_lrelu_kernel
+
+    cfg = default_config().replace(model={"channels": (8, 16, 32), "num_filters": 4,
+                                          "fc_channels": 64})
+    params = init_unet(seed=3, channels=(8, 16, 32), num_filters=4, fc_channels=64,
+                       device="cpu")
+    data = export_forward(cfg, params, num_nodes=256, adj_widths=(23, 23, 23))
+    program = torch.export.load(io.BytesIO(data))
+    op = torch.ops.facet_graph_convolution.bias_lrelu.default
+    assert sum(node.target is op for node in program.graph.nodes) == 7
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(1, 256, 6)).astype(np.float32)
+    adjs = []
+    for n in (256, 64, 16):
+        a = np.zeros((1, n, 23), np.int32)
+        a[0, :, 0] = np.arange(n) + 1
+        a[0, :, 1] = rng.integers(1, n + 1, size=n)
+        adjs.append(a)
+    fn = load_forward(data, device="cpu")
+    before = bias_lrelu_kernel.bias_lrelu_fwd.launches
+    y = fn(params, x, *adjs)
+    assert bias_lrelu_kernel.bias_lrelu_fwd.launches == before
+    tables = batched_level_tables(adjs, fn.meta["group"], fn.meta["widths"])
+    with torch.no_grad():
+        ref = batched_forward(params, torch.as_tensor(x), [torch.as_tensor(a) for a, _ in tables],
+                              [torch.as_tensor(r) for _, r in tables],
+                              coarsening_steps=cfg.model.coarsening_steps,
+                              alpha=cfg.model.lrelu_alpha)
+    assert torch.equal(y.view(torch.int32), ref.view(torch.int32))

@@ -185,6 +185,7 @@ import sys
 import facet_graph_convolution_torch.inference.exported
 import torch
 assert hasattr(torch.ops.facet_graph_convolution, "facet_conv_fwd")
+assert hasattr(torch.ops.facet_graph_convolution, "bias_lrelu")
 assert not [m for m in sys.modules if m.startswith("facet_graph_convolution_torch.models")]
 assert not [m for m in sys.modules if m.startswith(("jax", "facet_graph_convolution_tpu"))]
 """
@@ -192,8 +193,8 @@ assert not [m for m in sys.modules if m.startswith(("jax", "facet_graph_convolut
 
 def test_export_roundtrip(weights, tmp_path):
     """Baked parameters: a self-contained artifact, written and read back,
-    equal to the direct forward; the loader's module registers K1 and
-    imports no model code."""
+    equal to the direct forward; the loader's module registers K1 and the
+    bias + lrelu operator and imports no model code."""
     _, cfg = _cfgs()
     params = weights[False][1]
     patch = _bucketed_patch(cfg)
