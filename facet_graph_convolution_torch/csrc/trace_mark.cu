@@ -27,5 +27,9 @@ FGC_MARK(solver_begin)
 FGC_MARK(solver_end)
 FGC_MARK(solver_bwd_begin)
 FGC_MARK(solver_bwd_end)
+FGC_MARK(rotinv_begin)
+FGC_MARK(rotinv_end)
+FGC_MARK(rotinv_bwd_begin)
+FGC_MARK(rotinv_bwd_end)
 
 #undef FGC_MARK

@@ -51,6 +51,7 @@ from facet_graph_convolution_torch.ops.gather import (
     gather_slots,
     neighbor_counts,
 )
+from facet_graph_convolution_torch.utils.profiling import mark_grad
 
 
 class FacetConvVariant(str, enum.Enum):
@@ -211,13 +212,23 @@ def _facet_conv_rotinv(params, x, adj_sm, adj_t_sm, rows, compute_dtype, src):
     pad slots, and serve both the features and K3. The features and the
     logits are in x's dtype; K3 takes the logits and the slots' multipliers
     and computes the softmax·mult and the slot sums in one launch, with the
-    slots in ``compute_dtype`` (None: x's)."""
+    slots in ``compute_dtype`` (None: x's).
+
+    The conv's own work lies between the device marks ``rotinv_begin`` and
+    ``rotinv_end`` (the gather, the features, the logits and K3) and, in
+    the backward, ``rotinv_bwd_begin`` (z's cotangent in) and
+    ``rotinv_bwd_end`` (the assignment's ``u`` and ``c`` gradients in: K3's
+    backward and the logits'); ``utils/profiling.py::mark_grad``. Where x
+    takes a gradient too, its last part may follow ``rotinv_bwd_end``."""
+    u, c = mark_grad([params["u"], params["c"]], "rotinv_begin", "rotinv_bwd_end")
     x_slots = torch.cat([x[None], gather_slots(src, adj_sm, adj_t_sm)], dim=0)  # [S, N', C]
     feats = _rotation_invariant_feats(x, x_slots[1:], self_slot=True)          # [S, N', C]
-    logits = feats @ params["u"].T + params["c"]                               # [S, N', M]
+    logits = feats @ u.T + c                                                   # [S, N', M]
     if compute_dtype is not None:
         x_slots = x_slots.to(compute_dtype)
-    return WeightedAggregate.apply(logits.contiguous(), rows.contiguous(), x_slots)
+    z = WeightedAggregate.apply(logits.contiguous(), rows.contiguous(), x_slots)
+    (z,) = mark_grad([z], "rotinv_end", "rotinv_bwd_begin")
+    return z
 
 
 def facet_conv(

@@ -42,7 +42,8 @@ import torch
 
 # the marks: each a kernel and its launcher in csrc/trace_mark.cu
 MARKS = ("step_begin", "fwd_end", "bwd_end", "opt_end",
-         "solver_begin", "solver_end", "solver_bwd_begin", "solver_bwd_end")
+         "solver_begin", "solver_end", "solver_bwd_begin", "solver_bwd_end",
+         "rotinv_begin", "rotinv_end", "rotinv_bwd_begin", "rotinv_bwd_end")
 
 _TOTALS: Dict[str, list] = {}       # name → [count, seconds, outermost seconds]
 _OPEN: Dict[str, int] = {}          # prefix → spans of it open now
